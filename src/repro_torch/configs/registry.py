@@ -1,0 +1,19 @@
+"""Architecture registry: ``--arch <id>`` resolution for the ported models."""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ARCHS = {
+    "wan2.1-1.3b": "repro_torch.configs.wan2_1_mmdit",
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    return importlib.import_module(ARCHS[arch]).config()
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return importlib.import_module(ARCHS[arch]).smoke_config()

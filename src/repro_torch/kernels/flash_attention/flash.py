@@ -1,0 +1,109 @@
+"""Wrapper and ctypes binding of the segment-aware flash-attention forward
+(``csrc/flash_fwd.cu``).
+
+``flash_fwd`` takes CUDA tensors only, in the model's ``[B, S, H, dh]``
+layout (strided views are fine as long as the last axis is contiguous), and
+counts each launch in ``flash_fwd.launches``.  The plain version is
+``ref.attention_ref``.  :func:`live_tile_pairs` counts the (q tile, kv
+tile) pairs the kernel's skip rule runs, for the work bound.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = [_P] * 7 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _I, _P]
+HEAD_DIMS = (32, 64, 128)
+Q_TILE = 64  # BQ of the source
+KV_TILE = 64  # BK of the source
+
+
+def flash_fwd(q, k, v, q_segment_ids=None, kv_segment_ids=None, *,
+              causal: bool = False, scale: float | None = None):
+    """Segment-aware attention on the card.
+
+    q: [B, Sq, Hq, dh]; k, v: [B, Skv, Hkv, dh] (Hq % Hkv == 0); dh in
+    {32, 64, 128}; bf16 or f32.  Segment ids: int32 [B, Sq] / [B, Skv],
+    both or neither.  Returns ``(out [B, Sq, Hq, dh], lse [B, Hq, Sq] f32)``.
+    """
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("pass both q_segment_ids and kv_segment_ids, or neither")
+    segs = () if q_segment_ids is None else (q_segment_ids, kv_segment_ids)
+    _build.require_cuda("flash_fwd", q, k, v, *segs)
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_fwd needs q [B, Sq, Hq, dh] and k, v [B, Skv, Hkv, dh]")
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != dh or dh not in HEAD_DIMS:
+        raise ValueError(f"flash_fwd: shapes {tuple(q.shape)}, {tuple(k.shape)}; "
+                         f"head_dim must be one of {HEAD_DIMS}")
+    if hq % hkv:
+        raise ValueError(f"GQA needs Hq % Hkv == 0, got Hq={hq}, Hkv={hkv}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("flash_fwd needs q, k, v all bf16 or all f32")
+    vec = 16 // q.element_size()
+    if not all(_build.aligned(t, vec) for t in (q, k, v)):
+        raise ValueError("flash_fwd needs 16-byte aligned rows of q, k and v")
+    if segs:
+        for ids, n in zip(segs, (sq, skv)):
+            if ids.shape != (b, n) or ids.dtype != torch.int32 or not ids.is_contiguous():
+                raise ValueError("flash_fwd needs contiguous int32 segment ids [B, S]")
+    scale = float(scale) if scale is not None else dh**-0.5
+    out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if b * sq == 0:
+        return out, lse
+    fn = _build.bind("flash_fwd", "flash_fwd", _ARGTYPES)
+    with torch.cuda.device(q.device):
+        code = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            segs[0].data_ptr() if segs else None,
+            segs[1].data_ptr() if segs else None,
+            out.data_ptr(), lse.data_ptr(),
+            b, hq, hkv, sq, skv, dh,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            scale, int(causal), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(code, "flash_fwd")
+    flash_fwd.launches += 1
+    return out, lse
+
+
+flash_fwd.launches = 0
+
+
+def _tile_ranges(ids, tile: int):
+    """Per-tile (min, max) of ids [B, S]; a ragged last tile covers its real
+    entries only, as in the kernel."""
+    b, s = ids.shape
+    pad = -s % tile
+    if pad:
+        ids = torch.cat([ids, ids[:, -1:].expand(b, pad)], dim=1)
+    t = ids.reshape(b, -1, tile)
+    return t.amin(dim=-1), t.amax(dim=-1)
+
+
+def live_tile_pairs(sq: int, skv: int, q_segment_ids=None, kv_segment_ids=None,
+                    *, causal: bool = False, batch: int = 1) -> int:
+    """Number of (q tile, kv tile) pairs the kernel computes, summed over the
+    batch (multiply by the head count for a whole launch).  A pair runs
+    unless the causal triangle excludes it or its segment-id ranges are
+    disjoint."""
+    nq, nk = -(-sq // Q_TILE), -(-skv // KV_TILE)
+    live = torch.ones((1, nq, nk), dtype=torch.bool)
+    if causal:
+        qi = torch.arange(nq)[:, None]
+        kj = torch.arange(nk)[None, :]
+        live = live & ((qi + 1) * Q_TILE - 1 >= kj * KV_TILE)[None]
+    if q_segment_ids is not None:
+        q_lo, q_hi = _tile_ranges(q_segment_ids.cpu(), Q_TILE)
+        k_lo, k_hi = _tile_ranges(kv_segment_ids.cpu(), KV_TILE)
+        live = live & (q_lo[:, :, None] <= k_hi[:, None, :]) & (k_lo[:, None, :] <= q_hi[:, :, None])
+        return int(live.sum())
+    return int(live.sum()) * batch

@@ -1,0 +1,27 @@
+"""Plain PyTorch version of the fused LayerNorm-Modulate forward (AdaLN).
+
+The operator (paper §3.3): given activations ``x [B, S, D]`` and
+per-sample modulation ``scale, shift [B, D]``,
+
+    x_hat = (x - mean(x)) / sqrt(var(x) + eps)        (LayerNorm, no affine)
+    y     = x_hat * (1 + scale) + shift               (Modulate)
+
+Statistics are fp32 whatever the input dtype.  This is the counterpart of
+``repro.kernels.fused_adaln.ref.adaln_naive``; it also returns the
+statistics the CUDA kernel emits for the backward.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def adaln_modulate_ref(x, scale, shift, eps: float = 1e-6):
+    """Returns ``(y [B,S,D] in x.dtype, mu [B,S] f32, rstd [B,S] f32)``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    x_hat = (xf - mu) * rstd
+    y = x_hat * (1.0 + scale.float()[..., None, :]) + shift.float()[..., None, :]
+    return y.to(x.dtype), mu[..., 0], rstd[..., 0]

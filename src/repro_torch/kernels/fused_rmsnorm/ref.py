@@ -1,0 +1,29 @@
+"""Plain PyTorch version of the RMSNorm forward used as QK-norm.
+
+``y = x * rsqrt(mean(x²) + eps) * w`` over the last axis, stats in fp32 —
+the counterpart of ``repro.kernels.fused_rmsnorm.ref.rms_norm_naive``,
+also returning the ``rstd`` rows the CUDA kernel emits for the backward.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def rms_norm_ref(x, w, eps: float = 1e-6):
+    """Returns ``(y in x.dtype, rstd [x.shape[:-1]] f32)``."""
+    xf = x.float()
+    rstd = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    y = xf * rstd * w.float()
+    return y.to(x.dtype), rstd[..., 0]
+
+
+def qk_norm_ref(q, k, wq, wk, eps: float = 1e-6):
+    """Per-head RMSNorm of q and k (paper's QNorm+KNorm).
+
+    q: [..., Hq, dh], k: [..., Hk, dh]; wq/wk: [dh].  Returns
+    ``(q_norm, k_norm, rstd_q, rstd_k)``.
+    """
+    yq, rq = rms_norm_ref(q, wq, eps)
+    yk, rk = rms_norm_ref(k, wk, eps)
+    return yq, yk, rq, rk

@@ -1,0 +1,110 @@
+"""Where a serving wave's device time goes, measured with ``torch.profiler``.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+
+Builds Wan-2.1 1.3B (random weights from seed 0) on the GPU, admits three
+clips of 1, 2 and 3 latent frames at 480x832 into a 4-slot engine (the
+fourth slot stays empty, as in ``chip_smoke.py``'s first waves), runs one
+wave to warm up, then profiles two more.  Prints one JSON object:
+device time by kernel family (the port's three kernels, cuBLAS matrix
+products, elementwise/reduction, copies, other), the device's busy time,
+and its idle share of the window from the first kernel's start to the
+last kernel's end.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import get_config
+from repro_torch.launch.serve import DEMO_MODEL
+from repro_torch.models.mmdit import MMDiT
+from repro_torch.serve import DiffusionServeEngine, ServeConfig
+
+FAMILIES = (  # (family, substrings of the kernel name), first match wins
+    ("K7 flash_fwd", ("flash_fwd_kernel",)),
+    ("K1 adaln_fwd", ("adaln_fwd_kernel",)),
+    ("K4 qk_rms_fwd", ("qk_rms_fwd_kernel",)),
+    ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+    ("copy", ("memcpy", "memset", "copy")),
+    ("elementwise / reduce", ("elementwise", "reduce", "vectorized", "cat", "index")),
+)
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+def breakdown(kernels: list[tuple[str, float, float]]) -> dict:
+    """``kernels``: (name, start_us, end_us) of every device kernel.  Busy
+    time is the union of their intervals; idle is the rest of the window."""
+    by_family: dict[str, float] = {}
+    for name, t0, t1 in kernels:
+        by_family[family(name)] = by_family.get(family(name), 0.0) + (t1 - t0)
+    spans = sorted((t0, t1) for _, t0, t1 in kernels)
+    busy, cur0, cur1 = 0.0, *spans[0]
+    for t0, t1 in spans[1:]:
+        if t0 > cur1:
+            busy += cur1 - cur0
+            cur0, cur1 = t0, t1
+        else:
+            cur1 = max(cur1, t1)
+    busy += cur1 - cur0
+    window = max(t1 for _, t1 in spans) - spans[0][0]
+    return {
+        "device_ms_by_family": {k: v / 1e3 for k, v in sorted(by_family.items())},
+        "busy_ms": busy / 1e3,
+        "window_ms": window / 1e3,
+        "idle_share": 1.0 - busy / window,
+    }
+
+
+WAVES = 2
+FRAME = 1560  # latent tokens per frame at 480x832
+
+
+def main() -> dict:
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_serve measures the GPU; no CUDA device is visible")
+    cfg = get_config("wan2.1-1.3b")
+    mmdit = MMDiT(cfg, seed=0)
+    max_seq = 4 * FRAME
+    serve = ServeConfig(target_step=1e9, page_size=FRAME, num_pages=16,
+                        decode_slots=4, max_seq=max_seq)
+    eng = DiffusionServeEngine(mmdit, cfg, DEMO_MODEL, serve)
+    rng = np.random.default_rng(0)
+    for frames in (1, 2, 3):
+        eng.submit(
+            rng.standard_normal((frames * FRAME, cfg.in_channels * 4)).astype(np.float32),
+            rng.standard_normal((cfg.text_len, eng.TEXT_DIM)).astype(np.float32),
+            n_steps=WAVES + 1,
+        )
+    eng.step()  # admission and the first wave
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(WAVES):
+            eng.step()
+        torch.cuda.synchronize()
+    kernels = [
+        (e.name, e.time_range.start, e.time_range.end)
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device kernel")
+    out = {"device": torch.cuda.get_device_name(0), "waves": WAVES,
+           "tokens_per_wave": 4 * max_seq, **breakdown(kernels)}
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,172 @@
+"""Wan-2.1-style video diffusion transformer (the paper's home architecture).
+
+Block layout (Wan 2.1 / DiT-with-cross-attn, AdaLN conditioning):
+
+    m = t_emb-derived modulation (6 x [B, d]: shift/scale/gate x 2)
+    x = x + gate1 * self_attn( adaln_modulate(x, scale1, shift1) )   <- K1, K4, K7
+    x = x + cross_attn( norm3(x), text )                             <- K7
+    x = x + gate2 * mlp( adaln_modulate(x, scale2, shift2) )         <- K1
+
+The counterpart of ``repro.models.mmdit``: the same parameters under the
+same names (a Python loop over ``n_layers`` block modules takes the place
+of ``lax.scan`` over the stacked ``blocks`` axis), the same arithmetic,
+and the three fused operators routed through ``repro_torch.kernels``,
+which picks the CUDA kernel or the plain version by the tensors' device.
+
+Activations run in the configuration's dtype: the latents and text are cast
+to it on entry.  (The JAX forward promotes to f32 when handed f32 latents
+with bf16 weights; for an f32 configuration the two are the same.)
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch import kernels, resolve_device
+
+from .config import ModelConfig
+from .layers import MLP, Norm, apply_mlp, apply_norm, dense_init
+
+TEXT_DIM = 4096  # umt5-xxl width of the text-encoder states
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def timestep_embedding(t, dim: int, max_period: float = 10_000.0):
+    """Sinusoidal embedding of diffusion time t in [0, 1] -> [B, dim]."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=t.device) / half
+    )
+    ang = t.float()[:, None] * 1000.0 * freqs[None]
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+class Block(nn.Module):
+    """One MMDiT block's parameters (``repro.models.mmdit._block_params``)."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype, device):
+        super().__init__()
+        d, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+        self.wqkv = dense_init(gen, d, 3 * h * dh, dtype, device)
+        self.wo = dense_init(gen, h * dh, d, dtype, device)
+        self.qnorm = nn.Parameter(torch.ones(dh, dtype=torch.float32, device=device))
+        self.knorm = nn.Parameter(torch.ones(dh, dtype=torch.float32, device=device))
+        self.xq = dense_init(gen, d, h * dh, dtype, device)
+        self.xkv = dense_init(gen, d, 2 * h * dh, dtype, device)
+        self.xo = dense_init(gen, h * dh, d, dtype, device)
+        self.norm3 = Norm(d, device)
+        self.mlp = MLP(gen, d, cfg.d_ff, dtype, device)
+        # per-block learned bias on the 6 shared modulation signals (Wan-style)
+        self.mod_bias = nn.Parameter(torch.zeros((6, d), dtype=torch.float32, device=device))
+
+
+def _block(bp: Block, x, txt, mod, cfg: ModelConfig, ops,
+           segment_ids=None, text_segment_ids=None):
+    """mod: [B, 6, d] modulation signals (shared t-emb + per-block bias).
+
+    ``segment_ids`` ([B, S] int32, -1 = padding) scope self-attention;
+    ``text_segment_ids`` ([B, S_txt] int32) additionally scope
+    cross-attention to each clip's own prompt.  Without them the text
+    stream is shared and cross-attention stays unsegmented.
+    """
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.head_dim
+    m = mod + bp.mod_bias[None]
+    shift1, scale1, gate1 = m[:, 0], m[:, 1], m[:, 2]
+    shift2, scale2, gate2 = m[:, 3], m[:, 4], m[:, 5]
+
+    # --- self attention with fused AdaLN-modulate; q, k, v stay views of qkv
+    hmod = ops.adaln_modulate(x, scale1, shift1)
+    qkv = hmod @ bp.wqkv
+    q = qkv[..., : h * dh].reshape(b, s, h, dh)
+    k = qkv[..., h * dh : 2 * h * dh].reshape(b, s, h, dh)
+    v = qkv[..., 2 * h * dh :].reshape(b, s, h, dh)
+    q, k = ops.qk_norm(q, k, bp.qnorm, bp.knorm)
+    ctx = ops.attention(
+        q, k, v, causal=False,
+        q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+    )
+    x = x + gate1[:, None, :].to(x.dtype) * (ctx.reshape(b, s, h * dh) @ bp.wo)
+
+    # --- cross attention to text (segment-scoped for packed windows)
+    hn = apply_norm(bp.norm3, x, "layernorm", cfg.norm_eps)
+    qx = (hn @ bp.xq).reshape(b, s, h, dh)
+    n = txt.shape[1]
+    kvx = txt @ bp.xkv
+    kx = kvx[..., : h * dh].reshape(b, n, h, dh)
+    vx = kvx[..., h * dh :].reshape(b, n, h, dh)
+    ctx2 = ops.attention(
+        qx, kx, vx, causal=False,
+        q_segment_ids=segment_ids if text_segment_ids is not None else None,
+        kv_segment_ids=text_segment_ids,
+    )
+    x = x + ctx2.reshape(b, s, h * dh) @ bp.xo
+
+    # --- MLP with fused AdaLN-modulate
+    hmod2 = ops.adaln_modulate(x, scale2, shift2)
+    return x + gate2[:, None, :].to(x.dtype) * apply_mlp(bp.mlp, hmod2)
+
+
+class MMDiT(nn.Module):
+    """The Wan-2.1-style MMDiT with weights drawn from ``seed``.
+
+    Runs on CUDA unless ``device`` names another device; raises when no GPU
+    is visible and no device is named.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None):
+        super().__init__()
+        if cfg.family != "mmdit":
+            raise ValueError(f"MMDiT needs an mmdit config, got {cfg.family!r}")
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.dtype = DTYPES[cfg.dtype]
+        gen = torch.Generator(device=device).manual_seed(seed)
+        d, dt = cfg.d_model, self.dtype
+        in_dim = cfg.in_channels * 4  # 1x2x2 latent patchify
+        self.x_in = dense_init(gen, in_dim, d, dt, device)
+        self.txt_in = dense_init(gen, TEXT_DIM, d, dt, device)
+        self.t_mlp1 = dense_init(gen, 256, d, dt, device)
+        self.t_mlp2 = dense_init(gen, d, 6 * d, dt, device)
+        self.final_mod = dense_init(gen, d, 2 * d, dt, device)
+        self.x_out = dense_init(gen, d, in_dim, dt, device)
+        self.blocks = nn.ModuleList(Block(cfg, gen, dt, device) for _ in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.x_in.device
+
+    def forward(
+        self,
+        latents,  # [B, S_vis, in_channels*4] patchified latent tokens
+        text,  # [B, S_txt, 4096] precomputed text-encoder states (stub)
+        t,  # [B] diffusion time in [0, 1]
+        *,
+        segment_ids=None,  # [B, S_vis] int32: packed-window doc ids (-1 = pad)
+        text_segment_ids=None,  # [B, S_txt] int32: per-clip prompt ids (-1 = pad)
+        ops: str = "kernel",  # "plain": the plain versions on any device
+    ):
+        if text_segment_ids is not None and segment_ids is None:
+            raise ValueError(
+                "text_segment_ids scope cross-attention per packed clip, which "
+                "needs the visual segment_ids to match against; pass both"
+            )
+        if ops not in ("kernel", "plain"):
+            raise ValueError(f"ops must be 'kernel' or 'plain', got {ops!r}")
+        K = kernels if ops == "kernel" else kernels.plain
+        cfg = self.cfg
+        x = latents.to(self.dtype) @ self.x_in
+        txt = text.to(self.dtype) @ self.txt_in
+        temb = timestep_embedding(t, 256).to(self.dtype)
+        temb = F.silu(temb @ self.t_mlp1)
+        mod = (temb @ self.t_mlp2).reshape(-1, 6, cfg.d_model).float()
+        for bp in self.blocks:
+            x = _block(bp, x, txt, mod, cfg, K, segment_ids, text_segment_ids)
+        fm = (temb @ self.final_mod).reshape(-1, 2, cfg.d_model).float()
+        x = K.adaln_modulate(x, fm[:, 0], fm[:, 1])
+        return x @ self.x_out

@@ -1,0 +1,48 @@
+"""The port stands alone: importing it loads neither JAX nor the JAX
+package, no module of it (or ``chip_smoke.py``) imports them, and the port
+reaches no library attention/normalisation kernel, no ``torch.compile`` and
+no backend setting from the environment."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py"))
+IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+LIBRARY_RE = re.compile(
+    r"scaled_dot_product_attention|layer_norm\(|rms_norm\(|torch\.compile|"
+    r"os\.environ|getenv"
+)
+
+
+def test_import_loads_no_jax_and_no_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.kernels, repro_torch.convert\n"
+        "import repro_torch.serve, repro_torch.launch.serve\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_source_imports_neither_jax_nor_repro(path):
+    assert not IMPORT_RE.search(path.read_text()), path
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_calls_no_library_kernel_or_environment(path):
+    assert not LIBRARY_RE.search(path.read_text()), path
