@@ -9,17 +9,39 @@ Phases, any failure of which exits non-zero with no result line:
 1. card and toolchain: the card's name and power limit, the torch / CUDA
    versions; every kernel built from ``src/repro_torch/**/csrc/*.cu``
    (one nvcc per source, in parallel), with the build seconds;
-2. each kernel against its plain PyTorch version on the card, at the
-   serving shapes of Wan-2.1 1.3B (x [4, 6240, 1536]; q/k/v
+2. each of the nine kernels against its plain PyTorch version on the card,
+   with kernel, plain and library times from CUDA events: the forward
+   kernels at the serving shapes of Wan-2.1 1.3B (x [4, 6240, 1536]; q/k/v
    [4, 6240, 12, 128]; self-attention 6240 x 6240 and cross-attention
-   6240 x 512 under packed / padded segment layouts) and at small f32
-   shapes; kernel, plain and library times with CUDA events;
+   6240 x 512 under packed / padded segment layouts), K7's f32-output
+   mode, and the backward kernels at the training shapes (x [10, 1637,
+   1536] and [1, 7877, 1536]; q/k [10, 1637, 12, 128] and [1, 7877, 12,
+   128]; attention 7877 x 7877 and 7877 x 512, packed and padded), the
+   reductions K3 and K6 also bitwise against a second run; all of them at
+   small f32 shapes (dh 32/64/128, causal, GQA);
 3. serving: Wan-2.1 1.3B at full width and depth (30 layers, random weights
    from a seed) serves 4 clips of 1-4 latent frames at 480x832 through
    ``DiffusionServeEngine``; every result finite, and every kernel's
-   launch count equal to waves x its launches per wave;
+   launch count equal to waves x its launches per wave (0 for the
+   backward kernels);
 4. the whole model at full width and 2 layers, kernel forward against the
-   ``ops="plain"`` forward: velocity rel-L2 <= 2e-2 in bf16.
+   ``ops="plain"`` forward: velocity rel-L2 <= 2e-2 in bf16;
+5. training: (a) the launcher's ``main`` with ``--arch wan2.1-1.3b
+   --adaptive --steps 2``; (b) Wan-2.1 1.3B, 30 layers, bf16, trains 4
+   AdamW steps through ``Trainer`` on ``EmulatedEngine``, fed by
+   ``BucketedLoader`` over the 480p image, 17- and 33-frame shapes
+   (S = 1637, 4757, 7877; B = 10, 2, 1 under M_mem 16384, M_comp 6.4e7,
+   p 2) in 16384-token steps: every loss and parameter finite, and every
+   kernel's launch count in (a) and (b) equal to microbatches x its
+   launches per microbatch; the steady step time, tokens/s and peak
+   memory; (c) 2 layers at full width, kernel loss and gradients against
+   the ``ops="plain"`` ones on one packed batch with the same draws: loss
+   within 1e-2 and every gradient's rel-L2 within 5e-2.
+
+Each kernel's launch counts in the record are those of the two main paths,
+each reset to 0 just before its run and read just after: the serving waves
+of phase 3 and the training steps of phase 5 (b) (``launches_by_path``);
+``launches`` is their sum.
 
 Prints the kernels' JSON record on the line before the last and, as the
 last line, ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -52,7 +74,20 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 TOL = {
     "norm_bf16": 6e-2, "attn_bf16": 3e-2, "stat": 2e-4, "lse_bf16": 1e-3,
     "norm_f32": 2e-4, "attn_f32": 2e-5,
+    # rel-L2 of K7's f32 output from bf16 inputs: p is rounded to bf16 as an
+    # mma operand, which the plain version keeps in f32
+    "attn_f32_out": 1e-2,
 }
+# backward tolerances, relative to the reference's largest magnitude
+# (max |got - want| / max |want|) or its L2 norm (rel-L2):
+# - a bf16 gradient computed in f32 from the same inputs as the plain
+#   version is one bf16 rounding (2^-8 relative) from it: 1e-2 of the max;
+# - f32 sums over up to 2e5 rows in another order: 2e-5 of the max;
+# - flash gradients in bf16 round p and ds to bf16 as mma operands, which
+#   the plain version keeps in f32: rel-L2 2e-2; in f32 the products are
+#   exact and only the order differs: rel-L2 1e-5 (the JAX package's own
+#   f32 flash gradient gate, tests/test_flash_segment.py:84).
+BWD_TOL = {"grad_bf16": 1e-2, "sum_f32": 2e-5, "flash_bf16": 2e-2, "flash_f32": 1e-5}
 
 S_FRAME = 1560  # latent tokens per frame at 480x832 (60 x 104 latent, 1x2x2 patches)
 S_MAX = 4 * S_FRAME  # 6240
@@ -85,6 +120,29 @@ def check(name: str, err: float, tol: float) -> None:
     log(f"  {name:<28} max_abs_err {err:.3e}  tol {tol:.1e}")
     if not err <= tol:
         raise AssertionError(f"{name}: error {err} above tolerance {tol}")
+
+
+def check_rel(name: str, got, want, tol: float) -> float:
+    """max |got - want| <= tol * max |want|; returns the absolute error."""
+    err = max_err(got, want)
+    scale = float(want.float().abs().max())
+    log(f"  {name:<28} max_abs_err {err:.3e}  (max |ref| {scale:.3e}, tol {tol:.1e} of it)")
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: error {err} above {tol} x {scale}")
+    return err
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def check_l2(name: str, got, want, tol: float) -> float:
+    """rel-L2 <= tol; returns the absolute max error."""
+    rel, err = rel_l2(got, want), max_err(got, want)
+    log(f"  {name:<28} rel-L2 {rel:.3e}  max_abs_err {err:.3e}  tol {tol:.1e}")
+    if not rel <= tol:
+        raise AssertionError(f"{name}: rel-L2 {rel} above tolerance {tol}")
+    return err
 
 
 def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
@@ -230,7 +288,21 @@ def phase_kernels(dev) -> dict:
         if dead.any() and torch.count_nonzero(o[dead]) != 0:
             raise AssertionError(f"K7 {nm}: a row that sees no key is not exact zeros")
         log(f"  K7 {nm}: {int(dead.sum())} (row, head) pairs see no key, all exact zeros")
-        del o, lse, o_r, lse_r
+        # the training forward's mode: the same attention written in f32,
+        # held by rel-L2 against the plain f32 output, its lse against the
+        # plain lse, and equal to the working-dtype mode up to the final
+        # rounding (the two modes differ only in the store)
+        o32, lse32 = flash_fwd(*args, out_dtype=torch.float32)
+        o32_r = attention_ref(*args, out_dtype=torch.float32)[0]
+        if o32.dtype != torch.float32:
+            raise AssertionError("K7 f32-out mode wrote another dtype")
+        check_l2(f"K7 {nm} out (f32-out mode)", o32, o32_r, TOL["attn_f32_out"])
+        check(f"K7 {nm} lse (f32-out mode)", max_err(lse32[live], lse_r[live]), TOL["lse_bf16"])
+        if not (torch.equal(o32.to(o.dtype), o) and torch.equal(lse32, lse)):
+            raise AssertionError(f"K7 {nm}: the f32-out mode rounded is not the "
+                                 f"working-dtype mode's output and lse")
+        log(f"  K7 {nm}: f32-out mode rounded to {o.dtype} equals the {o.dtype} mode bitwise")
+        del o, lse, o_r, lse_r, o32, lse32, o32_r
     for dhs in (32, 64, 128):
         for causal in (False, True):
             for hq, hkv in ((4, 4), (4, 2)):
@@ -277,6 +349,250 @@ def phase_kernels(dev) -> dict:
     )
     log(f"  K7 ms {t_k:.4f} (self + cross)  plain {t_p:.4f}  library(SDPA, bool mask) {t_l:.4f}  "
         f"bound {bms:.4f} ({bby}, {tiles} live 64x64 tiles)")
+    return out
+
+
+def phase_kernels_bwd(dev) -> dict:
+    """Phase 2, backward: K2, K3, K5, K6, K8 and K9 against their plain
+    versions at the training shapes and small f32 shapes; times."""
+    from repro_torch.kernels.flash_attention.flash import (
+        KV_TILE, Q_TILE, flash_bwd_dkv, flash_bwd_dq, flash_fwd, live_tile_pairs,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_delta_ref, attention_ref,
+    )
+    from repro_torch.kernels.fused_adaln.adaln import adaln_bwd_dmod, adaln_bwd_dx, adaln_fwd
+    from repro_torch.kernels.fused_adaln.ref import adaln_bwd_dmod_ref, adaln_bwd_dx_ref
+    from repro_torch.kernels.fused_rmsnorm.ref import qk_rms_bwd_ref
+    from repro_torch.kernels.fused_rmsnorm.rmsnorm import (
+        qk_rms_bwd_dw, qk_rms_bwd_dx, qk_rms_fwd,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(dtype)
+
+    out = {}
+    d, h, dh = 1536, 12, 128
+    train_shapes = ((10, 1637), (1, 7877))  # the image bucket, the 33-frame bucket
+
+    # -- K2, K3 fused AdaLN backward -------------------------------------
+    def adaln_case(b, s, d_, dtype):
+        x = randn(b, s, d_, dtype=dtype, scale=2.0, shift=0.3)
+        mod = randn(b, 6, d_, scale=0.1)
+        _, mu, rstd = adaln_fwd(x, mod[:, 1], mod[:, 0])
+        return x, mod[:, 1], mu, rstd, randn(b, s, d_, dtype=dtype)
+
+    k2_err = k3_err = 0.0
+    for b, s in train_shapes:
+        log(f"K2 adaln_bwd_dx, K3 adaln_bwd_dmod  dy, x [{b}, {s}, {d}] bf16")
+        x, sc, mu, rstd, dy = adaln_case(b, s, d, torch.bfloat16)
+        k2_err = max(k2_err, check_rel(f"K2 dx [{b}, {s}]", adaln_bwd_dx(dy, x, mu, rstd, sc),
+                                       adaln_bwd_dx_ref(dy, x, mu, rstd, sc), BWD_TOL["grad_bf16"]))
+        got, want = adaln_bwd_dmod(dy, x, mu, rstd), adaln_bwd_dmod_ref(dy, x, mu, rstd)
+        for nm, a_, b_ in zip(("dscale", "dshift"), got, want):
+            k3_err = max(k3_err, check_rel(f"K3 {nm} [{b}, {s}]", a_, b_, BWD_TOL["sum_f32"]))
+        again = adaln_bwd_dmod(dy, x, mu, rstd)
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+            raise AssertionError("K3 is not bitwise deterministic")
+    for shape in [(2, 100, 256), (3, 37, 1536)]:
+        xs, scs, mus, rs, dys = adaln_case(*shape, torch.float32)
+        check_rel(f"K2 dx f32 {list(shape)}", adaln_bwd_dx(dys, xs, mus, rs, scs),
+                  adaln_bwd_dx_ref(dys, xs, mus, rs, scs), BWD_TOL["sum_f32"])
+        for nm, a_, b_ in zip(("dscale", "dshift"), adaln_bwd_dmod(dys, xs, mus, rs),
+                              adaln_bwd_dmod_ref(dys, xs, mus, rs)):
+            check_rel(f"K3 {nm} f32 {list(shape)}", a_, b_, BWD_TOL["sum_f32"])
+    b, s = train_shapes[0]
+    x, sc, mu, rstd, dy = adaln_case(b, s, d, torch.bfloat16)
+    n = b * s
+    t_k = cuda_ms(lambda: adaln_bwd_dx(dy, x, mu, rstd, sc), 20)
+    t_p = cuda_ms(lambda: adaln_bwd_dx_ref(dy, x, mu, rstd, sc), 5)
+    bms, bby = bound(3 * n * d * 2 + 2 * n * 4 + b * d * 4, 10 * n * d, F32_FLOPS)
+    out["adaln_bwd_dx"] = dict(
+        route="cuda", source="src/repro_torch/kernels/fused_adaln/csrc/adaln_bwd.cu",
+        replaces="src/repro/kernels/fused_adaln/adaln.py:104",
+        max_abs_err=k2_err, ms=t_k, plain_ms=t_p, bound_ms=bms, bound_by=bby,
+        library_ms=None, shape=f"dy, x [{b}, {s}, {d}] bf16",
+    )
+    log(f"  K2 ms {t_k:.4f}  plain {t_p:.4f}  bound {bms:.4f} ({bby})")
+    t_k = cuda_ms(lambda: adaln_bwd_dmod(dy, x, mu, rstd), 20)
+    t_p = cuda_ms(lambda: adaln_bwd_dmod_ref(dy, x, mu, rstd), 5)
+    bms, bby = bound(2 * n * d * 2 + 2 * n * 4 + 2 * b * d * 4, 4 * n * d, F32_FLOPS)
+    out["adaln_bwd_dmod"] = dict(
+        route="cuda", source="src/repro_torch/kernels/fused_adaln/csrc/adaln_bwd.cu",
+        replaces="src/repro/kernels/fused_adaln/adaln.py:145",
+        max_abs_err=k3_err, ms=t_k, plain_ms=t_p, bound_ms=bms, bound_by=bby,
+        library_ms=None, shape=f"dy, x [{b}, {s}, {d}] bf16",
+    )
+    log(f"  K3 ms {t_k:.4f}  plain {t_p:.4f}  bound {bms:.4f} ({bby})")
+    del x, dy, mu, rstd
+
+    # -- K5, K6 joint q/k RMSNorm backward -------------------------------
+    def rms_case(b, s, hh, dh_, dtype):
+        qkv = randn(b, s, 3 * hh * dh_, dtype=dtype, scale=1.5)
+        q = qkv[..., : hh * dh_].reshape(b, s, hh, dh_)
+        k = qkv[..., hh * dh_ : 2 * hh * dh_].reshape(b, s, hh, dh_)
+        wq, wk = randn(dh_, scale=0.1, shift=1.0), randn(dh_, scale=0.1, shift=1.0)
+        _, _, rq, rk = qk_rms_fwd(q, k, wq, wk)
+        return (randn(b, s, hh, dh_, dtype=dtype), randn(b, s, hh, dh_, dtype=dtype),
+                q, k, wq, wk, rq, rk)
+
+    k5_err = k6_err = 0.0
+    for b, s in train_shapes:
+        log(f"K5 qk_rms_bwd_dx, K6 qk_rms_bwd_dw  q, k [{b}, {s}, {h}, {dh}] bf16 views of qkv")
+        dyq, dyk, q, k, wq, wk, rq, rk = rms_case(b, s, h, dh, torch.bfloat16)
+        want = qk_rms_bwd_ref(dyq, dyk, q, k, wq, wk, rq, rk)
+        for nm, a_, b_ in zip(("dq", "dk"), qk_rms_bwd_dx(dyq, dyk, q, k, wq, wk, rq, rk), want):
+            k5_err = max(k5_err, check_rel(f"K5 {nm} [{b}, {s}]", a_, b_, BWD_TOL["grad_bf16"]))
+        got = qk_rms_bwd_dw(dyq, dyk, q, k, rq, rk)
+        for nm, a_, b_ in zip(("dwq", "dwk"), got, want[2:]):
+            k6_err = max(k6_err, check_rel(f"K6 {nm} [{b}, {s}]", a_, b_, BWD_TOL["sum_f32"]))
+        again = qk_rms_bwd_dw(dyq, dyk, q, k, rq, rk)
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+            raise AssertionError("K6 is not bitwise deterministic")
+    for dhs in (32, 64, 128):
+        args = rms_case(2, 50, 4, dhs, torch.float32)
+        want = qk_rms_bwd_ref(*args)
+        got = (*qk_rms_bwd_dx(*args), *qk_rms_bwd_dw(*args[:4], *args[6:]))
+        for nm, a_, b_ in zip(("dq", "dk", "dwq", "dwk"), got, want):
+            check_rel(f"K5/K6 {nm} f32 dh={dhs}", a_, b_, BWD_TOL["sum_f32"])
+    b, s = train_shapes[0]
+    dyq, dyk, q, k, wq, wk, rq, rk = rms_case(b, s, h, dh, torch.bfloat16)
+    n = q.numel()
+    t_k5 = cuda_ms(lambda: qk_rms_bwd_dx(dyq, dyk, q, k, wq, wk, rq, rk), 20)
+    t_k6 = cuda_ms(lambda: qk_rms_bwd_dw(dyq, dyk, q, k, rq, rk), 20)
+    t_p = cuda_ms(lambda: qk_rms_bwd_ref(dyq, dyk, q, k, wq, wk, rq, rk), 5)
+    # yardstick only, never on the port's path: the library norm's backward,
+    # once per tensor, for the input (K5) and for the weight (K6)
+    leaves = [t.detach().requires_grad_() for t in (q, k, wq.bfloat16(), wk.bfloat16())]
+    ys = (F.rms_norm(leaves[0], (dh,), leaves[2], 1e-6), F.rms_norm(leaves[1], (dh,), leaves[3], 1e-6))
+    t_l5 = cuda_ms(lambda: torch.autograd.grad(ys, leaves[:2], (dyq, dyk), retain_graph=True), 10)
+    t_l6 = cuda_ms(lambda: torch.autograd.grad(ys, leaves[2:], (dyq, dyk), retain_graph=True), 10)
+    del ys, leaves
+    bms5, bby5 = bound(2 * 3 * n * 2 + 2 * dh * 4 + 2 * n // dh * 4, 2 * 6 * n, F32_FLOPS)
+    bms6, bby6 = bound(2 * 2 * n * 2 + 2 * n // dh * 4 + 2 * dh * 4, 2 * 3 * n, F32_FLOPS)
+    src = "src/repro_torch/kernels/fused_rmsnorm/csrc/rmsnorm_bwd.cu"
+    shape = f"dy, q, k [{b}, {s}, {h}, {dh}] bf16, one launch for q and k"
+    out["qk_rms_bwd_dx"] = dict(
+        route="cuda", source=src, replaces="src/repro/kernels/fused_rmsnorm/rmsnorm.py:111",
+        max_abs_err=k5_err, ms=t_k5, plain_ms=t_p, bound_ms=bms5, bound_by=bby5,
+        library_ms=t_l5, shape=shape)
+    out["qk_rms_bwd_dw"] = dict(
+        route="cuda", source=src, replaces="src/repro/kernels/fused_rmsnorm/rmsnorm.py:144",
+        max_abs_err=k6_err, ms=t_k6, plain_ms=t_p, bound_ms=bms6, bound_by=bby6,
+        library_ms=t_l6, shape=shape)
+    log(f"  K5 ms {t_k5:.4f}  K6 ms {t_k6:.4f}  plain (dx and dw) {t_p:.4f}  library "
+        f"(F.rms_norm backward x2) dx {t_l5:.4f} dw {t_l6:.4f}  bound K5 {bms5:.4f} ({bby5}) "
+        f"K6 {bms6:.4f} ({bby6})")
+    del dyq, dyk, q, k
+
+    # -- K8, K9 flash-attention backward ---------------------------------
+    # one packed 7877-token window: two clips and a padded tail (-1); the
+    # padded rows see no text key, so their cross-attention rows are dead
+    b, s = train_shapes[1]
+    seg = segs([[(0, 3000), (1, 4000), (-1, s - 7000)]], dev)
+    tseg = segs([[(0, 300), (1, 212)]], dev)
+    qkv = randn(b, s, 3 * h * dh, dtype=torch.bfloat16)
+    q = qkv[..., : h * dh].reshape(b, s, h, dh)
+    k = qkv[..., h * dh : 2 * h * dh].reshape(b, s, h, dh)
+    v = qkv[..., 2 * h * dh :].reshape(b, s, h, dh)
+    kvx = randn(b, TEXT_LEN, 2 * h * dh, dtype=torch.bfloat16)
+    kx = kvx[..., : h * dh].reshape(b, TEXT_LEN, h, dh)
+    vx = kvx[..., h * dh :].reshape(b, TEXT_LEN, h, dh)
+    qx = randn(b, s, h, dh, dtype=torch.bfloat16)
+    cases = {"self": (q, k, v, seg, seg), "cross": (qx, kx, vx, seg, tseg)}
+    res = {}
+    k8_err = k9_err = 0.0
+    log(f"K8 flash_bwd_dq, K9 flash_bwd_dkv  self [{b}, {s}, {h}, {dh}] x {s} and cross x "
+        f"{TEXT_LEN}, bf16, packed + padded segments")
+    for nm, args in cases.items():
+        o32, lse = flash_fwd(*args, out_dtype=torch.float32)
+        do = randn(b, s, h, dh, dtype=torch.bfloat16)
+        dq, delta = flash_bwd_dq(*args[:3], o32, do, lse, *args[3:])
+        dk, dv = flash_bwd_dkv(*args[:3], do, lse, delta, *args[3:])
+        delta_r = attention_delta_ref(do, o32)
+        dq_r, dk_r, dv_r = attention_bwd_ref(*args[:3], do, lse, delta_r, *args[3:])
+        torch.cuda.synchronize()
+        check_rel(f"K8 {nm} delta", delta, delta_r, BWD_TOL["sum_f32"])
+        k8_err = max(k8_err, check_l2(f"K8 {nm} dq", dq, dq_r, BWD_TOL["flash_bf16"]))
+        k9_err = max(k9_err, check_l2(f"K9 {nm} dk", dk, dk_r, BWD_TOL["flash_bf16"]),
+                     check_l2(f"K9 {nm} dv", dv, dv_r, BWD_TOL["flash_bf16"]))
+        dead = (lse < -1e38).transpose(1, 2)  # [B, S, H]
+        if dead.any() and torch.count_nonzero(dq[dead]) != 0:
+            raise AssertionError(f"K8 {nm}: a row that sees no key has a nonzero dq")
+        log(f"  K8 {nm}: {int(dead.sum())} (row, head) pairs see no key, dq exact zeros")
+        res[nm] = (o32, lse, do, delta)
+        del dq, dk, dv, dq_r, dk_r, dv_r
+    for dhs in (32, 64, 128):
+        for causal in (False, True):
+            for hq, hkv in ((4, 4), (4, 2)):
+                qs_ = randn(2, 200, hq, dhs)
+                ks_, vs_ = randn(2, 150, hkv, dhs), randn(2, 150, hkv, dhs)
+                do_ = randn(2, 200, hq, dhs)
+                sg = segs([[(0, 70), (1, 100), (-1, 30)], [(5, 200)]], dev)
+                sk = segs([[(0, 50), (1, 70), (-1, 30)], [(5, 100), (9, 50)]], dev)
+                for ids in ((None, None), (sg, sk)):
+                    o_, l_ = flash_fwd(qs_, ks_, vs_, *ids, causal=causal)
+                    dq_, de_ = flash_bwd_dq(qs_, ks_, vs_, o_, do_, l_, *ids, causal=causal)
+                    dk_, dv_ = flash_bwd_dkv(qs_, ks_, vs_, do_, l_, de_, *ids, causal=causal)
+                    want = attention_bwd_ref(qs_, ks_, vs_, do_, l_, attention_delta_ref(do_, o_),
+                                             *ids, causal=causal)
+                    tag = f"dh={dhs} causal={causal} gqa={hq // hkv} segs={ids[0] is not None}"
+                    for gn, a_, b_ in zip(("dq", "dk", "dv"), (dq_, dk_, dv_), want):
+                        check_l2(f"K8/K9 f32 {gn} {tag}", a_, b_, BWD_TOL["flash_f32"])
+
+    def pair(fn):
+        return lambda: [fn(nm) for nm in cases]
+
+    def k8(nm):
+        o32, lse, do, _ = res[nm]
+        return flash_bwd_dq(*cases[nm][:3], o32, do, lse, *cases[nm][3:])
+
+    def k9(nm):
+        _, lse, do, delta = res[nm]
+        return flash_bwd_dkv(*cases[nm][:3], do, lse, delta, *cases[nm][3:])
+
+    def plain(nm):
+        o32, lse, do, delta = res[nm]
+        return attention_bwd_ref(*cases[nm][:3], do, lse, delta, *cases[nm][3:])
+
+    t_k8, t_k9 = cuda_ms(pair(k8), 5), cuda_ms(pair(k9), 5)
+    t_p = cuda_ms(pair(plain), 2)
+    # yardstick only, never on the port's path: the library's attention
+    # backward (dq, dk, dv together) with the segment mask built beforehand
+    lib = {}
+    for nm, (qq, kk, vv, s1, s2) in cases.items():
+        leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (qq, kk, vv)]
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=(s1[:, :, None] == s2[:, None, :])[:, None])
+        lib[nm] = (o, leaves, res[nm][2].transpose(1, 2))
+    t_l = cuda_ms(lambda: [torch.autograd.grad(o, lv, gg, retain_graph=True)
+                           for o, lv, gg in lib.values()], 3)
+    del lib
+    tiles = (live_tile_pairs(s, s, seg, seg) + live_tile_pairs(s, TEXT_LEN, seg, tseg)) * h
+    mm = 2 * Q_TILE * KV_TILE * dh  # flops of one 64 x 64 x dh product
+    rows_q = 2 * b * s * h * dh * 2  # q and qx, bf16
+    rows_kv = 2 * (b * s + b * TEXT_LEN) * h * dh * 2  # k, v and kx, vx
+    stats = 2 * b * h * s * 4  # one [B, Hq, Sq] f32 per case
+    by8 = 2 * rows_q + rows_kv + rows_q * 2 + 2 * stats + rows_q  # q do, k v, out32, lse delta, dq
+    by9 = 2 * rows_q + rows_kv + 2 * stats + rows_kv  # q do, k v, lse delta, dk dv
+    bms8, bby8 = bound(by8, tiles * 3 * mm, BF16_FLOPS)
+    bms9, bby9 = bound(by9, tiles * 4 * mm, BF16_FLOPS)
+    src = "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu"
+    shape = f"self {s}x{s} + cross {s}x{TEXT_LEN}, B={b}, H={h}, dh={dh}, bf16"
+    out["flash_bwd_dq"] = dict(
+        route="cuda", source=src, replaces="src/repro/kernels/flash_attention/flash.py:279",
+        max_abs_err=k8_err, ms=t_k8, plain_ms=t_p, bound_ms=bms8, bound_by=bby8,
+        library_ms=t_l, shape=shape, live_tile_pairs=tiles,
+        tflops_per_s=tiles * 3 * mm / (t_k8 * 1e-3) / 1e12)
+    out["flash_bwd_dkv"] = dict(
+        route="cuda", source=src, replaces="src/repro/kernels/flash_attention/flash.py:375",
+        max_abs_err=k9_err, ms=t_k9, plain_ms=t_p, bound_ms=bms9, bound_by=bby9,
+        library_ms=t_l, shape=shape, live_tile_pairs=tiles,
+        tflops_per_s=tiles * 4 * mm / (t_k9 * 1e-3) / 1e12)
+    log(f"  K8 ms {t_k8:.4f}  K9 ms {t_k9:.4f} (self + cross)  plain (dq, dk, dv) {t_p:.4f}  "
+        f"library (SDPA backward, bool mask) {t_l:.4f}  bound K8 {bms8:.4f} ({bby8}) "
+        f"K9 {bms9:.4f} ({bby9}), {tiles} live 64x64 tiles")
     return out
 
 
@@ -337,12 +653,148 @@ def phase_serve(K, dev) -> dict:
             raise AssertionError(f"request {r.rid}: result not finite or misshapen")
     per_wave = {"adaln_fwd": 2 * cfg.n_layers + 1, "qk_rms_fwd": cfg.n_layers,
                 "flash_fwd": 2 * cfg.n_layers}
-    for name, n in per_wave.items():
-        if counts[name] != waves * n:
-            raise AssertionError(f"{name}: {counts[name]} launches, expected {waves} x {n}")
+    for name, n in counts.items():
+        if n != waves * per_wave.get(name, 0):
+            raise AssertionError(f"{name}: {n} launches, expected {waves} x "
+                                 f"{per_wave.get(name, 0)}")
     return dict(waves=waves, wave_ms=wave_ms, wall_s=wall, launches=counts,
                 per_wave=per_wave, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                 n_params=n_params)
+
+
+def per_microbatch(n_layers: int) -> dict[str, int]:
+    """Launches of one training microbatch of n_layers blocks with per-block
+    recompute: each block's forward kernels run twice (forward, then again
+    in the backward), the final AdaLN once; each backward kernel once per
+    call of its forward (self + cross attention, both AdaLNs)."""
+    L = n_layers
+    return {"adaln_fwd": 4 * L + 1, "adaln_bwd_dx": 2 * L + 1, "adaln_bwd_dmod": 2 * L + 1,
+            "qk_rms_fwd": 2 * L, "qk_rms_bwd_dx": L, "qk_rms_bwd_dw": L,
+            "flash_fwd": 4 * L, "flash_bwd_dq": 2 * L, "flash_bwd_dkv": 2 * L}
+
+
+def check_counts(counts: dict, micro: int, n_layers: int, what: str) -> None:
+    for name, n in per_microbatch(n_layers).items():
+        if counts[name] != micro * n:
+            raise AssertionError(f"{what}: {name} launched {counts[name]} times, "
+                                 f"expected {micro} microbatches x {n}")
+    log(f"  {what}: every launch count is {micro} microbatches x the per-microbatch table")
+
+
+def phase_train(K, dev) -> dict:
+    """Phase 5: training on the card."""
+    from repro_torch.configs.registry import get_config, get_optimizer
+    from repro_torch.core.bucketing import BucketingPolicy
+    from repro_torch.data.pipeline import BucketedLoader
+    from repro_torch.data.synthetic import make_diffusion_batch, wan_mixed_corpus
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.mmdit import MMDiT, rectified_flow_loss
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.steps import init_state
+
+    out = {}
+    cfg = get_config("wan2.1-1.3b")
+
+    # (a) the launcher's entry point, as a user runs it
+    log("(a) python -m repro_torch.launch.train --arch wan2.1-1.3b --adaptive --steps 2")
+    K.reset_launch_counts()
+    hist = launch_train.main(["--arch", "wan2.1-1.3b", "--adaptive", "--steps", "2"])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    if not np.isfinite(hist.losses).all():
+        raise AssertionError(f"launcher: a loss is not finite: {hist.losses}")
+    check_counts(counts, sum(hist.microbatches), cfg.n_layers, "launcher")
+    out["launcher"] = dict(losses=hist.losses, step_s=hist.step_times,
+                           microbatches=hist.microbatches, launches=counts)
+    del hist
+    torch.cuda.empty_cache()
+
+    # (b) Wan-2.1 1.3B, 30 layers, 4 steps over the 480p buckets
+    shapes, weights = wan_mixed_corpus()
+    sel = [0, 2, 3]  # 480p image, 17 and 33 frames: S = 1637, 4757, 7877
+    policy = BucketingPolicy(m_mem=16384, m_comp=6.4e7, p=2.0)
+    buckets = policy.make_buckets([shapes[i] for i in sel])
+    if [(b.seq_len, b.batch_size) for b in buckets] != [(1637, 10), (4757, 2), (7877, 1)]:
+        raise AssertionError(f"unexpected buckets {buckets}")
+    opt = OptimizerConfig(peak_lr=get_optimizer("wan2.1-1.3b").peak_lr, schedule="constant",
+                          warmup=0, total_steps=4)
+    log(f"(b) Trainer on EmulatedEngine, {cfg.name} {cfg.n_layers} layers bf16, seed 0; "
+        f"buckets (S, B) {[(b.seq_len, b.batch_size) for b in buckets]}, 16384-token steps")
+    state = init_state(cfg, opt, seed=0, device=dev)
+
+    def make_batch(rng, bucket):
+        return make_diffusion_batch(int(rng.integers(2**31)), bucket.batch_size,
+                                    bucket.seq_len, cfg, dev)
+
+    loader = BucketedLoader(buckets, [weights[i] for i in sel], make_batch, budget=16384.0,
+                            budget_of=lambda b: float(b.tokens), seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    try:
+        state, hist = Trainer(cfg, opt).run(state, iter(loader), 4, rng=1, log_every=1)
+    finally:
+        loader.close()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not np.isfinite(hist.losses).all():
+        raise AssertionError(f"a loss is not finite: {hist.losses}")
+    bad = [n for n, prm in state["model"].named_parameters() if not torch.isfinite(prm).all()]
+    if bad or state["step"] != 4:
+        raise AssertionError(f"parameters not finite after the updates: {bad[:5]}")
+    check_counts(counts, sum(hist.microbatches), cfg.n_layers, "training")
+    steady = [i for i in range(4) if i not in hist.compile_steps]
+    if not steady:
+        raise AssertionError("every step ran a new batch signature: no steady step")
+    step_ms = [1e3 * t for t in hist.step_times]
+    steady_ms = float(np.mean([step_ms[i] for i in steady]))
+    for i, (ms, tok, n) in enumerate(zip(step_ms, hist.tokens, hist.microbatches)):
+        log(f"  step {i}: {n} microbatches, {tok} tokens, {ms:.1f} ms, loss {hist.losses[i]:.4f}"
+            f"{'  (first signature)' if i in hist.compile_steps else ''}")
+    log(f"  steady step {steady_ms:.1f} ms (steps {steady}), {hist.throughput:,.0f} tokens/s, "
+        f"peak memory {peak:.2f} GiB, events {hist.events}")
+    out["train"] = dict(
+        losses=hist.losses, step_ms=step_ms, tokens=hist.tokens,
+        microbatches=hist.microbatches, events=hist.events, steady_steps=steady,
+        steady_step_ms=steady_ms, tokens_per_s=hist.throughput, peak_gib=peak,
+        launches=counts, per_microbatch=per_microbatch(cfg.n_layers),
+        microbatch_s=[dataclasses.asdict(r) for r in hist.records],
+    )
+    del state, hist, loader
+    torch.cuda.empty_cache()
+
+    # (c) 2 layers at full width: kernel loss and gradients against the plain
+    # versions' on one batch with injected draws and packed segment ids
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    g = torch.Generator(device=dev).manual_seed(4)
+    b, s = 2, 2 * S_FRAME
+    x0 = torch.randn((b, s, cfg2.in_channels * 4), generator=g, device=dev).bfloat16()
+    txt = torch.randn((b, TEXT_LEN, 4096), generator=g, device=dev).bfloat16()
+    t = torch.tensor([0.3, 0.8], device=dev)
+    eps = torch.randn(x0.shape, generator=g, device=dev)
+    seg = segs([[(0, S_FRAME), (1, S_FRAME // 2), (-1, S_FRAME // 2)], [(0, s)]], dev)
+    tseg = segs([[(0, TEXT_LEN // 2), (1, TEXT_LEN // 2)], [(0, TEXT_LEN - 12), (-1, 12)]], dev)
+    model = MMDiT(cfg2, seed=1, device=dev)
+    res = {}
+    for ops in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        loss = rectified_flow_loss(model, x0, txt, t=t, eps=eps, segment_ids=seg,
+                                   text_segment_ids=tseg, ops=ops)
+        loss.backward()
+        res[ops] = (loss.item(), {n: prm.grad.clone() for n, prm in model.named_parameters()})
+    loss_rel = abs(res["kernel"][0] - res["plain"][0]) / abs(res["plain"][0])
+    rels = {n: rel_l2(res["kernel"][1][n], gp) for n, gp in res["plain"][1].items()}
+    worst = max(rels, key=rels.get)
+    log(f"(c) 2 layers, full width, bf16: loss {res['kernel'][0]:.6f} kernel vs "
+        f"{res['plain'][0]:.6f} plain (rel {loss_rel:.2e}, tol 1e-2); largest gradient "
+        f"rel-L2 {rels[worst]:.3e} ({worst}, tol 5e-2)")
+    if not (loss_rel <= 1e-2 and rels[worst] <= 5e-2):
+        raise AssertionError("kernel training gradients disagree with the plain versions'")
+    out["grad_check"] = dict(loss_kernel=res["kernel"][0], loss_plain=res["plain"][0],
+                             loss_rel=loss_rel, worst_grad=worst, worst_grad_rel_l2=rels[worst])
+    return out
 
 
 def phase_model(dev) -> float:
@@ -402,14 +854,24 @@ def main() -> int:
     record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     record["kernels"] = phase_kernels(dev)
     torch.cuda.empty_cache()
+    record["kernels"].update(phase_kernels_bwd(dev))
+    torch.cuda.empty_cache()
     record["serve"] = phase_serve(K, dev)
     torch.cuda.empty_cache()
     record["model_rel_l2"] = phase_model(dev)
+    torch.cuda.empty_cache()
+    record["train"] = phase_train(K, dev)
 
+    # launches: each main path's own count, reset to 0 just before that run
+    # and read just after (the serving waves of phase 3, the 4 training steps
+    # of phase 5 (b)); "launches" is their sum
     kernels = []
     for name, k in record["kernels"].items():
+        by_path = {"serve": record["serve"]["launches"][name],
+                   "train": record["train"]["train"]["launches"][name]}
         kernels.append({"name": name, **{key: k[key] for key in (
-            "route", "source", "replaces")}, "launches": record["serve"]["launches"][name],
+            "route", "source", "replaces")}, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}})
     out_dir = ROOT / "chiprun_out"

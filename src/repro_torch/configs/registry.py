@@ -5,6 +5,7 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adamw import OptimizerConfig
 
 ARCHS = {
     "wan2.1-1.3b": "repro_torch.configs.wan2_1_mmdit",
@@ -17,3 +18,8 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return importlib.import_module(ARCHS[arch]).smoke_config()
+
+
+def get_optimizer(arch: str) -> OptimizerConfig:
+    mod = importlib.import_module(ARCHS[arch])
+    return mod.optimizer() if hasattr(mod, "optimizer") else OptimizerConfig()

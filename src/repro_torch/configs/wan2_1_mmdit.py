@@ -2,10 +2,12 @@
 diffusion transformer with AdaLN-modulate conditioning [arXiv:2503.20314].
 
 The same three sizes as ``repro.configs.wan2_1_mmdit``: the 1.3B (the
-served model), the 14B, and a two-layer smoke size for the CPU tests.
+served and trained model), the 14B, and a two-layer smoke size for the CPU
+tests; and the same optimizer.
 """
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adamw import OptimizerConfig
 
 
 def config() -> ModelConfig:  # 1.3B
@@ -55,3 +57,7 @@ def smoke_config() -> ModelConfig:
         in_channels=16,
         dtype="float32",
     )
+
+
+def optimizer() -> OptimizerConfig:
+    return OptimizerConfig(peak_lr=1e-4, schedule="constant", warmup=100)

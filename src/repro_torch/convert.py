@@ -1,4 +1,4 @@
-"""Parameters of the JAX MMDiT -> state of the port's :class:`MMDiT`.
+"""Parameters and optimizer state between the JAX MMDiT and the port.
 
 ``from_jax_params`` takes the JAX parameter tree as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``) and returns a state dict for
@@ -10,6 +10,11 @@
 * every weight keeps its ``[d_in, d_out]`` layout: the port applies
   projections as ``x @ w`` exactly as the JAX model does, so nothing is
   transposed.
+
+``from_jax_opt_state`` does the same for the AdamW moments (``{"m", "v"}``
+trees), and ``to_numpy`` goes back: the port's tensors by name -> the JAX
+tree of numpy arrays, with the per-layer entries stacked again, so a test
+compares parameter trees leaf by leaf.
 """
 
 from __future__ import annotations
@@ -54,3 +59,37 @@ def from_jax_params(params_np: dict, cfg: ModelConfig, *, device=None) -> dict:
         else:
             state[name] = _to_torch(leaf, device)
     return state
+
+
+def from_jax_opt_state(opt_np: dict, cfg: ModelConfig, *, device=None) -> dict:
+    """The JAX AdamW state ``{"m": tree, "v": tree}`` (numpy leaves) as the
+    port's ``{"m": {name: tensor}, "v": {name: tensor}}``."""
+    return {k: from_jax_params(opt_np[k], cfg, device=device) for k in ("m", "v")}
+
+
+def to_numpy(tensors: dict, cfg: ModelConfig) -> dict:
+    """Tensors by parameter name (a state dict, gradients, a moment) as the
+    JAX tree of numpy arrays: per-layer ``blocks.<i>.*`` entries stacked on
+    a leading ``n_layers`` axis.  bf16 comes back as f32 (numpy has no
+    bf16), which holds every bf16 value exactly."""
+    tree: dict = {}
+    stacked: dict = {}
+    for name, t in tensors.items():
+        a = t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
+        if name.startswith("blocks."):
+            _, i, rest = name.split(".", 2)
+            stacked.setdefault(rest, {})[int(i)] = a
+        else:
+            _insert(tree, name, a)
+    for rest, by_layer in stacked.items():
+        if sorted(by_layer) != list(range(cfg.n_layers)):
+            raise ValueError(f"blocks.*.{rest}: layers {sorted(by_layer)} != {cfg.n_layers}")
+        _insert(tree, "blocks." + rest, np.stack([by_layer[i] for i in range(cfg.n_layers)]))
+    return tree
+
+
+def _insert(tree: dict, name: str, leaf) -> None:
+    *path, last = name.split(".")
+    for key in path:
+        tree = tree.setdefault(key, {})
+    tree[last] = leaf

@@ -1,1 +1,2 @@
-"""Host-side planning pieces of the port (cost model)."""
+"""Host-side planning pieces of the port: cost model, bucketing, bucket-weight
+validation and the telemetry record."""

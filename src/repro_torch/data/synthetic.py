@@ -1,0 +1,50 @@
+"""Synthetic data: the mixed image/video corpus and batch materialization,
+the counterpart of ``repro.data.synthetic``.
+
+The paper stress-tests with "a mixed corpus of 10 million samples from
+WebDataset and Koala-36m, creating extreme sequence length variance"; this
+reproduces the *shape distribution* (images + multi-duration multi-res
+videos) and generates synthetic latents and text states on the fly — the
+bucketing system only ever sees shapes and the device only ever sees
+tensors ("synthetic pixel scans", paper §3.2).  Batches are drawn on the
+device they train on, from a ``torch.Generator`` seeded by the loader.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.bucketing import DataShape
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.mmdit import DTYPES, TEXT_DIM
+
+
+def wan_mixed_corpus() -> tuple[list[DataShape], list[float]]:
+    """Image + video shape mix with paper-like extreme variance
+    (S from ~1.6k to ~47k logical tokens)."""
+    shapes = [
+        DataShape(1, 480, 832, 77),     # image, 480p
+        DataShape(1, 720, 1280, 77),    # image, 720p
+        DataShape(17, 480, 832, 77),    # 1s video 480p
+        DataShape(33, 480, 832, 77),    # 2s video 480p
+        DataShape(81, 480, 832, 77),    # 5s video 480p
+        DataShape(33, 720, 1280, 77),   # 2s video 720p
+        DataShape(81, 720, 1280, 77),   # 5s video 720p
+        DataShape(97, 720, 1280, 77),   # 6s video 720p
+    ]
+    weights = [0.20, 0.13, 0.15, 0.15, 0.12, 0.12, 0.08, 0.05]
+    return shapes, weights
+
+
+def make_diffusion_batch(seed: int, bucket_batch: int, seq_len: int, cfg: ModelConfig,
+                         device) -> dict:
+    """Latent tokens [B, S, in_channels*4] and text states [B, text_len,
+    4096] for one MMDiT microbatch, N(0, 1) drawn in f32 on ``device`` from
+    ``seed`` and cast to the configuration's dtype."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = DTYPES[cfg.dtype]
+    latents = torch.randn((bucket_batch, seq_len, cfg.in_channels * 4), generator=gen,
+                          dtype=torch.float32, device=device).to(dt)
+    text = torch.randn((bucket_batch, cfg.text_len, TEXT_DIM), generator=gen,
+                       dtype=torch.float32, device=device).to(dt)
+    return {"latents": latents, "text": text}

@@ -6,6 +6,12 @@ Models call these three functions.  The device of the tensor chooses:
 * a CUDA tensor goes to the hand-written Hopper kernel, which launches or
   raises.
 
+Where autograd records the call (grad enabled and an input that requires
+grad), the operator runs as its ``torch.autograd.Function`` (``ops.py`` of
+each family): the forward kernel keeps its residuals and the backward runs
+the backward kernels, again by device.  Otherwise (serving, inference) the
+forward kernel runs alone and keeps nothing.
+
 There is no backend setting and no fallback: a shape the kernel does not
 take is an error on the card, not a quiet detour through PyTorch.
 
@@ -16,13 +22,28 @@ Each kernel wrapper counts its launches in a plain integer attribute
 
 from __future__ import annotations
 
+import torch
+
 from . import plain
-from .flash_attention.flash import flash_fwd
-from .fused_adaln.adaln import adaln_fwd
-from .fused_rmsnorm.rmsnorm import qk_rms_fwd
+from .flash_attention import ops as flash_ops
+from .flash_attention.flash import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+from .fused_adaln import ops as adaln_ops
+from .fused_adaln.adaln import adaln_bwd_dmod, adaln_bwd_dx, adaln_fwd
+from .fused_rmsnorm import ops as rms_ops
+from .fused_rmsnorm.rmsnorm import qk_rms_bwd_dw, qk_rms_bwd_dx, qk_rms_fwd
 
 #: every CUDA kernel wrapper of the port, by kernel name
-KERNELS = {"adaln_fwd": adaln_fwd, "qk_rms_fwd": qk_rms_fwd, "flash_fwd": flash_fwd}
+KERNELS = {
+    "adaln_fwd": adaln_fwd,  # K1
+    "adaln_bwd_dx": adaln_bwd_dx,  # K2
+    "adaln_bwd_dmod": adaln_bwd_dmod,  # K3
+    "qk_rms_fwd": qk_rms_fwd,  # K4
+    "qk_rms_bwd_dx": qk_rms_bwd_dx,  # K5
+    "qk_rms_bwd_dw": qk_rms_bwd_dw,  # K6
+    "flash_fwd": flash_fwd,  # K7
+    "flash_bwd_dq": flash_bwd_dq,  # K8
+    "flash_bwd_dkv": flash_bwd_dkv,  # K9
+}
 
 
 def _on_card(x) -> bool:
@@ -33,16 +54,27 @@ def _on_card(x) -> bool:
     raise ValueError(f"no kernel for tensors on {x.device}")
 
 
+def _recorded(*tensors) -> bool:
+    """Whether autograd records a call on these tensors."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def adaln_modulate(x, scale, shift, eps: float = 1e-6):
     """Fused LayerNorm-Modulate (paper §3.3).  x: [B, S, D]; scale/shift: [B, D]."""
-    if _on_card(x):
+    card = _on_card(x)
+    if _recorded(x, scale, shift):
+        return adaln_ops.adaln_modulate(x, scale, shift, eps)
+    if card:
         return adaln_fwd(x, scale, shift, eps)[0]
     return plain.adaln_modulate(x, scale, shift, eps)
 
 
 def qk_norm(q, k, wq, wk, eps: float = 1e-6):
     """Joint per-head q/k RMSNorm — paper's QNorm+KNorm fusion (one launch)."""
-    if _on_card(q):
+    card = _on_card(q)
+    if _recorded(q, k, wq, wk):
+        return rms_ops.qk_norm(q, k, wq, wk, eps)
+    if card:
         return qk_rms_fwd(q, k, wq, wk, eps)[:2]
     return plain.qk_norm(q, k, wq, wk, eps)
 
@@ -54,7 +86,11 @@ def attention(q, k, v, *, causal: bool, q_segment_ids=None,
     Visibility is segment-id equality (``-1`` pads, and padding attends
     padding), plus ``q_pos >= k_pos`` when ``causal``.
     """
-    if _on_card(q):
+    card = _on_card(q)
+    if _recorded(q, k, v):
+        return flash_ops.attention(q, k, v, causal=causal, q_segment_ids=q_segment_ids,
+                                   kv_segment_ids=kv_segment_ids, scale=scale)
+    if card:
         return flash_fwd(q, k, v, q_segment_ids, kv_segment_ids,
                          causal=causal, scale=scale)[0]
     return plain.attention(q, k, v, causal=causal, q_segment_ids=q_segment_ids,

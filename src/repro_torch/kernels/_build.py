@@ -2,9 +2,10 @@
 
 Each ``csrc/*.cu`` under ``repro_torch/kernels`` is one shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds, not
-minutes).  Libraries land in ``<repo>/build/repro_torch_kernels/`` named by
-a hash of their source and flags, are built at first use, and are reused
-while the source is unchanged.  :func:`build_all` starts one ``nvcc`` per
+minutes); sources of one family may share a ``csrc/*.cuh`` header.
+Libraries land in ``<repo>/build/repro_torch_kernels/`` named by a hash of
+their source, the headers beside it and the flags, are built at first use,
+and are reused while those are unchanged.  :func:`build_all` starts one ``nvcc`` per
 source, all together, and waits for them.
 
 Every C entry point takes pointers and the stream as ``void*`` (declared
@@ -47,7 +48,9 @@ def _nvcc() -> str:
 
 
 def _target(src: pathlib.Path) -> pathlib.Path:
-    h = hashlib.sha256(src.read_bytes())  # each source includes no header of ours
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):  # the only headers of ours
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

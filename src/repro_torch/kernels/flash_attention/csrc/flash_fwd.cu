@@ -31,21 +31,17 @@
 // fused projections), masks the ragged edge itself (zero-filled rows past
 // S), and writes out in [B, Sq, Hq, dh].  NEG_INF is the finite -2e38 and
 // a row that sees no key ends with l = 0, giving exact zeros through the
-// LSE_FLOOR guard.  Not yet used: wgmma, TMA, warp specialisation.
+// LSE_FLOOR guard.  For bf16 inputs the output may be written in f32
+// instead (out_f32): the training forward keeps the unrounded output as the
+// residual of the backward's delta rows.  The tiles, fragments and masks
+// are shared with the backward kernels (flash_common.cuh).  Not yet used:
+// wgmma, TMA, warp specialisation.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // q rows per block
-constexpr int BK = 64;  // kv rows per tile
-constexpr int kWarps = BQ / 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int PLD = BK + 4;  // row stride of the f32 path's P staging
-constexpr float NEG_INF = -2.0e38f;
-constexpr float LSE_FLOOR = 1e-37f;
+using namespace flash;
 
 struct Params {
   const void* q;
@@ -53,7 +49,7 @@ struct Params {
   const void* v;
   const int* q_seg;   // [B, Sq] or null (one segment)
   const int* kv_seg;  // [B, Skv] or null
-  void* out;          // [B, Sq, Hq, dh], q's dtype
+  void* out;          // [B, Sq, Hq, dh], q's dtype or f32
   float* lse;         // [B, Hq, Sq]
   int Hq, Hkv, Sq, Skv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;  // element strides
@@ -61,232 +57,13 @@ struct Params {
   int causal;
 };
 
-template <typename T>
-constexpr bool kBf16 = sizeof(T) == 2;
-
 template <typename T, int DH>
-__host__ __device__ constexpr int row_ld() { return DH + 16 / static_cast<int>(sizeof(T)); }  // 16-byte pad
+constexpr int smem_bytes() { return 3 * tile_bytes<T, DH>() + staging_bytes<T>(); }
 
-template <typename T, int DH>
-constexpr int smem_bytes() {
-  return (BQ + 2 * BK) * row_ld<T, DH>() * static_cast<int>(sizeof(T)) +
-         (kBf16<T> ? 0 : kWarps * 16 * PLD * static_cast<int>(sizeof(float)));
-}
-
-// rows [r0, r0 + n) of a [S, DH] strided matrix into shared memory with
-// 16-byte loads; rows past S are zero-filled.
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_stride,
-                                          int r0, int S, int n) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int CPR = DH / V;  // chunks per row
-  constexpr int LD = row_ld<T, DH>();
-  for (int i = threadIdx.x; i < n * CPR; i += kThreads) {
-    const int r = i / CPR, c = i % CPR;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c * V);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * V) = val;
-  }
-}
-
-// The same, asynchronously (cp.async, 16 bytes a thread, bypassing L1):
-// rows past S are zero-filled by a zero source size.  Closes one group.
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* src, long long row_stride,
-                                                int r0, int S) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int CPR = DH / V;
-  constexpr int LD = row_ld<T, DH>();
-  for (int i = threadIdx.x; i < BK * CPR; i += kThreads) {
-    const int r = i / CPR, c = i % CPR;
-    const bool in = r0 + r < S;
-    const T* g = in ? src + (r0 + r) * row_stride + c * V : src;
-    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * LD + c * V));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(g), "r"(in ? 16 : 0));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Four 8x8 b16 matrices from shared memory; lane L gives the address of
-// row L % 8 of matrix L / 8.  .trans hands each lane a column pair instead
-// of a row pair.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo = low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d += a * b for one m16n8k16 tile, bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// Fragment ownership (the mma.sync m16n8k16 accumulator layout): in its
-// warp's 16 rows a lane owns rows g = lane / 4 and g + 8, and in every
-// 8-column tile nt the columns nt * 8 + 2 * t + {0, 1}, t = lane % 4.
-// s[nt][0..1] belong to row g, s[nt][2..3] to row g + 8.
-
-// s = Q_w K^T for the warp's 16 rows against the BK keys of the tile.
-template <typename T, int DH>
-__device__ __forceinline__ void scores(float (&s)[BK / 8][4], const T* Qw, const T* Ks,
-                                       int g, int t) {
-  constexpr int LD = row_ld<T, DH>();
-#pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-  if constexpr (kBf16<T>) {
-    const int lane = threadIdx.x % 32, mi = lane / 8, ri = lane % 8;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      // A: rows 0-7 / 8-15 x cols 0-7 / 8-15 of the warp's 16 x 16 block
-      uint32_t a[4];
-      ldsm_x4(a, Qw + (ri + (mi & 1) * 8) * LD + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; nt += 2) {
-        // B of n-tiles nt and nt + 1: K rows are its columns
-        uint32_t b[4];
-        ldsm_x4(b, Ks + (nt * 8 + (mi >> 1) * 8 + ri) * LD + kk * 16 + (mi & 1) * 8);
-        mma_bf16(s[nt], a[0], a[1], a[2], a[3], b[0], b[1]);
-        mma_bf16(s[nt + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
-      }
-    }
-  } else {
-#pragma unroll 4
-    for (int kk = 0; kk < DH; ++kk) {
-      const float qa = Qw[g * LD + kk], qb = Qw[(g + 8) * LD + kk];
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const float k0 = Ks[(nt * 8 + 2 * t) * LD + kk];
-        const float k1 = Ks[(nt * 8 + 2 * t + 1) * LD + kk];
-        s[nt][0] = fmaf(qa, k0, s[nt][0]);
-        s[nt][1] = fmaf(qa, k1, s[nt][1]);
-        s[nt][2] = fmaf(qb, k0, s[nt][2]);
-        s[nt][3] = fmaf(qb, k1, s[nt][3]);
-      }
-    }
-  }
-}
-
-// acc += P V for the warp's 16 rows; p holds P in the fragment layout.
-template <typename T, int DH>
-__device__ __forceinline__ void accumulate_pv(float (&acc)[DH / 8][4], const float (&p)[BK / 8][4],
-                                              const T* Vs, float* Pw, int g, int t) {
-  constexpr int LD = row_ld<T, DH>();
-  if constexpr (kBf16<T>) {
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      // the accumulator layout of two adjacent 8-column tiles is the A
-      // operand layout of one 16-deep step
-      const uint32_t a0 = pack_f32(p[2 * kk][0], p[2 * kk][1]);
-      const uint32_t a1 = pack_f32(p[2 * kk][2], p[2 * kk][3]);
-      const uint32_t a2 = pack_f32(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-      const uint32_t a3 = pack_f32(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-      const int lane = threadIdx.x % 32, mi = lane / 8, ri = lane % 8;
-#pragma unroll
-      for (int d = 0; d < DH / 8; d += 2) {
-        // B of n-tiles d and d + 1 from V [kv][dh], transposed on load
-        uint32_t b[4];
-        ldsm_x4_trans(b, Vs + (kk * 16 + (mi & 1) * 8 + ri) * LD + (d + (mi >> 1)) * 8);
-        mma_bf16(acc[d], a0, a1, a2, a3, b[0], b[1]);
-        mma_bf16(acc[d + 1], a0, a1, a2, a3, b[2], b[3]);
-      }
-    }
-  } else {
-    // stage the warp's P rows, then each lane reads full rows of it
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      Pw[g * PLD + nt * 8 + 2 * t] = p[nt][0];
-      Pw[g * PLD + nt * 8 + 2 * t + 1] = p[nt][1];
-      Pw[(g + 8) * PLD + nt * 8 + 2 * t] = p[nt][2];
-      Pw[(g + 8) * PLD + nt * 8 + 2 * t + 1] = p[nt][3];
-    }
-    __syncwarp();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float pa = Pw[g * PLD + j], pb = Pw[(g + 8) * PLD + j];
-#pragma unroll
-      for (int d = 0; d < DH / 8; ++d) {
-        const float v0 = Vs[j * LD + d * 8 + 2 * t];
-        const float v1 = Vs[j * LD + d * 8 + 2 * t + 1];
-        acc[d][0] = fmaf(pa, v0, acc[d][0]);
-        acc[d][1] = fmaf(pa, v1, acc[d][1]);
-        acc[d][2] = fmaf(pb, v0, acc[d][2]);
-        acc[d][3] = fmaf(pb, v1, acc[d][3]);
-      }
-    }
-    __syncwarp();
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// min and max of seg[i] over i in [0, 64) across a warp (lane owns i and
-// i + 32); every lane gets both.
-__device__ __forceinline__ void warp_range(int x0, int x1, int& lo, int& hi) {
-  lo = min(x0, x1);
-  hi = max(x0, x1);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-  }
-}
-
-// The first kv tile at or after j whose segment-id range meets the q tile's
-// [q_lo, q_hi] (the tile skip), and that tile's range.  Entries past Skv
-// repeat the last id, so a range covers real keys only.  Every warp reads
-// the same ids and so walks the same tiles: control flow stays uniform.
-__device__ __forceinline__ int next_live(const int* kseg, int j, int n_tiles, int Skv,
-                                         int q_lo, int q_hi, int lane, int& k_lo, int& k_hi) {
-  if (!kseg) return j;
-  for (; j < n_tiles; ++j) {
-    const int k0 = j * BK;
-    warp_range(kseg[min(k0 + lane, Skv - 1)], kseg[min(k0 + lane + 32, Skv - 1)], k_lo, k_hi);
-    if (k_hi >= q_lo && k_lo <= q_hi) break;
-  }
-  return j;
-}
-
-template <typename T, int DH>
+// OT: the output's type, T or f32 (the training residual).
+template <typename T, typename OT, int DH>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
-  static_assert(BK == 64, "warp_range covers 64 ids");
   constexpr int LD = row_ld<T, DH>();
-  constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* Ks = Qs + BQ * LD;
@@ -323,7 +100,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
     load_tile_async<T, DH>(Ks, kg, p.k_ss, j * BK, p.Skv);
     load_tile_async<T, DH>(Vs, vg, p.v_ss, j * BK, p.Skv);
   }
-  load_tile<T, DH>(Qs, qg, p.q_ss, q0, p.Sq, BQ);
+  load_tile<T, DH>(Qs, qg, p.q_ss, q0, p.Sq);
 
   const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
   const float scale2 = p.scale * LOG2E;  // scores in log2 units: exp2 below
@@ -344,7 +121,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
 
     cp_async_wait<1>();  // K(j) has landed; V(j) may still be in flight
     __syncthreads();
-    float s[BK / 8][4];
+    float s[8][4];
     scores<T, DH>(s, Qs + warp * 16 * LD, Ks, g, t);
     __syncthreads();  // every warp is done with Ks
     if (jn < n_tiles) load_tile_async<T, DH>(Ks, kg, p.k_ss, jn * BK, p.Skv);
@@ -402,7 +179,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
     if (jn < n_tiles) cp_async_wait<1>();  // V(j) has landed, K(jn) may not
     else cp_async_wait<0>();
     __syncthreads();
-    accumulate_pv<T, DH>(acc, s, Vs, Ps + warp * 16 * PLD, g, t);
+    accumulate<T, DH>(acc, s, Vs, Ps + warp * 16 * PLD, g, t);
     __syncthreads();  // every warp is done with Vs
     if (jn < n_tiles) load_tile_async<T, DH>(Vs, vg, p.v_ss, jn * BK, p.Skv);
     j = jn;
@@ -414,38 +191,38 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   const float den_a = fmaxf(l_a, LSE_FLOOR), den_b = fmaxf(l_b, LSE_FLOOR);
   const float lse_a = (m_a == NEG_INF ? NEG_INF : m_a * LN2) + logf(den_a);
   const float lse_b = (m_b == NEG_INF ? NEG_INF : m_b * LN2) + logf(den_b);
-  T* og = static_cast<T*>(p.out);
+  OT* og = static_cast<OT*>(p.out);
   if (row_a < p.Sq) {
-    T* o = og + ((static_cast<long long>(b) * p.Sq + row_a) * p.Hq + h) * DH + 2 * t;
+    OT* o = og + ((static_cast<long long>(b) * p.Sq + row_a) * p.Hq + h) * DH + 2 * t;
 #pragma unroll
     for (int d = 0; d < DH / 8; ++d) store2(o + d * 8, acc[d][0] / den_a, acc[d][1] / den_a);
     if (t == 0) p.lse[(static_cast<long long>(b) * p.Hq + h) * p.Sq + row_a] = lse_a;
   }
   if (row_b < p.Sq) {
-    T* o = og + ((static_cast<long long>(b) * p.Sq + row_b) * p.Hq + h) * DH + 2 * t;
+    OT* o = og + ((static_cast<long long>(b) * p.Sq + row_b) * p.Hq + h) * DH + 2 * t;
 #pragma unroll
     for (int d = 0; d < DH / 8; ++d) store2(o + d * 8, acc[d][2] / den_b, acc[d][3] / den_b);
     if (t == 0) p.lse[(static_cast<long long>(b) * p.Hq + h) * p.Sq + row_b] = lse_b;
   }
 }
 
-template <typename T, int DH>
+template <typename T, typename OT, int DH>
 cudaError_t launch(const Params& p, int B, cudaStream_t st) {
   constexpr int bytes = smem_bytes<T, DH>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_kernel<T, OT, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, B), block(kThreads);
-  flash_fwd_kernel<T, DH><<<grid, block, bytes, st>>>(p);
+  flash_fwd_kernel<T, OT, DH><<<grid, block, bytes, st>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename OT>
 cudaError_t launch_dh(const Params& p, int B, int dh, cudaStream_t st) {
   switch (dh) {
-    case 32: return launch<T, 32>(p, B, st);
-    case 64: return launch<T, 64>(p, B, st);
-    case 128: return launch<T, 128>(p, B, st);
+    case 32: return launch<T, OT, 32>(p, B, st);
+    case 64: return launch<T, OT, 64>(p, B, st);
+    case 128: return launch<T, OT, 128>(p, B, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -455,7 +232,8 @@ cudaError_t launch_dh(const Params& p, int B, int dh, cudaStream_t st) {
 // q: [B, Sq, Hq, dh], k, v: [B, Skv, Hkv, dh], each with element strides
 // (batch, token, head) and a contiguous last axis; q_seg [B, Sq] and
 // kv_seg [B, Skv] int32, both null for one segment; out: contiguous
-// [B, Sq, Hq, dh] in q's dtype; lse: [B, Hq, Sq] f32.  Returns
+// [B, Sq, Hq, dh] in q's dtype, or f32 with out_f32 (the training
+// residual of bf16 inputs); lse: [B, Hq, Sq] f32.  Returns
 // cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* q_seg, const void* kv_seg, void* out, void* lse,
@@ -463,7 +241,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          long long q_sb, long long q_ss, long long q_sh,
                          long long k_sb, long long k_ss, long long k_sh,
                          long long v_sb, long long v_ss, long long v_sh,
-                         float scale, int causal, int is_bf16, void* stream) {
+                         float scale, int causal, int is_bf16, int out_f32, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -482,7 +260,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   p.scale = scale;
   p.causal = causal;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_bf16 ? launch_dh<__nv_bfloat16>(p, B, dh, st)
-                                  : launch_dh<float>(p, B, dh, st);
+  const cudaError_t err = !is_bf16 ? launch_dh<float, float>(p, B, dh, st)
+                         : out_f32 ? launch_dh<__nv_bfloat16, float>(p, B, dh, st)
+                                   : launch_dh<__nv_bfloat16, __nv_bfloat16>(p, B, dh, st);
   return static_cast<int>(err);
 }

@@ -1,11 +1,13 @@
-"""Wrapper and ctypes binding of the segment-aware flash-attention forward
-(``csrc/flash_fwd.cu``).
+"""Wrappers and ctypes bindings of the segment-aware flash-attention
+kernels: the forward K7 (``csrc/flash_fwd.cu``) and the backward K8 (dq)
+and K9 (dk, dv) (``csrc/flash_bwd.cu``).
 
-``flash_fwd`` takes CUDA tensors only, in the model's ``[B, S, H, dh]``
+Each wrapper takes CUDA tensors only, in the model's ``[B, S, H, dh]``
 layout (strided views are fine as long as the last axis is contiguous), and
-counts each launch in ``flash_fwd.launches``.  The plain version is
-``ref.attention_ref``.  :func:`live_tile_pairs` counts the (q tile, kv
-tile) pairs the kernel's skip rule runs, for the work bound.
+counts each launch in its ``launches`` attribute.  The plain versions are
+``ref.attention_ref`` and ``ref.attention_bwd_ref``.
+:func:`live_tile_pairs` counts the (q tile, kv tile) pairs the kernels'
+skip rule runs (the same pairs forward and backward), for the work bound.
 """
 
 from __future__ import annotations
@@ -17,44 +19,63 @@ import torch
 from .. import _build
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 7 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _I, _P]
+_ARGTYPES = [_P] * 7 + [_I] * 6 + [_L] * 9 + [ctypes.c_float, _I, _I, _I, _P]
+_STRIDES = ctypes.POINTER(_L)
+_DQ_ARGTYPES = [_P] * 10 + [_I] * 6 + [_STRIDES, ctypes.c_float, _I, _I, _P]
+_DKV_ARGTYPES = [_P] * 10 + [_I] * 6 + [_STRIDES, ctypes.c_float, _I, _I, _P]
 HEAD_DIMS = (32, 64, 128)
 Q_TILE = 64  # BQ of the source
 KV_TILE = 64  # BK of the source
 
 
-def flash_fwd(q, k, v, q_segment_ids=None, kv_segment_ids=None, *,
-              causal: bool = False, scale: float | None = None):
-    """Segment-aware attention on the card.
-
-    q: [B, Sq, Hq, dh]; k, v: [B, Skv, Hkv, dh] (Hq % Hkv == 0); dh in
-    {32, 64, 128}; bf16 or f32.  Segment ids: int32 [B, Sq] / [B, Skv],
-    both or neither.  Returns ``(out [B, Sq, Hq, dh], lse [B, Hq, Sq] f32)``.
-    """
-    if (q_segment_ids is None) != (kv_segment_ids is None):
-        raise ValueError("pass both q_segment_ids and kv_segment_ids, or neither")
-    segs = () if q_segment_ids is None else (q_segment_ids, kv_segment_ids)
-    _build.require_cuda("flash_fwd", q, k, v, *segs)
+def _check(name, q, k, v, segs):
+    """Shapes, dtypes and alignment the kernels take; returns (B, Sq, Hq,
+    dh, Skv, Hkv)."""
+    _build.require_cuda(name, q, k, v, *segs)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("flash_fwd needs q [B, Sq, Hq, dh] and k, v [B, Skv, Hkv, dh]")
+        raise ValueError(f"{name} needs q [B, Sq, Hq, dh] and k, v [B, Skv, Hkv, dh]")
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != dh or dh not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd: shapes {tuple(q.shape)}, {tuple(k.shape)}; "
+        raise ValueError(f"{name}: shapes {tuple(q.shape)}, {tuple(k.shape)}; "
                          f"head_dim must be one of {HEAD_DIMS}")
     if hq % hkv:
         raise ValueError(f"GQA needs Hq % Hkv == 0, got Hq={hq}, Hkv={hkv}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError("flash_fwd needs q, k, v all bf16 or all f32")
+        raise ValueError(f"{name} needs q, k, v all bf16 or all f32")
     vec = 16 // q.element_size()
     if not all(_build.aligned(t, vec) for t in (q, k, v)):
-        raise ValueError("flash_fwd needs 16-byte aligned rows of q, k and v")
+        raise ValueError(f"{name} needs 16-byte aligned rows of q, k and v")
     if segs:
         for ids, n in zip(segs, (sq, skv)):
             if ids.shape != (b, n) or ids.dtype != torch.int32 or not ids.is_contiguous():
-                raise ValueError("flash_fwd needs contiguous int32 segment ids [B, S]")
+                raise ValueError(f"{name} needs contiguous int32 segment ids [B, S]")
+    return b, sq, hq, dh, skv, hkv
+
+
+def _segs(q_segment_ids, kv_segment_ids):
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("pass both q_segment_ids and kv_segment_ids, or neither")
+    return () if q_segment_ids is None else (q_segment_ids, kv_segment_ids)
+
+
+def flash_fwd(q, k, v, q_segment_ids=None, kv_segment_ids=None, *,
+              causal: bool = False, scale: float | None = None, out_dtype=None):
+    """Segment-aware attention on the card.
+
+    q: [B, Sq, Hq, dh]; k, v: [B, Skv, Hkv, dh] (Hq % Hkv == 0); dh in
+    {32, 64, 128}; bf16 or f32.  Segment ids: int32 [B, Sq] / [B, Skv],
+    both or neither.  ``out_dtype`` is q's dtype (default) or f32, the
+    unrounded output the training forward keeps for the backward.  Returns
+    ``(out [B, Sq, Hq, dh], lse [B, Hq, Sq] f32)``.
+    """
+    segs = _segs(q_segment_ids, kv_segment_ids)
+    b, sq, hq, dh, skv, hkv = _check("flash_fwd", q, k, v, segs)
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise ValueError(f"flash_fwd writes out in q's dtype or f32, not {out_dtype}")
     scale = float(scale) if scale is not None else dh**-0.5
-    out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, hq, dh), dtype=out_dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if b * sq == 0:
         return out, lse
@@ -68,7 +89,7 @@ def flash_fwd(q, k, v, q_segment_ids=None, kv_segment_ids=None, *,
             b, hq, hkv, sq, skv, dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             scale, int(causal), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            int(out_dtype != q.dtype), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(code, "flash_fwd")
     flash_fwd.launches += 1
@@ -76,6 +97,93 @@ def flash_fwd(q, k, v, q_segment_ids=None, kv_segment_ids=None, *,
 
 
 flash_fwd.launches = 0
+
+
+def _check_bwd(name, q, do, lse, rows):
+    b, sq, hq, dh = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or not _build.aligned(do, 16 // q.element_size()):
+        raise ValueError(f"{name} needs do shaped and typed as q, with 16-byte aligned rows")
+    for nm, t in (("lse", lse), *rows):
+        if t.shape != (b, hq, sq) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} needs {nm} contiguous [B, Hq, Sq] f32")
+
+
+def _strides(q, k, v, do):
+    return (_L * 12)(*(st for t in (q, k, v, do) for st in t.stride()[:3]))
+
+
+def flash_bwd_dq(q, k, v, out, do, lse, q_segment_ids=None, kv_segment_ids=None, *,
+                 causal: bool = False, scale: float | None = None):
+    """K8: dq of segment-aware attention on the card, by a kv sweep.
+
+    q, k, v, segment ids and ``causal`` as the forward (K7); out: the
+    forward's output, contiguous [B, Sq, Hq, dh] f32; do: the output's
+    gradient, shaped and typed as q; lse: [B, Hq, Sq] f32 (K7's).  Returns
+    ``(dq, delta)``: dq contiguous in q's dtype, and ``delta = sum(do *
+    out)`` [B, Hq, Sq] f32, which K9 reads.
+    """
+    segs = _segs(q_segment_ids, kv_segment_ids)
+    b, sq, hq, dh, skv, hkv = _check("flash_bwd_dq", q, k, v, segs)
+    _check_bwd("flash_bwd_dq", q, do, lse, ())
+    if out.shape != q.shape or out.dtype != torch.float32 or not out.is_contiguous():
+        raise ValueError("flash_bwd_dq needs out contiguous [B, Sq, Hq, dh] f32")
+    scale = float(scale) if scale is not None else dh**-0.5
+    dq = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if b * sq == 0:
+        return dq, delta
+    fn = _build.bind("flash_bwd", "flash_bwd_dq", _DQ_ARGTYPES)
+    strides = _strides(q, k, v, do)
+    with torch.cuda.device(q.device):
+        code = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            segs[0].data_ptr() if segs else None, segs[1].data_ptr() if segs else None,
+            dq.data_ptr(), b, hq, hkv, sq, skv, dh, strides,
+            scale, int(causal), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(code, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq, delta
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, q_segment_ids=None, kv_segment_ids=None, *,
+                  causal: bool = False, scale: float | None = None):
+    """K9: (dk, dv) of segment-aware attention on the card, by a q sweep
+    that sums the GQA group on chip.  Arguments as :func:`flash_bwd_dq`,
+    with K8's ``delta`` in place of ``out``.  Returns contiguous (dk, dv)
+    [B, Skv, Hkv, dh] in k's dtype."""
+    segs = _segs(q_segment_ids, kv_segment_ids)
+    b, sq, hq, dh, skv, hkv = _check("flash_bwd_dkv", q, k, v, segs)
+    _check_bwd("flash_bwd_dkv", q, do, lse, (("delta", delta),))
+    scale = float(scale) if scale is not None else dh**-0.5
+    dk = torch.empty((b, skv, hkv, dh), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, skv, hkv, dh), dtype=v.dtype, device=v.device)
+    if b * skv == 0:
+        return dk, dv
+    if sq == 0:
+        return dk.zero_(), dv.zero_()
+    fn = _build.bind("flash_bwd", "flash_bwd_dkv", _DKV_ARGTYPES)
+    strides = _strides(q, k, v, do)
+    with torch.cuda.device(q.device):
+        code = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(),
+            segs[0].data_ptr() if segs else None, segs[1].data_ptr() if segs else None,
+            dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, skv, dh, strides,
+            scale, int(causal), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(code, "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
 
 
 def _tile_ranges(ids, tile: int):

@@ -1,6 +1,7 @@
-"""Plain PyTorch segment-aware attention: the counterpart of
-``repro.kernels.flash_attention.ref.attention_reference`` and of
-``repro.models.attention.blocked_attention``.
+"""Plain PyTorch segment-aware attention, forward and backward: the
+counterpart of ``repro.kernels.flash_attention.ref.attention_reference`` and
+``repro.models.attention.blocked_attention``, and of the Pallas backward's
+recompute formulas (``flash.py`` ``_recompute_p_ds``).
 
 Takes the model's ``[B, S, H, dh]`` layout.  Scores are computed one kv
 block at a time with a running fp32 (max, sum, acc) softmax state, so memory
@@ -30,8 +31,10 @@ def attention_ref(
     causal: bool = False,
     scale: float | None = None,
     kv_block: int = 1024,
+    out_dtype=None,
 ):
-    """Returns ``(out [B, Sq, Hq, dh] in q.dtype, lse [B, Hq, Sq] f32)``."""
+    """Returns ``(out [B, Sq, Hq, dh] in out_dtype (default q.dtype), lse
+    [B, Hq, Sq] f32)``."""
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("pass both q_segment_ids and kv_segment_ids, or neither")
     b, sq, hq, dh = q.shape
@@ -51,16 +54,7 @@ def attention_ref(
         kj = k[:, j0:j1].float().transpose(1, 2).repeat_interleave(g, dim=1)
         vj = v[:, j0:j1].float().transpose(1, 2).repeat_interleave(g, dim=1)
         s = qf @ kj.transpose(-1, -2)  # [B, Hq, Sq, kb]
-        mask = None
-        if causal:
-            k_pos = torch.arange(j0, j1, device=q.device)
-            mask = (q_pos[:, None] >= k_pos[None, :])[None, None]
-        if q_segment_ids is not None:
-            seg = (
-                q_segment_ids[:, None, :, None]
-                == kv_segment_ids[:, None, None, j0:j1]
-            )
-            mask = seg if mask is None else (mask & seg)
+        mask = _visible(q_pos, j0, j1, causal, q_segment_ids, kv_segment_ids)
         if mask is not None:
             s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -72,5 +66,64 @@ def attention_ref(
         acc = acc * corr[..., None] + p @ vj
         m = m_new
     denom = torch.clamp(denom, min=LSE_FLOOR)
-    out = (acc / denom[..., None]).transpose(1, 2).to(q.dtype)
+    out = (acc / denom[..., None]).transpose(1, 2).to(out_dtype or q.dtype)
     return out, m + torch.log(denom)
+
+
+def _visible(q_pos, j0, j1, causal, q_segment_ids, kv_segment_ids):
+    """[B or 1, 1, Sq, kb] visibility of keys j0..j1, or None (all)."""
+    mask = None
+    if causal:
+        k_pos = torch.arange(j0, j1, device=q_pos.device)
+        mask = (q_pos[:, None] >= k_pos[None, :])[None, None]
+    if q_segment_ids is not None:
+        seg = q_segment_ids[:, None, :, None] == kv_segment_ids[:, None, None, j0:j1]
+        mask = seg if mask is None else (mask & seg)
+    return mask
+
+
+def attention_delta_ref(do, out):
+    """``delta = sum(do * out)`` over dh: [B, Hq, Sq] f32 from the output's
+    gradient and the f32 output, both [B, Sq, Hq, dh]."""
+    return (do.float() * out.float()).sum(dim=-1).transpose(1, 2)
+
+
+def attention_bwd_ref(q, k, v, do, lse, delta, q_segment_ids=None, kv_segment_ids=None,
+                      *, causal: bool = False, scale: float | None = None,
+                      kv_block: int = 1024):
+    """Plain K8 and K9: ``(dq, dk, dv)`` in the inputs' dtypes.
+
+    Recomputes, one kv block at a time and in fp32, ``p = exp(s * scale -
+    lse)`` and ``ds = p * (do v^T - delta)`` with masked entries exactly 0
+    (rows that see no key have ``lse = NEG_INF``); ``dq = scale * ds k``,
+    ``dk = scale * ds^T q`` and ``dv = p^T do``, dk and dv summed over each
+    GQA group.  lse, delta: [B, Hq, Sq] f32.
+    """
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("pass both q_segment_ids and kv_segment_ids, or neither")
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else dh**-0.5
+    qf = q.float().transpose(1, 2)  # [B, Hq, Sq, dh]
+    dof = do.float().transpose(1, 2)
+    q_pos = torch.arange(sq, device=q.device)
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for j0 in range(0, skv, kv_block):
+        j1 = min(j0 + kv_block, skv)
+        kj = k[:, j0:j1].float().transpose(1, 2).repeat_interleave(g, dim=1)
+        vj = v[:, j0:j1].float().transpose(1, 2).repeat_interleave(g, dim=1)
+        mask = _visible(q_pos, j0, j1, causal, q_segment_ids, kv_segment_ids)
+        p = torch.exp((qf @ kj.transpose(-1, -2)) * scale - lse[..., None])
+        if mask is not None:
+            p = torch.where(mask, p, 0.0)
+        ds = p * (dof @ vj.transpose(-1, -2) - delta[..., None])
+        dq += (ds @ kj) * scale
+        # [B, Hq, kb, dh] -> summed over the group of each kv head
+        dks.append(((ds.transpose(-1, -2) @ qf) * scale).unflatten(1, (hkv, g)).sum(2))
+        dvs.append((p.transpose(-1, -2) @ dof).unflatten(1, (hkv, g)).sum(2))
+    dk = torch.cat(dks, dim=2) if dks else torch.zeros((b, hkv, 0, dh), device=q.device)
+    dv = torch.cat(dvs, dim=2) if dvs else torch.zeros((b, hkv, 0, dh), device=q.device)
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))

@@ -1,8 +1,11 @@
-"""Wrapper and ctypes binding of the fused AdaLN forward (``csrc/adaln_fwd.cu``).
+"""Wrappers and ctypes bindings of the fused AdaLN kernels: the forward K1
+(``csrc/adaln_fwd.cu``) and the backward K2 (dx) and K3 (d scale, d shift)
+(``csrc/adaln_bwd.cu``).
 
-``adaln_fwd`` takes CUDA tensors only: it checks them, allocates the
-outputs, launches the kernel on the current stream and counts the launch
-in ``adaln_fwd.launches``.  The plain version is ``ref.adaln_modulate_ref``.
+Each wrapper takes CUDA tensors only: it checks them, allocates the
+outputs and scratch, launches on the current stream and counts the launch
+in its ``launches`` attribute.  The plain versions are in ``ref.py``
+(``adaln_modulate_ref``, ``adaln_bwd_dx_ref``, ``adaln_bwd_dmod_ref``).
 """
 
 from __future__ import annotations
@@ -15,8 +18,31 @@ from .. import _build
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 6 + [_I] * 3 + [_L] * 2 + [ctypes.c_float, _I, _P]
-THREADS = 128  # one block per row, as in the source
+_DX_ARGTYPES = [_P] * 6 + [_I] * 3 + [_L, _I, _P]
+_DMOD_ARGTYPES = [_P] * 8 + [_I] * 4 + [_P]
+THREADS = 128  # one block per row, as in the sources
 MAX_CHUNKS = 8  # 16-byte chunks a thread holds
+DMOD_ROW_CHUNK = 32  # rows per partial sum of K3 (kRowChunk in the source)
+
+
+def _check_row(name, x):
+    if x.dim() != 3 or not x.is_contiguous() or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} needs x contiguous [B, S, D] in bf16 or f32")
+    d = x.shape[2]
+    vec = 16 // x.element_size()
+    if d % vec or d // vec > THREADS * MAX_CHUNKS or x.data_ptr() % 16:
+        raise ValueError(f"{name}: D={d} must be a multiple of {vec} and at most "
+                         f"{THREADS * MAX_CHUNKS * vec}, with x 16-byte aligned")
+
+
+def _check_bwd(name, dy, x, mu, rstd):
+    _check_row(name, x)
+    b, s, _ = x.shape
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous() or dy.data_ptr() % 16:
+        raise ValueError(f"{name} needs dy contiguous, 16-byte aligned, shaped and typed as x")
+    for nm, t in (("mu", mu), ("rstd", rstd)):
+        if t.shape != (b, s) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} needs {nm} contiguous [B, S] f32")
 
 
 def adaln_fwd(x, scale, shift, eps: float = 1e-6):
@@ -27,16 +53,11 @@ def adaln_fwd(x, scale, shift, eps: float = 1e-6):
     rstd)`` with ``mu``, ``rstd`` [B, S] f32.
     """
     _build.require_cuda("adaln_fwd", x, scale, shift)
-    if x.dim() != 3 or not x.is_contiguous() or x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError("adaln_fwd needs x contiguous [B, S, D] in bf16 or f32")
+    _check_row("adaln_fwd", x)
     b, s, d = x.shape
     for name, m in (("scale", scale), ("shift", shift)):
         if m.shape != (b, d) or m.dtype != torch.float32 or not _build.aligned(m, 4):
             raise ValueError(f"adaln_fwd needs {name} [B, D] f32 with 16-byte aligned rows")
-    vec = 16 // x.element_size()
-    if d % vec or d // vec > THREADS * MAX_CHUNKS or x.data_ptr() % 16:
-        raise ValueError(f"adaln_fwd: D={d} must be a multiple of {vec} and at most "
-                         f"{THREADS * MAX_CHUNKS * vec}, with x 16-byte aligned")
     y = torch.empty_like(x)
     mu = torch.empty((b, s), dtype=torch.float32, device=x.device)
     rstd = torch.empty((b, s), dtype=torch.float32, device=x.device)
@@ -57,3 +78,61 @@ def adaln_fwd(x, scale, shift, eps: float = 1e-6):
 
 
 adaln_fwd.launches = 0
+
+
+def adaln_bwd_dx(dy, x, mu, rstd, scale):
+    """K2: dx of the fused AdaLN on the card, from K1's residuals.
+
+    dy, x: [B, S, D] contiguous, one dtype; mu, rstd: [B, S] f32; scale:
+    [B, D] f32 with 16-byte aligned rows.  Returns dx in x's dtype.
+    """
+    _build.require_cuda("adaln_bwd_dx", dy, x, mu, rstd, scale)
+    _check_bwd("adaln_bwd_dx", dy, x, mu, rstd)
+    b, s, d = x.shape
+    if scale.shape != (b, d) or scale.dtype != torch.float32 or not _build.aligned(scale, 4):
+        raise ValueError("adaln_bwd_dx needs scale [B, D] f32 with 16-byte aligned rows")
+    dx = torch.empty_like(x)
+    if b * s == 0:
+        return dx
+    fn = _build.bind("adaln_bwd", "adaln_bwd_dx", _DX_ARGTYPES)
+    with torch.cuda.device(x.device):
+        code = fn(
+            dy.data_ptr(), x.data_ptr(), mu.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
+            dx.data_ptr(), b * s, s, d, scale.stride(0), int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(code, "adaln_bwd_dx")
+    adaln_bwd_dx.launches += 1
+    return dx
+
+
+adaln_bwd_dx.launches = 0
+
+
+def adaln_bwd_dmod(dy, x, mu, rstd):
+    """K3: (dscale, dshift) [B, D] f32 of the fused AdaLN on the card:
+    ``sum_s dy * x_hat`` and ``sum_s dy``, deterministic (partials per
+    chunk of rows, then a fixed-order sum; no atomics)."""
+    _build.require_cuda("adaln_bwd_dmod", dy, x, mu, rstd)
+    _check_bwd("adaln_bwd_dmod", dy, x, mu, rstd)
+    b, s, d = x.shape
+    dscale = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    dshift = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    if b * s == 0:
+        return dscale.zero_(), dshift.zero_()
+    n_chunks = -(-s // DMOD_ROW_CHUNK)
+    part = torch.empty((2, b, n_chunks, d), dtype=torch.float32, device=x.device)
+    fn = _build.bind("adaln_bwd", "adaln_bwd_dmod", _DMOD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        code = fn(
+            dy.data_ptr(), x.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
+            part[0].data_ptr(), part[1].data_ptr(), dscale.data_ptr(), dshift.data_ptr(),
+            b, s, d, int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(code, "adaln_bwd_dmod")
+    adaln_bwd_dmod.launches += 1
+    return dscale, dshift
+
+
+adaln_bwd_dmod.launches = 0

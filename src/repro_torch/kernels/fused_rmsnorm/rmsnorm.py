@@ -1,9 +1,10 @@
-"""Wrapper and ctypes binding of the joint q/k RMSNorm forward
-(``csrc/rmsnorm_fwd.cu``).
+"""Wrappers and ctypes bindings of the joint q/k RMSNorm kernels: the
+forward K4 (``csrc/rmsnorm_fwd.cu``) and the backward K5 (dx) and K6 (dw)
+(``csrc/rmsnorm_bwd.cu``).
 
-``qk_rms_fwd`` takes CUDA tensors only and normalises q and k in ONE
-launch, counted once in ``qk_rms_fwd.launches``.  The plain version is
-``ref.qk_norm_ref``.
+Each wrapper takes CUDA tensors only and handles q and k in ONE launch,
+counted once in its ``launches`` attribute.  The plain versions are in
+``ref.py`` (``qk_norm_ref``, ``qk_rms_bwd_ref``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,41 @@ from .. import _build
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 8 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _I, _P]
+_DX_ARGTYPES = [_P] * 10 + [_I] * 5 + [_L] * 6 + [_I, _P]
+_DW_ARGTYPES = [_P] * 9 + [_I] * 6 + [_L] * 6 + [_I, _P]
 HEAD_DIMS = (32, 64, 128)
+DW_ROW_CHUNK = 512  # rows per partial sum of K6 (kRowChunk in the source)
+
+
+def _check_inputs(name, q, k):
+    """q [B, S, Hq, dh], k [B, S, Hk, dh]: one dtype, dh in HEAD_DIMS, rows
+    aligned to the lane vector.  Returns (B, S, Hq, Hk, dh)."""
+    if q.dim() != 4 or k.dim() != 4 or q.shape[:2] != k.shape[:2]:
+        raise ValueError(f"{name} needs q, k as [B, S, H, dh] with equal B, S")
+    b, s, hq, d = q.shape
+    hk = k.shape[2]
+    if d not in HEAD_DIMS or k.shape[3] != d:
+        raise ValueError(f"{name} supports head_dim in {HEAD_DIMS}, got {d}")
+    if q.dtype != k.dtype or q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} needs q and k both bf16 or both f32")
+    if b * s * max(hq, hk) >= 2**31:
+        raise ValueError(f"{name} indexes rows with 32-bit integers")
+    per_lane = d // 32
+    if not (_build.aligned(q, per_lane) and _build.aligned(k, per_lane)):
+        raise ValueError(f"{name} needs each head row aligned to its lane vector")
+    return b, s, hq, hk, d
+
+
+def _check_bwd(name, dyq, dyk, q, k, rq, rk):
+    dims = _check_inputs(name, q, k)
+    for dy, x, r in ((dyq, q, rq), (dyk, k, rk)):
+        if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
+            raise ValueError(f"{name} needs each dy contiguous, shaped and typed as its input")
+        if dy.data_ptr() % 16:
+            raise ValueError(f"{name} needs each dy 16-byte aligned")
+        if r.shape != x.shape[:3] or r.dtype != torch.float32 or not r.is_contiguous():
+            raise ValueError(f"{name} needs each rstd contiguous [B, S, H] f32")
+    return dims
 
 
 def qk_rms_fwd(q, k, wq, wk, eps: float = 1e-6):
@@ -27,22 +62,10 @@ def qk_rms_fwd(q, k, wq, wk, eps: float = 1e-6):
     in the input dtype and rstd [B, S, H] f32.
     """
     _build.require_cuda("qk_rms_fwd", q, k, wq, wk)
-    if q.dim() != 4 or k.dim() != 4 or q.shape[:2] != k.shape[:2]:
-        raise ValueError("qk_rms_fwd needs q, k as [B, S, H, dh] with equal B, S")
-    b, s, hq, d = q.shape
-    hk = k.shape[2]
-    if d not in HEAD_DIMS or k.shape[3] != d:
-        raise ValueError(f"qk_rms_fwd supports head_dim in {HEAD_DIMS}, got {d}")
-    if q.dtype != k.dtype or q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError("qk_rms_fwd needs q and k both bf16 or both f32")
+    b, s, hq, hk, d = _check_inputs("qk_rms_fwd", q, k)
     for w in (wq, wk):
         if w.shape != (d,) or w.dtype != torch.float32 or not w.is_contiguous():
             raise ValueError("qk_rms_fwd needs wq, wk as contiguous [dh] f32")
-    if b * s * max(hq, hk) >= 2**31:
-        raise ValueError("qk_rms_fwd indexes rows with 32-bit integers")
-    per_lane = d // 32
-    if not (_build.aligned(q, per_lane) and _build.aligned(k, per_lane)):
-        raise ValueError("qk_rms_fwd needs each head row aligned to its lane vector")
     yq = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     yk = torch.empty((b, s, hk, d), dtype=k.dtype, device=k.device)
     rq = torch.empty((b, s, hq), dtype=torch.float32, device=q.device)
@@ -64,3 +87,63 @@ def qk_rms_fwd(q, k, wq, wk, eps: float = 1e-6):
 
 
 qk_rms_fwd.launches = 0
+
+
+def qk_rms_bwd_dx(dyq, dyk, q, k, wq, wk, rq, rk):
+    """K5: dq and dk of the joint q/k RMSNorm on the card, in ONE launch.
+
+    dyq, dyk: contiguous, shaped and typed as q [B, S, Hq, dh] and k
+    [B, S, Hk, dh] (which may be strided views); wq, wk: [dh] f32; rq, rk:
+    [B, S, H] f32 (K4's).  Returns contiguous (dq, dk) in the input dtype.
+    """
+    _build.require_cuda("qk_rms_bwd_dx", dyq, dyk, q, k, wq, wk, rq, rk)
+    b, s, hq, hk, d = _check_bwd("qk_rms_bwd_dx", dyq, dyk, q, k, rq, rk)
+    for w in (wq, wk):
+        if w.shape != (d,) or w.dtype != torch.float32 or not w.is_contiguous():
+            raise ValueError("qk_rms_bwd_dx needs wq, wk as contiguous [dh] f32")
+    dq = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, hk, d), dtype=k.dtype, device=k.device)
+    if b * s == 0:
+        return dq, dk
+    fn = _build.bind("rmsnorm_bwd", "qk_rms_bwd_dx", _DX_ARGTYPES)
+    with torch.cuda.device(q.device):
+        code = fn(
+            dyq.data_ptr(), dyk.data_ptr(), q.data_ptr(), k.data_ptr(),
+            wq.data_ptr(), wk.data_ptr(), rq.data_ptr(), rk.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), b, s, hq, hk, d,
+            *q.stride()[:3], *k.stride()[:3], int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(code, "qk_rms_bwd_dx")
+    qk_rms_bwd_dx.launches += 1
+    return dq, dk
+
+
+qk_rms_bwd_dx.launches = 0
+
+
+def qk_rms_bwd_dw(dyq, dyk, q, k, rq, rk):
+    """K6: (dwq, dwk) [dh] f32 of the joint q/k RMSNorm on the card, in ONE
+    launch: ``sum_rows dy * x_hat``, deterministic (partials per chunk of
+    rows, then a fixed-order sum; no atomics)."""
+    _build.require_cuda("qk_rms_bwd_dw", dyq, dyk, q, k, rq, rk)
+    b, s, hq, hk, d = _check_bwd("qk_rms_bwd_dw", dyq, dyk, q, k, rq, rk)
+    dw = torch.empty((2, d), dtype=torch.float32, device=q.device)
+    if b * s == 0:
+        return dw[0].zero_(), dw[1].zero_()
+    n_chunks = -(-(b * s * max(hq, hk)) // DW_ROW_CHUNK)
+    part = torch.empty((2, n_chunks, d), dtype=torch.float32, device=q.device)
+    fn = _build.bind("rmsnorm_bwd", "qk_rms_bwd_dw", _DW_ARGTYPES)
+    with torch.cuda.device(q.device):
+        code = fn(
+            dyq.data_ptr(), dyk.data_ptr(), q.data_ptr(), k.data_ptr(),
+            rq.data_ptr(), rk.data_ptr(), part.data_ptr(), dw[0].data_ptr(), dw[1].data_ptr(),
+            n_chunks, b, s, hq, hk, d, *q.stride()[:3], *k.stride()[:3],
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(code, "qk_rms_bwd_dw")
+    qk_rms_bwd_dw.launches += 1
+    return dw[0], dw[1]
+
+
+qk_rms_bwd_dw.launches = 0

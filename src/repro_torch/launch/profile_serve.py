@@ -6,7 +6,7 @@ Builds Wan-2.1 1.3B (random weights from seed 0) on the GPU, admits three
 clips of 1, 2 and 3 latent frames at 480x832 into a 4-slot engine (the
 fourth slot stays empty, as in ``chip_smoke.py``'s first waves), runs one
 wave to warm up, then profiles two more.  Prints one JSON object:
-device time by kernel family (the port's three kernels, cuBLAS matrix
+device time by kernel family (the port's kernels, cuBLAS matrix
 products, elementwise/reduction, copies, other), the device's busy time,
 and its idle share of the window from the first kernel's start to the
 last kernel's end.
@@ -26,8 +26,14 @@ from repro_torch.serve import DiffusionServeEngine, ServeConfig
 
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("K7 flash_fwd", ("flash_fwd_kernel",)),
+    ("K8 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("K9 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("K1 adaln_fwd", ("adaln_fwd_kernel",)),
+    ("K2 adaln_bwd_dx", ("adaln_bwd_dx_kernel",)),
+    ("K3 adaln_bwd_dmod", ("adaln_bwd_dmod_",)),
     ("K4 qk_rms_fwd", ("qk_rms_fwd_kernel",)),
+    ("K5 qk_rms_bwd_dx", ("qk_rms_bwd_dx_kernel",)),
+    ("K6 qk_rms_bwd_dw", ("qk_rms_bwd_dw_",)),
     ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
     ("copy", ("memcpy", "memset", "copy")),
     ("elementwise / reduce", ("elementwise", "reduce", "vectorized", "cat", "index")),
@@ -66,6 +72,23 @@ def breakdown(kernels: list[tuple[str, float, float]]) -> dict:
     }
 
 
+def profile(work) -> dict:
+    """:func:`breakdown` of the device kernels ``work()`` launches, from
+    ``torch.profiler`` over the call and a final synchronisation."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        work()
+        torch.cuda.synchronize()
+    kernels = [
+        (e.name, e.time_range.start, e.time_range.end)
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device kernel")
+    return breakdown(kernels)
+
+
 WAVES = 2
 FRAME = 1560  # latent tokens per frame at 480x832
 
@@ -88,20 +111,8 @@ def main() -> dict:
         )
     eng.step()  # admission and the first wave
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(WAVES):
-            eng.step()
-        torch.cuda.synchronize()
-    kernels = [
-        (e.name, e.time_range.start, e.time_range.end)
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device kernel")
     out = {"device": torch.cuda.get_device_name(0), "waves": WAVES,
-           "tokens_per_wave": 4 * max_seq, **breakdown(kernels)}
+           "tokens_per_wave": 4 * max_seq, **profile(lambda: [eng.step() for _ in range(WAVES)])}
     print(json.dumps(out))
     return out
 

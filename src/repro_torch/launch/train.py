@@ -1,0 +1,113 @@
+"""Training launcher of the port (the mmdit route of ``repro.launch.train``,
+single rank):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wan2.1-1.3b \\
+        --adaptive --steps 2
+
+runs on CUDA; ``--device cpu --smoke`` trains the smoke configuration on
+the plain PyTorch path.  ``--adaptive`` feeds dual-constraint buckets
+(``B = min(M_mem / S, M_comp / S^p)``) through ``BucketedLoader`` with the
+reference launcher's shapes, budgets and seeds; without it every step is
+one fixed ``--batch`` x ``--seq`` microbatch.  Steps run through
+``Trainer`` on ``EmulatedEngine``.  It prints the final loss and tokens/s.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from repro_torch import resolve_device
+from repro_torch.configs.registry import ARCHS, get_config, get_optimizer, get_smoke_config
+from repro_torch.core.bucketing import BucketingPolicy, DataShape
+from repro_torch.data.pipeline import BucketedLoader
+from repro_torch.data.synthetic import make_diffusion_batch
+from repro_torch.optim.adamw import OptimizerConfig
+from repro_torch.train.loop import Trainer, TrainHistory
+from repro_torch.train.steps import init_state
+
+EPILOG = (
+    "Not yet in the port (each comes with its slice, and its flag is an error "
+    "here): the final checkpoint save and --ckpt-dir/--resume/--keep/--ckpt-every/"
+    "--digest-log (checkpoint), --workers/--dispatch/--mesh/--overlap/"
+    "--deterministic-refine/--refine-rounds/--sp-max-ranks/--elastic (multi-rank), "
+    "--chaos/--preempt-flag (fault tolerance)."
+)
+
+
+class _Fixed:
+    """Fixed-shape stream: one ``batch`` x ``seq`` microbatch per step."""
+
+    class _Bucket:
+        def __init__(self, batch: int, seq: int):
+            self.batch_size, self.seq_len, self.tokens = batch, seq, batch * seq
+
+    def __init__(self, make_batch, rng, batch: int, seq: int):
+        self._make_batch, self._rng = make_batch, rng
+        self._bucket = self._Bucket(batch, seq)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return [(self._bucket, self._make_batch(self._rng, self._bucket))]
+
+    def close(self) -> None:
+        pass
+
+
+def main(argv=None) -> TrainHistory:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0], epilog=EPILOG)
+    ap.add_argument("--arch", default="wan2.1-1.3b", choices=sorted(ARCHS))
+    ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--steps", type=int, default=30, help="optimizer steps")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--adaptive", action="store_true",
+                    help="bucketed AdaptiveLoad data (variable shapes)")
+    ap.add_argument("--device", default=None,
+                    help="default: CUDA (raises without a GPU); 'cpu' runs the plain path")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    opt = get_optimizer(args.arch)
+    opt = OptimizerConfig(
+        peak_lr=opt.peak_lr, schedule="constant", warmup=0,
+        total_steps=args.steps, state_dtype=cfg.opt_state_dtype,
+    )
+    device = resolve_device(args.device)
+    state = init_state(cfg, opt, seed=0, device=device)
+
+    def make_batch(rng_np, bucket):
+        # exactly one draw from the loader's generator per microbatch, as
+        # the reference launcher takes one for its PRNGKey
+        seed = int(rng_np.integers(2**31))
+        return make_diffusion_batch(seed, bucket.batch_size, bucket.seq_len, cfg, device)
+
+    if args.adaptive:
+        # variable-shape bucketed stream with the dual constraint (the
+        # reference launcher's shapes and budgets)
+        shapes = [DataShape(1, 256, 256, 16), DataShape(9, 192, 192, 16),
+                  DataShape(17, 192, 192, 16)]
+        policy = BucketingPolicy(m_mem=args.batch * 1024, m_comp=2.0e7, p=2.0)
+        loader = BucketedLoader(
+            policy.make_buckets(shapes), None, make_batch,
+            budget=float(args.batch * args.seq), budget_of=lambda b: float(b.tokens),
+        )
+    else:
+        loader = _Fixed(make_batch, np.random.default_rng(0), args.batch, args.seq)
+    try:
+        state, hist = Trainer(cfg, opt).run(state, iter(loader), args.steps, rng=1,
+                                            log_every=10)
+    finally:
+        loader.close()
+    print(
+        f"done: {args.steps} steps, final loss {hist.losses[-1]:.4f}, "
+        f"throughput {hist.throughput:,.0f} tok/s, events={hist.events}"
+    )
+    return hist
+
+
+if __name__ == "__main__":
+    main()

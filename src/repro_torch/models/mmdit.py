@@ -11,7 +11,11 @@ The counterpart of ``repro.models.mmdit``: the same parameters under the
 same names (a Python loop over ``n_layers`` block modules takes the place
 of ``lax.scan`` over the stacked ``blocks`` axis), the same arithmetic,
 and the three fused operators routed through ``repro_torch.kernels``,
-which picks the CUDA kernel or the plain version by the tensors' device.
+which picks the CUDA kernel or the plain version by the tensors' device
+(and, under autograd, runs the backward kernels).  ``forward(remat=True)``
+recomputes each block in the backward (``torch.utils.checkpoint``, the
+counterpart of ``jax.checkpoint``), as training does;
+:func:`rectified_flow_loss` is the training objective.
 
 Activations run in the configuration's dtype: the latents and text are cast
 to it on entry.  (The JAX forward promotes to f32 when handed f32 latents
@@ -25,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import kernels, resolve_device
 
@@ -150,6 +155,7 @@ class MMDiT(nn.Module):
         segment_ids=None,  # [B, S_vis] int32: packed-window doc ids (-1 = pad)
         text_segment_ids=None,  # [B, S_txt] int32: per-clip prompt ids (-1 = pad)
         ops: str = "kernel",  # "plain": the plain versions on any device
+        remat: bool = False,  # recompute each block in the backward (training)
     ):
         if text_segment_ids is not None and segment_ids is None:
             raise ValueError(
@@ -166,7 +172,53 @@ class MMDiT(nn.Module):
         temb = F.silu(temb @ self.t_mlp1)
         mod = (temb @ self.t_mlp2).reshape(-1, 6, cfg.d_model).float()
         for bp in self.blocks:
-            x = _block(bp, x, txt, mod, cfg, K, segment_ids, text_segment_ids)
+            if remat:
+                x = checkpoint(_block, bp, x, txt, mod, cfg, K, segment_ids, text_segment_ids,
+                               use_reentrant=False)
+            else:
+                x = _block(bp, x, txt, mod, cfg, K, segment_ids, text_segment_ids)
         fm = (temb @ self.final_mod).reshape(-1, 2, cfg.d_model).float()
         x = K.adaln_modulate(x, fm[:, 0], fm[:, 1])
         return x @ self.x_out
+
+
+def decays(name: str, p) -> bool:
+    """AdamW's weight-decay rule (``ndim >= 2``) in the JAX layout, where
+    every per-block tensor carries the stacked ``blocks`` axis: so the
+    per-block norm gains and biases decay, as in the reference, and only
+    top-level vectors would not."""
+    stacked = 1 if name.startswith("blocks.") else 0
+    return p.ndim + stacked >= 2
+
+
+def rectified_flow_loss(
+    model: MMDiT,
+    x0,  # clean latent tokens [B, S, in_dim]
+    text,
+    *,
+    t=None,  # [B] f32 diffusion times; drawn from ``generator`` when None
+    eps=None,  # noise shaped as x0 (f32); drawn from ``generator`` when None
+    generator: torch.Generator | None = None,
+    segment_ids=None,
+    text_segment_ids=None,
+    ops: str = "kernel",
+    remat: bool = True,
+):
+    """Rectified-flow velocity loss with the reference's casts
+    (``repro.models.mmdit.rectified_flow_loss``): ``t ~ U[0, 1)``, ``eps ~
+    N(0, 1)`` cast to x0's dtype, ``xt = (1 - t) x0 + t eps`` formed in f32
+    and cast to x0's dtype, ``v_target = eps - x0`` in f32, and the loss the
+    mean of the squared f32 differences.  The draws (t first, then eps) come
+    from ``generator``; a test injects the JAX draws as ``t`` and ``eps``."""
+    b = x0.shape[0]
+    if t is None:
+        t = torch.rand((b,), generator=generator, dtype=torch.float32, device=x0.device)
+    if eps is None:
+        eps = torch.randn(x0.shape, generator=generator, dtype=torch.float32, device=x0.device)
+    eps = eps.to(x0.dtype)
+    tt = t.float()[:, None, None]
+    xt = ((1.0 - tt) * x0.float() + tt * eps.float()).to(x0.dtype)
+    v_target = eps.float() - x0.float()
+    v_pred = model(xt, text, t, segment_ids=segment_ids, text_segment_ids=text_segment_ids,
+                   ops=ops, remat=remat)
+    return ((v_pred.float() - v_target) ** 2).mean()

@@ -1,1 +1,1 @@
-"""Step functions of the port (serving: one denoise step)."""
+"""Training and serving of the port: step functions, the execution engine and the trainer."""

@@ -1,22 +1,125 @@
-"""Step functions.  Serving needs one: a denoise step (one velocity
-evaluation, the unit of diffusion sampling).  The training steps come with
-the training slice."""
+"""Step functions of the port: the counterpart of ``repro.train.steps`` for
+the mmdit family.
+
+Serving needs one, a denoise step (one velocity evaluation, the unit of
+diffusion sampling).  Training needs the state, the loss, the pool
+microbatch's gradient step and the one-batch train step.
+
+Randomness follows the reference's rule with numpy's ``SeedSequence`` in
+place of ``jax.random``: a step key is an integer, and a pool microbatch's
+generator is seeded by :func:`fold_in` ``(step_key, pool_index)`` with the
+pool enumerated rank-major (``steps.py:94-96``).  The port's draws differ
+from JAX's for the same seed, so a parity test injects the JAX draws
+through the ``noise`` hook.
+"""
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.mmdit import MMDiT, decays, rectified_flow_loss
+from repro_torch.optim.adamw import OptimizerConfig, adamw_update, init_opt_state
+
+#: noise hook: (step_key, pool_index, batch) -> injected (t, eps) or None
+NoiseHook = Callable[[int, int, dict], "tuple[torch.Tensor, torch.Tensor] | None"]
+
+
+def _mmdit_only(cfg: ModelConfig, what: str) -> None:
+    if cfg.family != "mmdit":
+        raise ValueError(f"{what} needs an mmdit config, got {cfg.family!r}")
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new key from ``key`` and an integer (``jax.random.fold_in``)."""
+    return int(np.random.SeedSequence([key, data]).generate_state(1, np.uint64)[0])
+
+
+# -- state ---------------------------------------------------------------------
+
+
+def init_state(cfg: ModelConfig, opt: OptimizerConfig, *, seed: int = 0, device=None) -> dict:
+    """``{"model": MMDiT, "opt": {"m", "v"}, "step": 0}``; the model's
+    parameters are the state's parameters (``dict(model.named_parameters())``)."""
+    _mmdit_only(cfg, "init_state")
+    model = MMDiT(cfg, seed=seed, device=resolve_device(device))
+    return {
+        "model": model,
+        "opt": init_opt_state(dict(model.named_parameters()), opt),
+        "step": 0,
+    }
+
+
+# -- train -----------------------------------------------------------------------
+
+
+def make_loss_fn(cfg: ModelConfig) -> Callable:
+    """``loss_fn(model, batch, rng, noise=None)``: the rectified-flow loss
+    of one batch (``latents``, ``text`` and optional ``segment_ids`` /
+    ``text_segment_ids``), with blocks recomputed in the backward.  ``rng``
+    is a ``torch.Generator``; ``noise`` an injected ``(t, eps)``."""
+    _mmdit_only(cfg, "make_loss_fn")
+
+    def loss_fn(model, batch, rng, noise=None):
+        t, eps = noise if noise is not None else (None, None)
+        return rectified_flow_loss(
+            model, batch["latents"], batch["text"], t=t, eps=eps, generator=rng,
+            segment_ids=batch.get("segment_ids"),
+            text_segment_ids=batch.get("text_segment_ids"),
+        )
+
+    return loss_fn
+
+
+def make_pool_grad_step(cfg: ModelConfig, noise: NoiseHook | None = None) -> Callable:
+    """One pool microbatch's gradient step, shared by every executor:
+    ``grad_step(model, batch, step_key, pool_index) -> (loss, grads)`` with
+    grads a dict by parameter name in the parameters' dtypes.  The draws
+    come from a generator seeded by ``fold_in(step_key, pool_index)``
+    unless ``noise`` returns them."""
+    loss_fn = make_loss_fn(cfg)
+
+    def grad_step(model, batch, step_key: int, pool_index: int):
+        rng = torch.Generator(device=model.device).manual_seed(fold_in(step_key, pool_index))
+        injected = noise(step_key, pool_index, batch) if noise is not None else None
+        names, params = zip(*model.named_parameters())
+        loss = loss_fn(model, batch, rng, injected)
+        grads = torch.autograd.grad(loss, params)
+        return loss.detach(), dict(zip(names, grads))
+
+    return grad_step
+
+
+def make_train_step(cfg: ModelConfig, opt: OptimizerConfig) -> Callable:
+    """``train_step(state, batch, rng) -> (state, metrics)``: one batch's
+    loss and gradient, then one AdamW update (in place)."""
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(state, batch, rng):
+        model = state["model"]
+        names, params = zip(*model.named_parameters())
+        loss = loss_fn(model, batch, rng)
+        grads = dict(zip(names, torch.autograd.grad(loss, params)))
+        _, _, stats = adamw_update(dict(zip(names, params)), grads, state["opt"],
+                                   state["step"], opt, decay=decays)
+        state["step"] += 1
+        return state, {"loss": loss.detach(), **stats}
+
+    return train_step
+
+
+# -- serve -----------------------------------------------------------------------
 
 
 def make_denoise_step(cfg: ModelConfig) -> Callable:
     """MMDiT serving: one velocity evaluation, without autograd state.  The
     optional segment ids scope attention per clip so the continuous-batching
     engine can pad mixed clip lengths into one wave (-1 = padding)."""
-    if cfg.family != "mmdit":
-        raise ValueError(f"denoise step needs an mmdit config, got {cfg.family!r}")
+    _mmdit_only(cfg, "denoise step")
 
     def denoise_step(model, latents, text, t, segment_ids=None,
                      text_segment_ids=None):
