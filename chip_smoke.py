@@ -36,12 +36,30 @@ Phases, any failure of which exits non-zero with no result line:
    launches per microbatch; the steady step time, tokens/s and peak
    memory; (c) 2 layers at full width, kernel loss and gradients against
    the ``ops="plain"`` ones on one packed batch with the same draws: loss
-   within 1e-2 and every gradient's rel-L2 within 5e-2.
+   within 1e-2 and every gradient's rel-L2 within 5e-2;
+6. LM serving: (a) the launcher's ``main`` with ``--arch llama3.2-1b``; (b)
+   Llama-3.2-1B at full width and depth (16 layers, bf16, random weights
+   from seed 0) serves 16 requests (Poisson arrivals at 20/s, prompts of
+   64-2048 tokens, 16-64 new tokens) through ``ServeEngine`` over 4096
+   pages of 16 tokens and 8 decode slots: every request finishes, the pool
+   drains, a wave holds slots at different depths, and every kernel's
+   launch count is exact (``rms_fwd`` (prefills + waves) x (2L+1),
+   ``flash_fwd`` prefills x L, ``paged_decode`` waves x L, the rest 0);
+   prefill ms by padded width, decode-wave ms, wall tokens/s, peak memory;
+7. the LM at full width and 2 layers, kernels against ``ops="plain"``: the
+   prefill logits and three decode waves' logits on the same pools, rel-L2
+   <= 2e-2.
 
-Each kernel's launch counts in the record are those of the two main paths,
-each reset to 0 just before its run and read just after: the serving waves
-of phase 3 and the training steps of phase 5 (b) (``launches_by_path``);
-``launches`` is their sum.
+Phase 2 also holds K4 on model rows (x [1, 2048, 2048] and [8, 1, 2048]
+bf16) and K12 (the decode wave of phase 6; 64 slots with kv_lens up to
+4096; dh 128 with 40 q heads over 8 kv heads) against their plain
+versions, with shuffled page tables, inactive slots, ragged last pages and
+scratch entries past each allocation.
+
+Each kernel's launch counts in the record are those of the three main
+paths, each reset to 0 just before its run and read just after: the
+serving waves of phase 3, the training steps of phase 5 (b) and the LM
+serving of phase 6 (b) (``launches_by_path``); ``launches`` is their sum.
 
 Prints the kernels' JSON record on the line before the last and, as the
 last line, ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -110,6 +128,45 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn``: the calls are enqueued behind a
+    sleeping kernel, so the events around them see the device's work and
+    not the host's time to enqueue it (which exceeds the device time of a
+    small kernel).  Raises if the host did not finish enqueueing before the
+    sleep ended."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000  # about 10 ms
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / iters
+        cycles *= 4
+    raise RuntimeError("device_ms: the host could not enqueue ahead of the device")
+
+
+def enqueue_us(fn, iters: int = 200) -> float:
+    """Host wall time per call of ``fn`` over ``iters`` calls, with one
+    synchronisation before and after: what the host spends to enqueue."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def max_err(a, b) -> float:
@@ -674,10 +731,11 @@ def per_microbatch(n_layers: int) -> dict[str, int]:
 
 
 def check_counts(counts: dict, micro: int, n_layers: int, what: str) -> None:
-    for name, n in per_microbatch(n_layers).items():
-        if counts[name] != micro * n:
+    table = per_microbatch(n_layers)
+    for name in counts:
+        if counts[name] != micro * table.get(name, 0):
             raise AssertionError(f"{what}: {name} launched {counts[name]} times, "
-                                 f"expected {micro} microbatches x {n}")
+                                 f"expected {micro} microbatches x {table.get(name, 0)}")
     log(f"  {what}: every launch count is {micro} microbatches x the per-microbatch table")
 
 
@@ -821,6 +879,400 @@ def phase_model(dev) -> float:
         raise AssertionError(f"whole-model check failed: rel-L2 {rel}")
     return rel
 
+# -- the LM serving slice ------------------------------------------------------
+
+LM_PAGE = 16  # tokens per page of the LM's paged KV pool
+LM_MAX_SEQ = 4096
+
+
+def paged_case(dev, g, rng, lens, hq, hkv, dh, ps, dtype, *, pages_max=None, spare=1):
+    """q [B, Hq, dh] and K/V pools of random pages for slots holding
+    ``lens`` tokens: each slot owns ceil(len / ps) pages taken from a
+    shuffled free list, its table entries past them point at the scratch
+    page (the last), and every slot of every page, scratch included, holds
+    finite random values."""
+    owned = [-(-n // ps) for n in lens]
+    pages_max = pages_max or max(owned) + 1
+    num_pages = sum(owned) + spare
+    order = rng.permutation(num_pages)
+    table = np.full((len(lens), pages_max), num_pages, np.int32)
+    nxt = 0
+    for bi, n in enumerate(owned):
+        table[bi, :n] = order[nxt : nxt + n]
+        nxt += n
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return (randn(len(lens), hq, dh), randn(num_pages + 1, ps, hkv, dh),
+            randn(num_pages + 1, ps, hkv, dh), torch.from_numpy(table).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def paged_work(args) -> tuple[int, int]:
+    """(bytes, flops) K12 must move and do for one launch on ``args``: the
+    live K and V pages (the kernel's page skip), q, out and the live table
+    entries; 4 flops per (q head, live token, dh element)."""
+    from repro_torch.kernels.flash_attention.paged import live_pages
+
+    q, kp, _, table, lens = args
+    b, hq, dh = q.shape
+    _, ps, hkv, _ = kp.shape
+    pages = live_pages(lens, ps, table.shape[1])
+    tokens = int(lens.clamp(0, table.shape[1] * ps).sum())
+    nbytes = pages * (hkv * 2 * ps * dh * kp.element_size() + 4) + 2 * q.numel() * q.element_size() + b * 4
+    return nbytes, 4 * tokens * hq * dh
+
+
+def phase_kernels_lm(dev) -> dict:
+    """Phase 2, LM serving: K4 on model rows and K12 against their plain
+    versions at the LM's shapes and small f32 shapes; times."""
+    from repro_torch.kernels.flash_attention.paged import paged_decode
+    from repro_torch.kernels.flash_attention.ref import paged_attention_ref
+    from repro_torch.kernels.fused_rmsnorm.ref import rms_norm_ref
+    from repro_torch.kernels.fused_rmsnorm.rmsnorm import rms_fwd
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    rng = np.random.default_rng(6)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(dtype)
+
+    out = {}
+    d = 2048
+    # -- K4 on model rows ----------------------------------------------------
+    log("K4 rms_fwd (rows)  x [1, 2048, 2048] (a 2048-token prefill) and [8, 1, 2048] "
+        "(a decode wave) bf16, w [2048] f32")
+    w = randn(d, scale=0.1, shift=1.0)
+    xs = {"prefill": randn(1, 2048, d, dtype=torch.bfloat16, scale=2.0, shift=0.3),
+          "decode": randn(8, 1, d, dtype=torch.bfloat16, scale=2.0, shift=0.3)}
+    k4_err = 0.0
+    for nm, x in xs.items():
+        (y, r), (yr, rr) = rms_fwd(x, w), rms_norm_ref(x, w)
+        torch.cuda.synchronize()
+        err = max_err(y, yr)
+        k4_err = max(k4_err, err)
+        check(f"K4 rows y {nm}", err, TOL["norm_bf16"])
+        check(f"K4 rows rstd {nm}", max_err(r, rr), TOL["stat"])
+    for shape in [(3, 5, 256), (2, 7, 8192), (4, 24), (9, 8), (2, 3, 2056)]:
+        xf, wf = randn(*shape, scale=2.0, shift=0.3), randn(shape[-1], scale=0.1, shift=1.0)
+        for nm, a_, b_ in zip(("y", "rstd"), rms_fwd(xf, wf), rms_norm_ref(xf, wf)):
+            check(f"K4 rows {nm} f32 {list(shape)}", max_err(a_, b_), TOL["norm_f32"])
+    times = {}
+    for nm, x in xs.items():
+        wl = w.to(x.dtype)
+        times[nm] = dict(
+            ms=device_ms(lambda: rms_fwd(x, w), 50),
+            plain_ms=device_ms(lambda: rms_norm_ref(x, w), 10),
+            # yardstick only, never on the port's path: the library norm
+            library_ms=device_ms(lambda: F.rms_norm(x, (d,), wl, 1e-6), 50),
+            bound=bound(2 * x.numel() * 2 + x.numel() // d * 4 + d * 4, 4 * x.numel(), F32_FLOPS),
+        )
+    t = times["prefill"]
+    out["rms_fwd"] = dict(
+        route="cuda", source="src/repro_torch/kernels/fused_rmsnorm/csrc/rmsnorm_fwd.cu",
+        replaces="src/repro/kernels/fused_rmsnorm/rmsnorm.py:38",
+        max_abs_err=k4_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+        bound_by=t["bound"][1], library_ms=t["library_ms"],
+        shape="x [1, 2048, 2048] bf16 (prefill)",
+        decode=dict(shape="x [8, 1, 2048] bf16", ms=times["decode"]["ms"],
+                    plain_ms=times["decode"]["plain_ms"], library_ms=times["decode"]["library_ms"],
+                    bound_ms=times["decode"]["bound"][0]),
+    )
+    for nm, t in times.items():
+        log(f"  K4 rows {nm}: ms {t['ms']:.4f}  plain {t['plain_ms']:.4f}  library(F.rms_norm) "
+            f"{t['library_ms']:.4f}  bound {t['bound'][0]:.4f} ({t['bound'][1]})")
+    # the host's side of a launch: wall time per call of the wrapper and of
+    # the library call, enqueue only (one synchronisation after 200 calls)
+    x, wl = xs["decode"], w.to(torch.bfloat16)
+    host_us = {"rms_fwd": enqueue_us(lambda: rms_fwd(x, w)),
+               "F.rms_norm": enqueue_us(lambda: F.rms_norm(x, (d,), wl, 1e-6))}
+    log(f"  host time per call at [8, 1, 2048]: rms_fwd {host_us['rms_fwd']:.1f} us, "
+        f"F.rms_norm {host_us['F.rms_norm']:.1f} us")
+    out["rms_fwd"]["host_us_per_call"] = host_us
+
+    # -- K7 at the LM's prefill: causal, GQA 4, dh 64 ------------------------------
+    from repro_torch.kernels.flash_attention.flash import KV_TILE, Q_TILE, flash_fwd, live_tile_pairs
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    log("K7 flash_fwd at the LM prefill  q [1, 2048, 32, 64], k, v [1, 2048, 8, 64] bf16 "
+        "(views of qkv [1, 2048, 3072]), causal")
+    qkv = randn(1, 2048, 48 * 64, dtype=torch.bfloat16)
+    q = qkv[..., : 32 * 64].reshape(1, 2048, 32, 64)
+    k = qkv[..., 32 * 64 : 40 * 64].reshape(1, 2048, 8, 64)
+    v = qkv[..., 40 * 64 :].reshape(1, 2048, 8, 64)
+    (o, lse), (o_r, lse_r) = flash_fwd(q, k, v, causal=True), attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    k7_err = max_err(o, o_r)
+    check("K7 LM prefill out", k7_err, TOL["attn_bf16"])
+    check("K7 LM prefill lse", max_err(lse, lse_r), TOL["lse_bf16"])
+    tiles = live_tile_pairs(2048, 2048, causal=True) * 32
+    flops = tiles * 4 * Q_TILE * KV_TILE * 64
+    t_k = device_ms(lambda: flash_fwd(q, k, v, causal=True), 20)
+    t_p = device_ms(lambda: attention_ref(q, k, v, causal=True), 3)
+    # yardstick only, never on the port's path: the library's causal GQA attention
+    t_l = device_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+        enable_gqa=True), 20)
+    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + 32 * 2048 * 4
+    bms, bby = bound(nbytes, flops, BF16_FLOPS)
+    out["flash_fwd_lm_prefill"] = dict(max_abs_err=k7_err, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                       bound_ms=bms, bound_by=bby, live_tile_pairs=tiles,
+                                       tflops_per_s=flops / (t_k * 1e-3) / 1e12)
+    log(f"  K7 LM prefill ms {t_k:.4f}  plain {t_p:.4f}  library(SDPA causal, GQA) {t_l:.4f}  "
+        f"bound {bms:.4f} ({bby}, {tiles} live 64x64 tiles)")
+    del qkv, q, k, v, o, o_r
+
+    # -- K12 paged decode --------------------------------------------------------
+    pages_max = LM_MAX_SEQ // LM_PAGE
+    wave_lens = [int(n) for n in rng.integers(64, 2113, size=7)] + [0]
+    heavy_lens = [int(n) for n in rng.integers(1, 4097, size=64)]
+    heavy_lens[5] = heavy_lens[40] = 0
+    qwen_lens = [int(n) for n in rng.integers(1, 2049, size=16)]
+    qwen_lens[3] = 0
+    cases = {
+        # the decode wave of phase 6: 8 slots of llama3.2-1b, one inactive
+        "wave": (wave_lens, 32, 8, 64, LM_PAGE, pages_max, 4096 - sum(-(-n // 16) for n in wave_lens)),
+        "heavy": (heavy_lens, 32, 8, 64, LM_PAGE, pages_max, 64),
+        # Qwen2.5-14B's geometry at dh 128, pages of 32
+        "dh128": (qwen_lens, 40, 8, 128, 32, 2048 // 32 + 1, 8),
+    }
+    log("K12 paged_decode  bf16: wave (8 slots, Hq 32, Hkv 8, dh 64, pages of 16, pool of 4097 "
+        "pages), heavy (64 slots, kv_lens up to 4096), dh128 (16 slots, Hq 40, Hkv 8, pages "
+        "of 32); shuffled tables, inactive slots, ragged last pages, scratch past each allocation")
+    k12_err, args_of = 0.0, {}
+    for nm, (lens, hq, hkv, dh, ps, pmax, spare) in cases.items():
+        args = paged_case(dev, g, rng, lens, hq, hkv, dh, ps, torch.bfloat16,
+                          pages_max=pmax, spare=spare)
+        o, o_r = paged_decode(*args), paged_attention_ref(*args)
+        torch.cuda.synchronize()
+        err = max_err(o, o_r)
+        k12_err = max(k12_err, err)
+        check(f"K12 {nm} out (pool {list(args[1].shape)})", err, TOL["attn_bf16"])
+        dead = args[4] == 0
+        if torch.count_nonzero(o[dead]) != 0:
+            raise AssertionError(f"K12 {nm}: an inactive slot is not exact zeros")
+        args_of[nm] = args
+    for lens, hq, hkv, dh, ps in [((11, 0, 40), 8, 2, 64, 8), ((130, 64), 5, 1, 128, 64),
+                                  ((1, 16, 17, 0), 4, 4, 64, 16), ((300, 7), 8, 8, 128, 24)]:
+        args = paged_case(dev, g, rng, list(lens), hq, hkv, dh, ps, torch.float32)
+        check(f"K12 f32 lens={lens} g={hq // hkv} dh={dh} ps={ps}",
+              max_err(paged_decode(*args), paged_attention_ref(*args)), TOL["attn_f32"])
+    times = {}
+    for nm, args in args_of.items():
+        nbytes, flops = paged_work(args)
+        times[nm] = dict(ms=device_ms(lambda: paged_decode(*args), 50),
+                         plain_ms=device_ms(lambda: paged_attention_ref(*args), 3),
+                         bound=bound(nbytes, flops, F32_FLOPS), bytes=nbytes)
+        t = times[nm]
+        log(f"  K12 {nm}: ms {t['ms']:.4f}  plain {t['plain_ms']:.4f}  bound {t['bound'][0]:.4f} "
+            f"({t['bound'][1]}, {nbytes / 1e6:.2f} MB live)  {nbytes / (t['ms'] * 1e-3) / 1e9:.0f} GB/s")
+    wave = args_of["wave"]
+    host_us = enqueue_us(lambda: paged_decode(*wave))
+    log(f"  host time per call of paged_decode at the wave: {host_us:.1f} us")
+    t = times["wave"]
+    out["paged_decode"] = dict(
+        route="cuda", source="src/repro_torch/kernels/flash_attention/csrc/paged_decode.cu",
+        replaces="src/repro/kernels/flash_attention/paged.py:102",
+        max_abs_err=k12_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+        bound_by=t["bound"][1], library_ms=None,
+        shape=f"q [8, 32, 64], pools [4097, 16, 8, 64] bf16, kv_lens {wave_lens}",
+        cases={nm: dict(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+                        bytes=t["bytes"]) for nm, t in times.items()},
+        host_us_per_call=host_us,
+    )
+    return out
+
+
+LM_PER_CALL = {  # launches of one prefill and one decode wave, per layer L
+    "prefill": lambda L: {"rms_fwd": 2 * L + 1, "flash_fwd": L},
+    "wave": lambda L: {"rms_fwd": 2 * L + 1, "paged_decode": L},
+}
+
+
+def check_lm_counts(counts: dict, eng, n_layers: int, what: str) -> tuple[int, int]:
+    prefills = sum(len(it["prefills"]) for it in eng.iterations)
+    waves = sum(1 for it in eng.iterations if it["decodes"])
+    want = {}
+    for kind, n in (("prefill", prefills), ("wave", waves)):
+        for name, per in LM_PER_CALL[kind](n_layers).items():
+            want[name] = want.get(name, 0) + n * per
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{what}: {name} launched {n} times, expected "
+                                 f"{want.get(name, 0)} ({prefills} prefills, {waves} waves)")
+    log(f"  {what}: every launch count exact for {prefills} prefills and {waves} waves")
+    return prefills, waves
+
+
+def phase_serve_lm(K, dev) -> dict:
+    """Phase 6: Llama-3.2-1B, 16 layers, serves 16 requests through the engine."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.serve import DEMO_MODEL
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    out = {}
+    cfg = get_config("llama3.2-1b")
+    L = cfg.n_layers
+
+    # (a) the launcher's entry point, as a user runs it
+    log("(a) python -m repro_torch.launch.serve --arch llama3.2-1b --requests 4 --gen 8")
+    K.reset_launch_counts()
+    eng = launch_serve.main(["--arch", "llama3.2-1b", "--requests", "4", "--gen", "8"])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    if len(eng.done) != 4:
+        raise AssertionError("launcher: not every request finished")
+    check_lm_counts(counts, eng, L, "launcher")
+    out["launcher"] = dict(iterations=len(eng.iterations), launches=counts,
+                           tokens=[len(r.out) for r in eng.done])
+    del eng
+    torch.cuda.empty_cache()
+
+    # (b) 16 requests at full width and depth
+    t0 = time.perf_counter()
+    model = Transformer(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"(b) model {cfg.name}: {L} layers, d {cfg.d_model}, {n_params / 1e9:.3f} B params, "
+        f"bf16, init {time.perf_counter() - t0:.1f} s")
+    serve = ServeConfig(target_step=1.0, page_size=LM_PAGE, num_pages=4096, decode_slots=8,
+                        max_seq=LM_MAX_SEQ)
+    eng = ServeEngine(model, cfg, DEMO_MODEL, serve)
+    rng = np.random.default_rng(0)
+    clock = 0.0
+    for _ in range(16):
+        clock += float(rng.exponential(1.0 / 20.0))
+        plen = int(rng.integers(64, 2049))
+        max_new = int(rng.integers(16, 65))
+        eng.submit(rng.integers(0, cfg.vocab, size=plen).astype(np.int32), max_new, arrival=clock)
+    log(f"  prompts {[r.prompt_len for r in eng.waiting]}, max_new "
+        f"{[r.max_new for r in eng.waiting]}")
+
+    # CUDA events around each prefill and decode call of the engine
+    calls = {"prefill": [], "decode": []}
+    finite = []
+
+    def timed(fn, kind):
+        def run(*args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if kind == "prefill":
+                what = int(args[1].shape[1])  # padded width
+            else:
+                what = sorted(int(n) for n in eng.kv_lens if n > 0)  # depths in the wave
+            a.record()
+            logits, pools = fn(*args)
+            b.record()
+            finite.append(torch.isfinite(logits).all())
+            calls[kind].append((what, a, b))
+            return logits, pools
+        return run
+
+    eng._prefill = timed(eng._prefill, "prefill")
+    eng._decode = timed(eng._decode, "decode")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run()  # asserts the page pool drained
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(done) != 16 or any(len(r.out) != r.max_new for r in done):
+        raise AssertionError("not every request finished with its max_new tokens")
+    if not all(bool(f) for f in finite):
+        raise AssertionError("a prefill or decode wave gave non-finite logits")
+    if any(not 0 <= t < cfg.vocab for r in done for t in r.out):
+        raise AssertionError("a generated id is outside the vocabulary")
+    prefills, waves = check_lm_counts(counts, eng, L, "LM serving")
+    if not any(len(set(depths)) >= 2 for depths, _, _ in calls["decode"]):
+        raise AssertionError("no wave held slots at different depths")
+    prefill_ms: dict = {}
+    for width, a, b in calls["prefill"]:
+        prefill_ms.setdefault(width, []).append(a.elapsed_time(b))
+    wave_ms = [a.elapsed_time(b) for _, a, b in calls["decode"]]
+    wave_slots = [len(depths) for depths, _, _ in calls["decode"]]
+    gen = sum(len(r.out) for r in done)
+    prompt_toks = sum(r.prompt_len for r in done)
+    full = [ms for ms, n in zip(wave_ms, wave_slots) if n == 8]
+    for width in sorted(prefill_ms):
+        ms = prefill_ms[width]
+        log(f"  prefill width {width}: {len(ms)} calls, {np.mean(ms):.2f} ms mean "
+            f"({', '.join(f'{m:.2f}' for m in ms)})")
+    log(f"  decode waves: {waves}, {np.median(wave_ms):.2f} ms median, "
+        f"{np.min(wave_ms):.2f}-{np.max(wave_ms):.2f} ms; waves with all 8 slots: {len(full)}"
+        f"{f', {np.median(full):.2f} ms median' if full else ''}")
+    lat = sorted(r.latency for r in done)
+    log(f"  served 16 requests in {len(eng.iterations)} iterations ({prefills} prefills, "
+        f"{waves} waves), {wall:.2f} s wall: {gen} tokens generated, {gen / wall:.1f} "
+        f"generated tokens/s, {(gen + prompt_toks) / wall:.1f} tokens/s with the {prompt_toks} "
+        f"prompt tokens; simulated clock {eng.clock:.3f} s, latency p50 {lat[8]:.3f} s; "
+        f"peak memory {peak:.2f} GiB")
+    log(f"  launch counts {counts}")
+    out["serve"] = dict(
+        n_params=n_params, iterations=len(eng.iterations), prefills=prefills, waves=waves,
+        wall_s=wall, generated_tokens=gen, prompt_tokens=prompt_toks,
+        generated_tokens_per_s=gen / wall, tokens_per_s=(gen + prompt_toks) / wall,
+        peak_gib=peak, launches=counts,
+        prefill_ms_by_width={str(k): v for k, v in sorted(prefill_ms.items())},
+        wave_ms=wave_ms, wave_slots=wave_slots, wave_ms_median=float(np.median(wave_ms)),
+        full_wave_ms_median=float(np.median(full)) if full else None,
+        simulated_clock_s=eng.clock, latencies_s=lat,
+    )
+    del eng, model, done
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_model_lm(dev) -> dict:
+    """Phase 7: the LM at full width and 2 layers, kernels vs plain: the
+    prefill logits and three decode waves' logits on the same pools."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2)
+    model = T.Transformer(cfg, seed=1, device=dev)
+    rng = np.random.default_rng(7)
+    ps, num_pages, s_pad = LM_PAGE, 256, 1024
+    true_len = np.array([1000, 517], np.int32)
+    tokens = np.zeros((2, s_pad), np.int32)
+    for bi, n in enumerate(true_len):
+        tokens[bi, :n] = rng.integers(0, cfg.vocab, n)
+    order = rng.permutation(num_pages)
+    table = np.full((3, s_pad // ps + 1), num_pages, np.int32)  # slot 2 stays inactive
+    table[0, :63] = order[:63]  # 1000 + 3 tokens
+    table[1, :33] = order[63:96]  # 517 + 3 tokens
+    dv = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev) for k, a in
+          (("tokens", tokens), ("true_len", true_len), ("table", table),
+           ("prefill_table", table[:2, : s_pad // ps]))}
+    logits, pools = {}, {}
+    with torch.inference_mode():
+        for ops in ("kernel", "plain"):
+            pools[ops] = T.init_paged_pools(cfg, num_pages, ps, device=dev)
+            lg, pools[ops] = T.paged_prefill(model, dv["tokens"], dv["true_len"],
+                                             dv["prefill_table"], pools[ops], ops=ops)
+            logits[ops] = [lg]
+        kv_lens = np.array([1000, 517, 0], np.int32)
+        last = np.zeros((3, 1), np.int32)
+        last[:2, 0] = logits["kernel"][0].argmax(dim=-1).cpu().numpy()
+        for _ in range(3):
+            lens_d, last_d = torch.from_numpy(kv_lens).to(dev), torch.from_numpy(last).to(dev)
+            for ops in ("kernel", "plain"):
+                lg, pools[ops] = T.paged_decode_step(model, pools[ops], dv["table"], lens_d,
+                                                     last_d, ops=ops)
+                logits[ops].append(lg[:2])
+            last[:2, 0] = logits["kernel"][-1].argmax(dim=-1).cpu().numpy()
+            kv_lens[:2] += 1
+    rels = [rel_l2(a, b) for a, b in zip(logits["kernel"], logits["plain"])]
+    log(f"LM, 2 layers, full width, bf16: logits rel-L2 kernel vs plain, prefill "
+        f"{rels[0]:.3e}, decode waves {', '.join(f'{r:.3e}' for r in rels[1:])} (tol 2e-2)")
+    if not (all(torch.isfinite(lg).all() for lg in logits["kernel"]) and max(rels) <= 2e-2):
+        raise AssertionError(f"LM whole-model check failed: rel-L2 {rels}")
+    return dict(prefill_rel_l2=rels[0], decode_rel_l2=rels[1:])
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -861,14 +1313,23 @@ def main() -> int:
     record["model_rel_l2"] = phase_model(dev)
     torch.cuda.empty_cache()
     record["train"] = phase_train(K, dev)
+    torch.cuda.empty_cache()
+    lm = phase_kernels_lm(dev)
+    record["kernels"]["flash_fwd"]["lm_prefill"] = lm.pop("flash_fwd_lm_prefill")
+    record["kernels"].update(lm)
+    torch.cuda.empty_cache()
+    record["serve_lm"] = phase_serve_lm(K, dev)
+    torch.cuda.empty_cache()
+    record["model_lm"] = phase_model_lm(dev)
 
     # launches: each main path's own count, reset to 0 just before that run
     # and read just after (the serving waves of phase 3, the 4 training steps
-    # of phase 5 (b)); "launches" is their sum
+    # of phase 5 (b), the LM serving of phase 6 (b)); "launches" is their sum
     kernels = []
     for name, k in record["kernels"].items():
         by_path = {"serve": record["serve"]["launches"][name],
-                   "train": record["train"]["train"]["launches"][name]}
+                   "train": record["train"]["train"]["launches"][name],
+                   "serve_lm": record["serve_lm"]["serve"]["launches"][name]}
         kernels.append({"name": name, **{key: k[key] for key in (
             "route", "source", "replaces")}, "launches": sum(by_path.values()),
             "launches_by_path": by_path,

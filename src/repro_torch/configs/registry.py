@@ -8,6 +8,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import OptimizerConfig
 
 ARCHS = {
+    "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "wan2.1-1.3b": "repro_torch.configs.wan2_1_mmdit",
 }
 

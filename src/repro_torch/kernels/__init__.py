@@ -1,6 +1,6 @@
 """Kernel dispatch layer of the port.
 
-Models call these three functions.  The device of the tensor chooses:
+Models call these five functions.  The device of the tensor chooses:
 
 * a CPU tensor goes to the plain PyTorch version (``plain.py``),
 * a CUDA tensor goes to the hand-written Hopper kernel, which launches or
@@ -10,7 +10,10 @@ Where autograd records the call (grad enabled and an input that requires
 grad), the operator runs as its ``torch.autograd.Function`` (``ops.py`` of
 each family): the forward kernel keeps its residuals and the backward runs
 the backward kernels, again by device.  Otherwise (serving, inference) the
-forward kernel runs alone and keeps nothing.
+forward kernel runs alone and keeps nothing.  The row RMSNorm
+(:func:`rms_norm`) and paged decode attention (:func:`paged_attention`)
+serve the LM and have no backward kernel: on the card, autograd recording
+either is an error.
 
 There is no backend setting and no fallback: a shape the kernel does not
 take is an error on the card, not a quiet detour through PyTorch.
@@ -27,22 +30,25 @@ import torch
 from . import plain
 from .flash_attention import ops as flash_ops
 from .flash_attention.flash import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+from .flash_attention.paged import paged_decode
 from .fused_adaln import ops as adaln_ops
 from .fused_adaln.adaln import adaln_bwd_dmod, adaln_bwd_dx, adaln_fwd
 from .fused_rmsnorm import ops as rms_ops
-from .fused_rmsnorm.rmsnorm import qk_rms_bwd_dw, qk_rms_bwd_dx, qk_rms_fwd
+from .fused_rmsnorm.rmsnorm import qk_rms_bwd_dw, qk_rms_bwd_dx, qk_rms_fwd, rms_fwd
 
 #: every CUDA kernel wrapper of the port, by kernel name
 KERNELS = {
     "adaln_fwd": adaln_fwd,  # K1
     "adaln_bwd_dx": adaln_bwd_dx,  # K2
     "adaln_bwd_dmod": adaln_bwd_dmod,  # K3
-    "qk_rms_fwd": qk_rms_fwd,  # K4
+    "qk_rms_fwd": qk_rms_fwd,  # K4 (per-head q/k rows)
+    "rms_fwd": rms_fwd,  # K4 (model rows)
     "qk_rms_bwd_dx": qk_rms_bwd_dx,  # K5
     "qk_rms_bwd_dw": qk_rms_bwd_dw,  # K6
     "flash_fwd": flash_fwd,  # K7
     "flash_bwd_dq": flash_bwd_dq,  # K8
     "flash_bwd_dkv": flash_bwd_dkv,  # K9
+    "paged_decode": paged_decode,  # K12
 }
 
 
@@ -67,6 +73,22 @@ def adaln_modulate(x, scale, shift, eps: float = 1e-6):
     if card:
         return adaln_fwd(x, scale, shift, eps)[0]
     return plain.adaln_modulate(x, scale, shift, eps)
+
+
+def _forward_only(name: str, *tensors) -> None:
+    if _recorded(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel on the card: call it under "
+            f"torch.inference_mode() or torch.no_grad()"
+        )
+
+
+def rms_norm(x, w, eps: float = 1e-6):
+    """RMSNorm over the last axis (the LM's norm1, norm2 and final_norm)."""
+    if _on_card(x):
+        _forward_only("rms_norm", x, w)
+        return rms_fwd(x, w, eps)[0]
+    return plain.rms_norm(x, w, eps)
 
 
 def qk_norm(q, k, wq, wk, eps: float = 1e-6):
@@ -97,6 +119,20 @@ def attention(q, k, v, *, causal: bool, q_segment_ids=None,
                            kv_segment_ids=kv_segment_ids, scale=scale)
 
 
+def paged_attention(q, k_pages, v_pages, page_table, kv_lens, *, scale: float | None = None):
+    """Decode attention over a paged KV pool (continuous batching).
+
+    q: [B, Hq, dh], one new token per decode slot; k_pages, v_pages: [P,
+    page_size, Hkv, dh]; page_table: [B, pages_max] int32 (unused entries
+    at a scratch page); kv_lens: [B] int32 (0: an inactive slot, exact
+    zeros).
+    """
+    if _on_card(q):
+        _forward_only("paged_attention", q, k_pages, v_pages)
+        return paged_decode(q, k_pages, v_pages, page_table, kv_lens, scale=scale)
+    return plain.paged_attention(q, k_pages, v_pages, page_table, kv_lens, scale=scale)
+
+
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
@@ -111,7 +147,9 @@ __all__ = [
     "adaln_modulate",
     "attention",
     "launch_counts",
+    "paged_attention",
     "plain",
     "qk_norm",
     "reset_launch_counts",
+    "rms_norm",
 ]

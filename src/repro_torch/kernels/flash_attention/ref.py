@@ -1,7 +1,8 @@
 """Plain PyTorch segment-aware attention, forward and backward: the
 counterpart of ``repro.kernels.flash_attention.ref.attention_reference`` and
 ``repro.models.attention.blocked_attention``, and of the Pallas backward's
-recompute formulas (``flash.py`` ``_recompute_p_ds``).
+recompute formulas (``flash.py`` ``_recompute_p_ds``); and plain paged
+decode attention (:func:`paged_attention_ref`, K12's plain version).
 
 Takes the model's ``[B, S, H, dh]`` layout.  Scores are computed one kv
 block at a time with a running fp32 (max, sum, acc) softmax state, so memory
@@ -127,3 +128,39 @@ def attention_bwd_ref(q, k, v, do, lse, delta, q_segment_ids=None, kv_segment_id
     dv = torch.cat(dvs, dim=2) if dvs else torch.zeros((b, hkv, 0, dh), device=q.device)
     return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
             dv.transpose(1, 2).to(v.dtype))
+
+
+def paged_attention_ref(
+    q,  # [B, Hq, dh]: one new token per decode slot
+    k_pages,  # [P, page_size, Hkv, dh]: the shared pool
+    v_pages,
+    page_table,  # [B, pages_max] int32, every entry a page of the pool
+    kv_lens,  # [B] int32 valid tokens per slot (0: exact zeros)
+    *,
+    scale: float | None = None,
+):
+    """Plain K12, the counterpart of ``repro.kernels.flash_attention.paged
+    .paged_attention_ref``: gather each slot's pages into a contiguous view
+    and take a masked fp32 softmax.  Returns ``[B, Hq, dh]`` in q's dtype;
+    ``kv_lens == 0`` rows are exact zeros (the ``LSE_FLOOR`` guard).  The
+    GQA group is a view of q's heads, not a copy of the cache."""
+    b, hq, dh = q.shape
+    _, ps, hkv, _ = k_pages.shape
+    g = hq // hkv
+    pages_max = page_table.shape[1]
+    scale = scale if scale is not None else dh**-0.5
+    idx = page_table.long()
+    # [B, pages_max, ps, Hkv, dh] -> [B, S_max, Hkv, dh]
+    k = k_pages[idx].reshape(b, pages_max * ps, hkv, dh).float()
+    v = v_pages[idx].reshape(b, pages_max * ps, hkv, dh).float()
+    qg = (q.float() * scale).reshape(b, hkv, g, dh)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k).reshape(b, hq, pages_max * ps)
+    valid = torch.arange(pages_max * ps, device=q.device)[None, :] < kv_lens[:, None]
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = torch.where(valid[:, None, :], p, 0.0)
+    denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=LSE_FLOOR)
+    pg = (p / denom).reshape(b, hkv, g, pages_max * ps)
+    out = torch.einsum("bkgs,bskd->bkgd", pg, v).reshape(b, hq, dh)
+    return out.to(q.dtype)

@@ -1,8 +1,9 @@
-"""Plain PyTorch version of the RMSNorm forward used as QK-norm.
+"""Plain PyTorch versions of the RMSNorm kernels: the forward on model
+rows and as QK-norm, and the q/k backward.
 
 ``y = x * rsqrt(mean(x²) + eps) * w`` over the last axis, stats in fp32 —
 the counterpart of ``repro.kernels.fused_rmsnorm.ref.rms_norm_naive``,
-also returning the ``rstd`` rows the CUDA kernel emits for the backward.
+also returning the ``rstd`` rows the CUDA kernels emit.
 """
 
 from __future__ import annotations

@@ -1,10 +1,12 @@
-"""Wrappers and ctypes bindings of the joint q/k RMSNorm kernels: the
-forward K4 (``csrc/rmsnorm_fwd.cu``) and the backward K5 (dx) and K6 (dw)
-(``csrc/rmsnorm_bwd.cu``).
+"""Wrappers and ctypes bindings of the RMSNorm kernels: the forward K4
+(``csrc/rmsnorm_fwd.cu``) on model rows (:func:`rms_fwd`) and on per-head
+q and k rows (:func:`qk_rms_fwd`), and the joint q/k backward K5 (dx) and
+K6 (dw) (``csrc/rmsnorm_bwd.cu``).
 
-Each wrapper takes CUDA tensors only and handles q and k in ONE launch,
-counted once in its ``launches`` attribute.  The plain versions are in
-``ref.py`` (``qk_norm_ref``, ``qk_rms_bwd_ref``).
+Each wrapper takes CUDA tensors only and counts each launch in its
+``launches`` attribute; the q/k wrappers handle q and k in ONE launch.  The
+plain versions are in ``ref.py`` (``rms_norm_ref``, ``qk_norm_ref``,
+``qk_rms_bwd_ref``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 8 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _I, _P]
 _DX_ARGTYPES = [_P] * 10 + [_I] * 5 + [_L] * 6 + [_I, _P]
 _DW_ARGTYPES = [_P] * 9 + [_I] * 6 + [_L] * 6 + [_I, _P]
+_ROW_ARGTYPES = [_P] * 4 + [_I] * 2 + [ctypes.c_float, _I, _P]
 HEAD_DIMS = (32, 64, 128)
+MAX_ROW = 8192  # kMaxD of the source
 DW_ROW_CHUNK = 512  # rows per partial sum of K6 (kRowChunk in the source)
 
 
@@ -52,6 +56,45 @@ def _check_bwd(name, dyq, dyk, q, k, rq, rk):
         if r.shape != x.shape[:3] or r.dtype != torch.float32 or not r.is_contiguous():
             raise ValueError(f"{name} needs each rstd contiguous [B, S, H] f32")
     return dims
+
+
+def rms_fwd(x, w, eps: float = 1e-6):
+    """RMSNorm of the rows of x [..., D] on the card: ``y = x * rsqrt(mean(x²)
+    + eps) * w`` with f32 statistics.
+
+    x: contiguous, bf16 or f32, D a multiple of 8 up to 8192; w: contiguous
+    [D] f32.  Returns ``(y, rstd)``: y shaped and typed as x, rstd
+    [x.shape[:-1]] f32.
+    """
+    _build.require_cuda("rms_fwd", x, w)
+    d = x.shape[-1]
+    if d % 8 or not 8 <= d <= MAX_ROW:
+        raise ValueError(f"rms_fwd takes rows of a multiple of 8 up to {MAX_ROW}, got {d}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"rms_fwd needs x bf16 or f32, got {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("rms_fwd needs x contiguous and 16-byte aligned")
+    if w.shape != (d,) or w.dtype != torch.float32 or not w.is_contiguous() or w.data_ptr() % 16:
+        raise ValueError("rms_fwd needs w as contiguous, 16-byte aligned [D] f32")
+    n = x.numel() // d
+    if n >= 2**31:
+        raise ValueError("rms_fwd indexes rows with 32-bit integers")
+    y = torch.empty_like(x)
+    rstd = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    if n == 0:
+        return y, rstd
+    fn = _build.bind("rmsnorm_fwd", "rms_fwd", _ROW_ARGTYPES)
+    with torch.cuda.device(x.device):
+        code = fn(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), rstd.data_ptr(), n, d, eps,
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(code, "rms_fwd")
+    rms_fwd.launches += 1
+    return y, rstd
+
+
+rms_fwd.launches = 0
 
 
 def qk_rms_fwd(q, k, wq, wk, eps: float = 1e-6):

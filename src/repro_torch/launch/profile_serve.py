@@ -1,20 +1,33 @@
-"""Where a serving wave's device time goes, measured with ``torch.profiler``.
+"""Where a serving iteration's device time goes, measured with
+``torch.profiler``.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch wan2.1-1.3b]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch llama3.2-1b
 
-Builds Wan-2.1 1.3B (random weights from seed 0) on the GPU, admits three
-clips of 1, 2 and 3 latent frames at 480x832 into a 4-slot engine (the
-fourth slot stays empty, as in ``chip_smoke.py``'s first waves), runs one
-wave to warm up, then profiles two more.  Prints one JSON object:
-device time by kernel family (the port's kernels, cuBLAS matrix
-products, elementwise/reduction, copies, other), the device's busy time,
-and its idle share of the window from the first kernel's start to the
-last kernel's end.
+``wan2.1-1.3b`` (the default): builds Wan-2.1 1.3B (random weights from
+seed 0) on the GPU, admits three clips of 1, 2 and 3 latent frames at
+480x832 into a 4-slot engine (the fourth slot stays empty, as in
+``chip_smoke.py``'s first waves), runs one wave to warm up, then profiles
+two more.
+
+``llama3.2-1b``: builds Llama-3.2-1B (16 layers, bf16, random weights from
+seed 0) and a ``ServeEngine`` with 8 decode slots over 4096 pages of 16
+tokens; admits eight requests with prompts of 64 to 2000 tokens, runs one
+wave to warm up, then profiles one steady decode wave over the 8 slots at
+their different depths, and one B = 1 prefill of 2048 tokens into free
+pages (run once before to warm up).
+
+Prints one JSON object: device time by kernel family (the port's kernels,
+cuBLAS matrix products, elementwise/reduction, copies, other), the
+device's busy time, and its idle share of the window from the first
+kernel's start to the last kernel's end.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import sys
 
 import numpy as np
 import torch
@@ -22,7 +35,9 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.launch.serve import DEMO_MODEL
 from repro_torch.models.mmdit import MMDiT
-from repro_torch.serve import DiffusionServeEngine, ServeConfig
+from repro_torch.models.transformer import Transformer
+from repro_torch.serve import DiffusionServeEngine, ServeConfig, ServeEngine
+from repro_torch.train.steps import make_paged_prefill_step
 
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("K7 flash_fwd", ("flash_fwd_kernel",)),
@@ -32,9 +47,11 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("K2 adaln_bwd_dx", ("adaln_bwd_dx_kernel",)),
     ("K3 adaln_bwd_dmod", ("adaln_bwd_dmod_",)),
     ("K4 qk_rms_fwd", ("qk_rms_fwd_kernel",)),
+    ("K4 rms_fwd (rows)", ("rms_fwd_kernel",)),
+    ("K12 paged_decode", ("paged_decode_kernel",)),
     ("K5 qk_rms_bwd_dx", ("qk_rms_bwd_dx_kernel",)),
     ("K6 qk_rms_bwd_dw", ("qk_rms_bwd_dw_",)),
-    ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+    ("matmul (cuBLAS)", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")),
     ("copy", ("memcpy", "memset", "copy")),
     ("elementwise / reduce", ("elementwise", "reduce", "vectorized", "cat", "index")),
 )
@@ -92,10 +109,41 @@ def profile(work) -> dict:
 WAVES = 2
 FRAME = 1560  # latent tokens per frame at 480x832
 
+#: the LM route: prompt lengths of the eight resident requests, and the
+#: width of the profiled prefill
+LM_PROMPTS = (64, 128, 256, 512, 768, 1024, 1536, 2000)
+LM_PREFILL = 2048
 
-def main() -> dict:
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_serve measures the GPU; no CUDA device is visible")
+
+def lm_workload(cfg, device, *, prompts=LM_PROMPTS, prefill=LM_PREFILL, page_size=16):
+    """The LM route's two iterations as closures on a live engine:
+    ``(decode_wave, prefill, engine)``.  ``decode_wave()`` runs one engine
+    step over the 8 resident requests (no admission left); ``prefill()``
+    runs one B = 1 prefill of ``prefill`` tokens into pages no request
+    holds."""
+    model = Transformer(cfg, seed=0, device=device)
+    serve = ServeConfig(target_step=1.0, page_size=page_size, num_pages=4096,
+                        decode_slots=len(prompts), max_seq=4096)
+    eng = ServeEngine(model, cfg, DEMO_MODEL, serve)
+    rng = np.random.default_rng(0)
+    for n in prompts:
+        eng.submit(rng.integers(0, cfg.vocab, size=n).astype(np.int32), max_new=64)
+    while eng.waiting:  # admission, and the first waves
+        eng.step()
+    pages = eng.pool.alloc(prefill // page_size, owner=-1)
+    dev = eng.device
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, prefill)).astype(np.int32)).to(dev)
+    true_len = torch.tensor([prefill], dtype=torch.int32, device=dev)
+    table = torch.tensor([pages], dtype=torch.int32, device=dev)
+    step = make_paged_prefill_step(cfg)
+
+    def prefill_once():
+        return step(model, tokens, true_len, table, eng.pools)
+
+    return eng.step, prefill_once, eng
+
+
+def _main_mmdit() -> dict:
     cfg = get_config("wan2.1-1.3b")
     mmdit = MMDiT(cfg, seed=0)
     max_seq = 4 * FRAME
@@ -111,11 +159,33 @@ def main() -> dict:
         )
     eng.step()  # admission and the first wave
     torch.cuda.synchronize()
-    out = {"device": torch.cuda.get_device_name(0), "waves": WAVES,
-           "tokens_per_wave": 4 * max_seq, **profile(lambda: [eng.step() for _ in range(WAVES)])}
+    return {"device": torch.cuda.get_device_name(0), "arch": cfg.name, "waves": WAVES,
+            "tokens_per_wave": 4 * max_seq,
+            **profile(lambda: [eng.step() for _ in range(WAVES)])}
+
+
+def _main_lm() -> dict:
+    cfg = get_config("llama3.2-1b")
+    decode_wave, prefill, eng = lm_workload(cfg, None)
+    decode_wave()  # warm-up wave
+    prefill()  # warm-up prefill
+    torch.cuda.synchronize()
+    depths = [int(n) for n in eng.kv_lens]
+    return {"device": torch.cuda.get_device_name(0), "arch": cfg.name,
+            "decode_wave": {"slots": len(depths), "kv_lens": depths, **profile(decode_wave)},
+            "prefill": {"tokens": LM_PREFILL, **profile(prefill)}}
+
+
+def main(argv=()) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="wan2.1-1.3b", choices=("wan2.1-1.3b", "llama3.2-1b"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_serve measures the GPU; no CUDA device is visible")
+    out = _main_lm() if args.arch == "llama3.2-1b" else _main_mmdit()
     print(json.dumps(out))
     return out
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -1,14 +1,18 @@
-"""Serving launcher: plan-driven continuous batching of MMDiT denoise
-sampling on the GPU.
+"""Serving launcher: plan-driven continuous batching on the GPU.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --requests 8 --gen 16
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch wan2.1-1.3b \
         --requests 4
 
 runs on CUDA; ``--device cpu --smoke`` runs the plain PyTorch path on the
-CPU at the smoke size.  Requests stream through
-:class:`repro_torch.serve.DiffusionServeEngine` (iteration-level admission
-against the ``a + b·B·S^p`` cost model).  The cost model here is a
-synthetic seed (no fitted telemetry on a demo host).
+CPU at the smoke size.  LM requests stream through
+:class:`repro_torch.serve.ServeEngine` (iteration-level admission against
+the ``a + b·B·S^p`` cost model, paged KV-cache pool); mmdit configs route
+denoise sampling through :class:`repro_torch.serve.DiffusionServeEngine`
+on the same scheduler.  The cost model here is a synthetic seed (no fitted
+telemetry on a demo host).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import numpy as np
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.core.cost_model import CostModel
 from repro_torch.models.mmdit import MMDiT
-from repro_torch.serve import DiffusionServeEngine, ServeConfig
+from repro_torch.models.transformer import Transformer
+from repro_torch.serve import DiffusionServeEngine, ServeConfig, ServeEngine
 
 #: synthetic seed fit for demo runs: ~5 ms fixed overhead, p = 2 attention
 DEMO_MODEL = CostModel(a=0.005, b=2e-7, p=2.0, r2=1.0)
@@ -33,14 +38,41 @@ def _lat(reqs) -> tuple[float, float, float]:
     return lats[-1], p50, p99
 
 
-def serve_mmdit(cfg, args) -> DiffusionServeEngine:
-    serve = ServeConfig(
+def _serve_config(args) -> ServeConfig:
+    return ServeConfig(
         target_step=args.target_step,
         page_size=args.page_size,
         num_pages=args.num_pages,
         decode_slots=args.slots,
         max_seq=args.max_seq,
     )
+
+
+def serve_lm(cfg, args) -> ServeEngine:
+    model = Transformer(cfg, seed=0, device=args.device)
+    eng = ServeEngine(model, cfg, DEMO_MODEL, _serve_config(args))
+    rng = np.random.default_rng(args.seed)
+    clock = 0.0
+    for _ in range(args.requests):
+        clock += float(rng.exponential(1.0 / args.rate))
+        plen = int(rng.integers(4, max(5, args.max_seq // 4)))
+        prompt = rng.integers(0, cfg.vocab, size=plen).astype(np.int32)
+        eng.submit(prompt, 1 + int(rng.integers(1, args.gen + 1)), arrival=clock)
+    done = eng.run()
+    worst, p50, p99 = _lat(done)
+    toks = sum(len(r.out) for r in done)
+    print(
+        f"served {len(done)} LM requests in {len(eng.iterations)} iterations "
+        f"({eng.clock:.3f} s simulated): {toks} tokens generated"
+    )
+    print(f"latency p50 {p50:.3f} s, p99 {p99:.3f} s, worst {worst:.3f} s")
+    print(f"goodput {toks / eng.clock:,.1f} tok/s (simulated clock)")
+    print("sample generation (ids):", done[0].out[:16])
+    return eng
+
+
+def serve_mmdit(cfg, args) -> DiffusionServeEngine:
+    serve = _serve_config(args)
     mmdit = MMDiT(cfg, seed=0, device=args.device)
     eng = DiffusionServeEngine(mmdit, cfg, DEMO_MODEL, serve)
     rng = np.random.default_rng(args.seed)
@@ -65,14 +97,15 @@ def serve_mmdit(cfg, args) -> DiffusionServeEngine:
     return eng
 
 
-def main(argv=None) -> DiffusionServeEngine:
+def main(argv=None) -> ServeEngine | DiffusionServeEngine:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="wan2.1-1.3b")
+    ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default=None,
                     help="default: CUDA (raises without a GPU); 'cpu' runs the plain path")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--rate", type=float, default=20.0, help="arrivals/s")
+    ap.add_argument("--gen", type=int, default=16, help="max new tokens")
     ap.add_argument("--target-step", type=float, default=0.25)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=256)
@@ -83,7 +116,9 @@ def main(argv=None) -> DiffusionServeEngine:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    return serve_mmdit(cfg, args)
+    if cfg.family == "mmdit":
+        return serve_mmdit(cfg, args)
+    return serve_lm(cfg, args)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""Models of the port: the paper's Wan-2.1-style MMDiT."""
+"""Models of the port: the paper's Wan-2.1-style MMDiT and the dense
+decoder-only LM."""
 
 from .config import ModelConfig, MoEConfig, SSMConfig
-from . import layers, mmdit
+from . import layers, mmdit, transformer
 
-__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "layers", "mmdit"]
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "layers", "mmdit", "transformer"]

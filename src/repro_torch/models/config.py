@@ -1,7 +1,8 @@
 """Model configuration schema: a copy of ``repro.models.config``'s
 dataclasses, field for field, so a configuration reads the same in both
-packages.  Only the validation the diffusion path relies on is kept; the
-layer-plan helpers of the LM families come with their slices of the port.
+packages, with the layer plan (``layer_kinds``, ``superblocks``) the LM
+resolves its blocks and the JAX parameter tree's stacking from.  Only the
+validation the ported paths rely on is kept.
 """
 
 from __future__ import annotations
@@ -66,3 +67,39 @@ class ModelConfig:
             raise ValueError(f"{self.name}: moe family needs MoEConfig")
         if "ssm" in self.pattern and self.ssm is None:
             raise ValueError(f"{self.name}: ssm blocks need SSMConfig")
+
+    # -- layer plan -----------------------------------------------------
+
+    def layer_kinds(self) -> list[str]:
+        """The concrete per-layer block kinds, pattern cycled over n_layers,
+        with MoE ``first_dense`` leading layers downgraded to dense attn."""
+        kinds = [self.pattern[i % len(self.pattern)] for i in range(self.n_layers)]
+        if self.moe is not None and self.moe.first_dense > 0:
+            for i in range(min(self.moe.first_dense, self.n_layers)):
+                if kinds[i] == "moe":
+                    kinds[i] = "attn"
+        return kinds
+
+    def superblocks(self) -> tuple[list[str], list[str], int, list[str]]:
+        """Split the layer plan into (leading, pattern, n_repeats, trailing),
+        the JAX model's ``lax.scan`` layout:
+
+            leading (unrolled) -> scan(n_repeats x pattern) -> trailing (unrolled)
+
+        Leading layers are those that deviate from the cycle (e.g. kimi's
+        first dense layer); trailing layers are a partial final cycle.  The
+        port runs the layers in this order in one loop; the split tells
+        ``convert`` how the JAX tree stacks them.
+        """
+        kinds = self.layer_kinds()
+        pat = list(self.pattern)
+        lead = 0
+        while lead < len(kinds) and kinds[lead] != pat[lead % len(pat)]:
+            lead += 1
+        body = kinds[lead:]
+        n_rep = len(body) // len(pat)
+        for i, k in enumerate(body[: n_rep * len(pat)]):
+            if k != pat[i % len(pat)]:
+                return kinds, [], 0, []  # not a cycle: everything unrolled
+        trailing = body[n_rep * len(pat) :]
+        return kinds[:lead], pat, n_rep, trailing

@@ -1,5 +1,6 @@
-"""Base layers of the MMDiT: the initializer, the LayerNorm branch of
-``repro.models.layers.apply_norm`` and the SwiGLU MLP.
+"""Base layers (``repro.models.layers``): the initializers, both branches
+of ``apply_norm`` (LayerNorm in PyTorch, RMSNorm through the kernel
+dispatch), RoPE, the SwiGLU MLP and the LM head.
 
 Weights keep the JAX package's ``x @ W`` meaning: a projection is a
 ``[d_in, d_out]`` parameter applied with ``x @ w``, not an ``nn.Linear``.
@@ -11,6 +12,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import kernels
+
+#: parameter and activation dtype of a configuration's ``dtype`` string
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
                scale: float | None = None) -> nn.Parameter:
@@ -20,24 +26,59 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
     return nn.Parameter((w * s).to(dtype))
 
 
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device) -> nn.Parameter:
+    """N(0, 1) * 0.02 embeddings, drawn in f32 from ``gen``."""
+    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=device)
+    return nn.Parameter((w * 0.02).to(dtype))
+
+
 class Norm(nn.Module):
-    """LayerNorm affine parameters ``w`` (ones) and ``b`` (zeros), f32."""
+    """Norm parameters, f32: ``w`` (ones) and, for a LayerNorm, ``b``
+    (zeros) (``repro.models.layers.norm_params``)."""
 
-    def __init__(self, d: int, device):
+    def __init__(self, d: int, device, kind: str = "layernorm"):
         super().__init__()
+        if kind not in ("layernorm", "rmsnorm"):
+            raise ValueError(kind)
         self.w = nn.Parameter(torch.ones(d, dtype=torch.float32, device=device))
-        self.b = nn.Parameter(torch.zeros(d, dtype=torch.float32, device=device))
+        if kind == "layernorm":
+            self.b = nn.Parameter(torch.zeros(d, dtype=torch.float32, device=device))
 
 
-def apply_norm(p: Norm, x, kind: str, eps: float):
-    """LayerNorm over the last axis with fp32 statistics, in x's dtype."""
+def apply_norm(p: Norm, x, kind: str, eps: float, ops=kernels):
+    """Norm over the last axis with fp32 statistics, in x's dtype: RMSNorm
+    through ``ops.rms_norm`` (the kernel dispatch, or ``kernels.plain``),
+    LayerNorm in PyTorch."""
+    if kind == "rmsnorm":
+        return ops.rms_norm(x, p.w, eps)
     if kind != "layernorm":
-        raise ValueError(f"the port has only the layernorm branch, got {kind!r}")
+        raise ValueError(kind)
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * p.w + p.b).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return 1.0 / (
+        theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim)
+    )
+
+
+def apply_rope(x, positions, theta: float):
+    """Half-split rotary embedding with f32 angles.  x: [B, S, H, dh];
+    positions: [B, S] or [S] integers."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)  # [dh/2]
+    ang = positions.float()[..., None] * freqs  # [..., S, dh/2]
+    if ang.dim() == 2:  # [S, dh/2] -> broadcast over batch
+        ang = ang[None]
+    cos = torch.cos(ang)[..., None, :]  # [B, S, 1, dh/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., : dh // 2], x[..., dh // 2 :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 class MLP(nn.Module):
@@ -53,3 +94,9 @@ class MLP(nn.Module):
 def apply_mlp(p: MLP, x):
     h = F.silu(x @ p.w1) * (x @ p.w3)
     return h @ p.w2
+
+
+def last_token_logits(x_last, emb):
+    """[B, D] x [V, D] -> [B, V] f32 logits (the decode / prefill head): the
+    product in the model's dtype, then cast."""
+    return (x_last @ emb.T).float()

@@ -34,10 +34,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import kernels, resolve_device
 
 from .config import ModelConfig
-from .layers import MLP, Norm, apply_mlp, apply_norm, dense_init
+from .layers import DTYPES, MLP, Norm, apply_mlp, apply_norm, dense_init
 
 TEXT_DIM = 4096  # umt5-xxl width of the text-encoder states
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def timestep_embedding(t, dim: int, max_period: float = 10_000.0):

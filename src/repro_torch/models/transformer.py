@@ -1,0 +1,294 @@
+"""Decoder-only LM, dense path, for serving over a paged KV cache.
+
+The counterpart of ``repro.models.transformer`` for global-attention
+transformer blocks (``"attn"``): the same parameters under the same names
+(one ``blocks.<i>`` module per layer, run in one Python loop, where the
+JAX model scans the stacked superblocks), the same arithmetic, and the
+fused operators routed through ``repro_torch.kernels``, which picks the
+CUDA kernel or the plain version by the tensors' device.  ``ops="plain"``
+runs the plain versions on any device (the on-card comparison).
+
+Three entry points:
+
+* :meth:`Transformer.forward` — the full-sequence forward, optionally
+  collecting each layer's k and v (prefill);
+* :func:`paged_prefill` — prompts through ``forward``, their k and v
+  scattered into pool pages, logits at each prompt's last true token;
+* :func:`paged_decode_step` — one decode wave, one new token per slot,
+  every slot at its own depth (``kv_lens``), its k and v written into the
+  slot's current page before the paged attention.
+
+The pools (:func:`init_paged_pools`: one k and one v pool per layer,
+``[num_pages + 1, page_size, Hkv, dh]``, the last page a scratch sink) are
+updated in place with ``index_copy_``, where the JAX model builds new
+arrays with ``.at[].set``: prefill and decode return the pools they were
+given.  Block kinds other than ``"attn"`` (MoE, SSM, RG-LRU, local, cross)
+raise: they come with their slices of the port.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch import kernels, resolve_device
+
+from .config import ModelConfig
+from .layers import (
+    DTYPES,
+    MLP,
+    Norm,
+    apply_mlp,
+    apply_norm,
+    apply_rope,
+    dense_init,
+    embed_init,
+    last_token_logits,
+)
+
+KINDS = ("attn",)  # the block kinds ported so far
+
+
+def _ops(ops: str):
+    if ops not in ("kernel", "plain"):
+        raise ValueError(f"ops must be 'kernel' or 'plain', got {ops!r}")
+    return kernels if ops == "kernel" else kernels.plain
+
+
+def _dense_kinds(cfg: ModelConfig) -> list[str]:
+    """The layer plan, refusing the kinds not ported (``_paged_kinds``)."""
+    kinds = cfg.layer_kinds()
+    bad = sorted({k for k in kinds if k not in KINDS})
+    if bad:
+        raise ValueError(
+            f"the port serves global-attention transformer blocks only "
+            f"({KINDS}); config {cfg.name} has {bad}"
+        )
+    return kinds
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    """Self-attention parameters (``_attn_params``): the fused ``wqkv``
+    [d, (h + 2 hkv) dh], optional ``bqkv``, ``wo`` [h dh, d], and the
+    optional per-head ``qnorm`` / ``knorm`` gains (f32)."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype, device):
+        super().__init__()
+        d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.wqkv = dense_init(gen, d, (h + 2 * hkv) * dh, dtype, device)
+        if cfg.qkv_bias:
+            self.bqkv = nn.Parameter(torch.zeros((h + 2 * hkv) * dh, dtype=dtype, device=device))
+        self.wo = dense_init(gen, h * dh, d, dtype, device)
+        if cfg.qk_norm:
+            self.qnorm = nn.Parameter(torch.ones(dh, dtype=torch.float32, device=device))
+            self.knorm = nn.Parameter(torch.ones(dh, dtype=torch.float32, device=device))
+
+
+class Block(nn.Module):
+    """One dense block's parameters (``block_params`` for ``"attn"``)."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype, device):
+        super().__init__()
+        self.norm1 = Norm(cfg.d_model, device, cfg.norm)
+        self.attn = Attention(cfg, gen, dtype, device)
+        self.norm2 = Norm(cfg.d_model, device, cfg.norm)
+        self.mlp = MLP(gen, cfg.d_model, cfg.d_ff, dtype, device)
+
+
+class Transformer(nn.Module):
+    """The dense decoder-only LM with weights drawn from ``seed`` (tied
+    embeddings: ``embed`` is also the LM head).
+
+    Runs on CUDA unless ``device`` names another device; raises when no GPU
+    is visible and no device is named.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None):
+        super().__init__()
+        self.kinds = _dense_kinds(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.dtype = DTYPES[cfg.dtype]
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self.embed = embed_init(gen, cfg.vocab, cfg.d_model, self.dtype, device)
+        self.blocks = nn.ModuleList(Block(cfg, gen, self.dtype, device) for _ in self.kinds)
+        self.final_norm = Norm(cfg.d_model, device, cfg.norm)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def forward(self, tokens, *, collect_cache: bool = False, ops: str = "kernel"):
+        """Token ids [B, S] -> ``(hidden [B, S, d] after the final norm,
+        caches)``: with ``collect_cache``, one ``{"k", "v"}`` [B, S, Hkv,
+        dh] per layer (k after RoPE), else None."""
+        K = _ops(ops)
+        cfg = self.cfg
+        x = self.embed[tokens.long()]
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        caches = [] if collect_cache else None
+        for bp in self.blocks:
+            x, cache = apply_block(bp, x, cfg, positions, K, collect_cache=collect_cache)
+            if collect_cache:
+                caches.append(cache)
+        return apply_norm(self.final_norm, x, cfg.norm, cfg.norm_eps, K), caches
+
+
+# --------------------------------------------------------------------------
+# blocks
+# --------------------------------------------------------------------------
+
+
+def _project_qkv(bp: Attention, x, cfg: ModelConfig, K):
+    """q [B, S, h, dh], k and v [B, S, hkv, dh] as views of the fused
+    projection (q and k normalised per head when the config asks)."""
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qkv = x @ bp.wqkv
+    if cfg.qkv_bias:
+        qkv = qkv + bp.bqkv
+    b, s, _ = qkv.shape
+    q = qkv[..., : h * dh].reshape(b, s, h, dh)
+    k = qkv[..., h * dh : (h + hkv) * dh].reshape(b, s, hkv, dh)
+    v = qkv[..., (h + hkv) * dh :].reshape(b, s, hkv, dh)
+    if cfg.qk_norm:
+        q, k = K.qk_norm(q, k, bp.qnorm, bp.knorm, cfg.norm_eps)
+    return q, k, v
+
+
+def _self_attn_full(bp: Attention, x, cfg: ModelConfig, positions, K):
+    """Causal self-attention over the whole sequence (prefill; no segment
+    ids).  Returns ``(out [B, S, d], (k, v))``."""
+    q, k, v = _project_qkv(bp, x, cfg, K)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    ctx = K.attention(q, k, v, causal=True)
+    b, s = x.shape[:2]
+    return ctx.reshape(b, s, cfg.n_heads * cfg.head_dim) @ bp.wo, (k, v)
+
+
+def apply_block(bp: Block, x, cfg: ModelConfig, positions, K, *, collect_cache: bool = False):
+    """One block over a full sequence.  Returns ``(x, cache or None)``."""
+    h = apply_norm(bp.norm1, x, cfg.norm, cfg.norm_eps, K)
+    out, (k, v) = _self_attn_full(bp.attn, h, cfg, positions, K)
+    x = x + out
+    h2 = apply_norm(bp.norm2, x, cfg.norm, cfg.norm_eps, K)
+    return x + apply_mlp(bp.mlp, h2), ({"k": k, "v": v} if collect_cache else None)
+
+
+# --------------------------------------------------------------------------
+# paged KV-cache pools (continuous-batching serving)
+# --------------------------------------------------------------------------
+
+
+def init_paged_pools(cfg: ModelConfig, num_pages: int, page_size: int, *, device=None) -> list:
+    """One ``{"k", "v"}`` pool pair per layer, ``[num_pages + 1, page_size,
+    Hkv, dh]`` zeros in the model's dtype.  ONE page table addresses every
+    layer: a request's logical page j lives at the same physical page in
+    all of them.  The extra final page (index ``num_pages``) is the scratch
+    sink inactive decode slots and padding page-table entries point at; it
+    is written but never read unmasked."""
+    kinds = _dense_kinds(cfg)
+    device = resolve_device(device)
+    shape = (num_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
+    dt = DTYPES[cfg.dtype]
+    return [
+        {"k": torch.zeros(shape, dtype=dt, device=device),
+         "v": torch.zeros(shape, dtype=dt, device=device)}
+        for _ in kinds
+    ]
+
+
+def _scatter_pages(pool, cache, page_table, page_size: int) -> None:
+    """Write a contiguous prefill cache leaf into pool pages, in place.
+
+    pool ``[P, ps, Hkv, dh]``, cache ``[B, S, Hkv, dh]`` with S a multiple
+    of ``page_size``; request b's pages come from ``page_table[b]``.
+    Entries past a request's allocation point at the scratch page, which
+    absorbs the padding rows (duplicate scratch writes race, but scratch
+    content is never read unmasked)."""
+    b, s = cache.shape[:2]
+    n = s // page_size
+    src = cache.reshape(b * n, page_size, *cache.shape[2:]).to(pool.dtype)
+    idx = page_table[:, :n].reshape(-1).long()
+    pool.index_copy_(0, idx, src)
+
+
+def scatter_caches_into_pools(caches: list, pools: list, cfg: ModelConfig, page_table,
+                              page_size: int) -> list:
+    """Move ``forward(collect_cache=True)`` caches into the paged pools (in
+    place); returns the pools."""
+    _dense_kinds(cfg)
+    for pool, cache in zip(pools, caches):
+        _scatter_pages(pool["k"], cache["k"], page_table, page_size)
+        _scatter_pages(pool["v"], cache["v"], page_table, page_size)
+    return pools
+
+
+def apply_block_paged_decode(bp: Block, x, cfg: ModelConfig, pool: dict, page_table, kv_lens, K):
+    """One block for one new token per decode slot, KV in paged pools.
+
+    Every slot carries its own position (``kv_lens[b]``, the tokens already
+    cached).  The new token's k and v go into its slot's current page
+    before attending over ``kv_lens + 1`` tokens.  Inactive slots
+    (``kv_lens == 0`` with a scratch-page table row) write to and read
+    from scratch; their logits are garbage the engine never reads.
+    """
+    b = x.shape[0]
+    h = apply_norm(bp.norm1, x, cfg.norm, cfg.norm_eps, K)
+    q, k, v = _project_qkv(bp.attn, h, cfg, K)
+    posv = kv_lens[:, None]  # [B, 1] per-slot positions
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k = apply_rope(k, posv, cfg.rope_theta)
+    kc, vc = pool["k"], pool["v"]
+    p_pool, ps = kc.shape[0], kc.shape[1]
+    lens = kv_lens.long()
+    page = page_table[torch.arange(b, device=x.device), lens // ps].long()
+    flat = page * ps + lens % ps  # [B] slot in the flattened pool
+    kc.view(p_pool * ps, *kc.shape[2:]).index_copy_(0, flat, k[:, 0].to(kc.dtype))
+    vc.view(p_pool * ps, *vc.shape[2:]).index_copy_(0, flat, v[:, 0].to(vc.dtype))
+    ctx = K.paged_attention(q[:, 0].contiguous(), kc, vc, page_table, kv_lens + 1)
+    x = x + ctx.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ bp.attn.wo
+    h2 = apply_norm(bp.norm2, x, cfg.norm, cfg.norm_eps, K)
+    return x + apply_mlp(bp.mlp, h2)
+
+
+def paged_decode_step(model: Transformer, pools: list, page_table, kv_lens, token, *,
+                      ops: str = "kernel"):
+    """One decode wave over paged pools.  page_table [B, pages_max] int32,
+    kv_lens [B] int32, token [B, 1].  Returns ``(logits [B, V] f32,
+    pools)``, the pools updated in place."""
+    K = _ops(ops)
+    cfg = model.cfg
+    x = model.embed[token.long()]
+    for bp, pool in zip(model.blocks, pools):
+        x = apply_block_paged_decode(bp, x, cfg, pool, page_table, kv_lens, K)
+    x = apply_norm(model.final_norm, x, cfg.norm, cfg.norm_eps, K)
+    return last_token_logits(x[:, -1], model.embed), pools
+
+
+def paged_prefill(model: Transformer, tokens, true_len, page_table, pools: list, *,
+                  ops: str = "kernel"):
+    """Run prompts and scatter their KV into pool pages.
+
+    tokens [B, S_pad] padded to a page multiple; true_len [B] the prompt
+    lengths (padding at the end); page_table [B, S_pad / page_size].
+    Returns ``(logits at each prompt's last true token [B, V] f32, pools)``.
+    Padding rows run causally after the real tokens, so real tokens never
+    attend them; their KV lands wherever the page table points (scratch for
+    entries past a request's allocation) and is masked by ``kv_lens``
+    forever after.
+    """
+    ps = pools[0]["k"].shape[1]
+    s = tokens.shape[1]
+    if s % ps != 0:
+        raise ValueError(f"prompt width {s} not a multiple of page_size {ps}")
+    h, caches = model(tokens, collect_cache=True, ops=ops)
+    scatter_caches_into_pools(caches, pools, model.cfg, page_table, ps)
+    b = tokens.shape[0]
+    last = h[torch.arange(b, device=h.device), true_len.long() - 1]
+    return last_token_logits(last, model.embed), pools

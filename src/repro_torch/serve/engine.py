@@ -1,5 +1,17 @@
-"""Continuous batching for MMDiT denoise sampling: plans from the scheduler,
-waves on the device.
+"""Continuous-batching engines: plans from the scheduler, waves on the
+device.
+
+:class:`ServeEngine` is the LM path, the counterpart of
+``repro.serve.engine.ServeEngine``.  Each iteration it (1) asks the
+scheduler for a plan against the live free-token/free-slot state, (2)
+prefills admitted prompts into pool pages (B=1, width padded to a
+power-of-two page multiple), and (3) runs ONE decode wave over the full
+slot array — per-slot ``kv_lens`` carry each request's depth, inactive
+slots aim at the scratch page and contribute exact zeros.  Sampling is
+greedy (argmax, on the device; the first maximum on ties, as numpy's).
+The page table, depths and last tokens are host arrays, as in the JAX
+engine, sent to the device with each wave; the pools live on the model's
+device and are updated in place.
 
 :class:`DiffusionServeEngine` is the counterpart of
 ``repro.serve.engine.DiffusionServeEngine``: a request is a chain of
@@ -25,11 +37,201 @@ import numpy as np
 import torch
 
 from repro_torch.core.cost_model import CostModel
+from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mmdit import TEXT_DIM, MMDiT
-from repro_torch.serve.request import DONE, RUNNING, DenoiseRequest
+from repro_torch.serve.page_pool import PagePool
+from repro_torch.serve.request import DONE, RUNNING, DenoiseRequest, Request
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler, ServeConfig
-from repro_torch.train.steps import make_denoise_step
+from repro_torch.train.steps import (
+    make_denoise_step,
+    make_paged_decode_step,
+    make_paged_prefill_step,
+)
+
+
+class ServeEngine:
+    """Continuous batching for the transformer LM over a paged KV cache.
+    The engine runs where ``model`` lives."""
+
+    def __init__(
+        self,
+        model: T.Transformer,
+        cfg: ModelConfig,
+        cost: CostModel,
+        serve: ServeConfig,
+    ):
+        self.model = model
+        self.cfg = cfg
+        self.serve = serve
+        self.device = model.device
+        self.scheduler = ContinuousBatchingScheduler(cost, serve)
+        self.pool = PagePool(serve.num_pages, serve.page_size)
+        self.pools = T.init_paged_pools(cfg, serve.num_pages, serve.page_size,
+                                        device=self.device)
+        self.scratch = serve.num_pages  # the always-masked sink page
+        slots = serve.decode_slots
+        self.page_table = np.full((slots, serve.pages_max), self.scratch, np.int32)
+        self.kv_lens = np.zeros((slots,), np.int32)
+        self.last_tok = np.zeros((slots,), np.int32)
+        self.slot_req: list[Optional[Request]] = [None] * slots
+        self.waiting: collections.deque[Request] = collections.deque()
+        self.done: list[Request] = []
+        self.clock = 0.0
+        self.iterations: list[dict] = []  # per-step records for invariants
+        self._next_rid = 0
+        self._prefill = make_paged_prefill_step(cfg)
+        self._decode = make_paged_decode_step(cfg)
+
+    # -- admission-facing state -------------------------------------------
+
+    @property
+    def free_tokens(self) -> int:
+        resident = sum(
+            r.reserve_tokens for r in self.slot_req if r is not None
+        )
+        return min(self.pool.free_tokens, self.serve.mem_tokens - resident)
+
+    @property
+    def free_slots(self) -> int:
+        return sum(1 for r in self.slot_req if r is None)
+
+    def submit(
+        self, prompt: np.ndarray, max_new: int, arrival: float = 0.0
+    ) -> Request:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.shape[0] < 1 or max_new < 1:
+            raise ValueError("need a non-empty prompt and max_new >= 1")
+        reserve = prompt.shape[0] + max_new
+        if reserve > self.serve.max_seq:
+            raise ValueError(
+                f"prompt+max_new = {reserve} exceeds max_seq "
+                f"{self.serve.max_seq}"
+            )
+        if self.serve.page_tokens(reserve) > self.serve.mem_tokens:
+            raise ValueError(
+                f"request needs {self.serve.page_tokens(reserve)} tokens "
+                f"({reserve} rounded to whole pages), budget is "
+                f"{self.serve.mem_tokens}"
+            )
+        r = Request(self._next_rid, prompt, max_new, arrival=float(arrival))
+        self._next_rid += 1
+        self.waiting.append(r)
+        return r
+
+    # -- execution ---------------------------------------------------------
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _pad_width(self, n: int) -> int:
+        """Power-of-two prompt bucket (page multiple), capped at max_seq."""
+        w = self.serve.page_size
+        while w < n:
+            w *= 2
+        return min(w, self.serve.max_seq)
+
+    def _start(self, r: Request) -> None:
+        self.waiting.remove(r)
+        slot = self.slot_req.index(None)
+        n_pages = self.pool.pages_for(r.reserve_tokens)
+        r.pages = self.pool.alloc(n_pages, r.rid)
+        r.slot = slot
+        r.state = RUNNING
+        row = np.full((self.serve.pages_max,), self.scratch, np.int32)
+        row[: len(r.pages)] = r.pages
+        s_pad = self._pad_width(r.prompt_len)
+        tokens = np.zeros((1, s_pad), np.int32)
+        tokens[0, : r.prompt_len] = r.prompt
+        logits, self.pools = self._prefill(
+            self.model,
+            self._dev(tokens),
+            self._dev(np.array([r.prompt_len], np.int32)),
+            self._dev(row[None, : s_pad // self.serve.page_size].copy()),
+            self.pools,
+        )
+        tok = int(logits[0].argmax())
+        r.ctx = r.prompt_len
+        r.out = [tok]
+        self.page_table[slot] = row
+        self.kv_lens[slot] = r.prompt_len
+        self.last_tok[slot] = tok
+        self.slot_req[slot] = r
+
+    def _finish(self, r: Request) -> None:
+        slot = r.slot
+        self.pool.free(r.pages, r.rid)
+        r.pages = []
+        r.state = DONE
+        r.t_done = self.clock
+        self.page_table[slot] = self.scratch
+        self.kv_lens[slot] = 0
+        self.slot_req[slot] = None
+        self.done.append(r)
+
+    def step(self) -> bool:
+        """One engine iteration.  Returns False when fully drained."""
+        running = [r for r in self.slot_req if r is not None]
+        arrived = [r for r in self.waiting if r.arrival <= self.clock]
+        if not running and not arrived:
+            if not self.waiting:
+                return False
+            # idle: jump the clock to the next arrival
+            self.clock = max(
+                self.clock, min(r.arrival for r in self.waiting)
+            )
+            arrived = [r for r in self.waiting if r.arrival <= self.clock]
+        plan = self.scheduler.plan(
+            arrived,
+            running,
+            free_tokens=self.free_tokens,
+            free_slots=self.free_slots,
+        )
+        for r in plan.prefills:
+            self._start(r)
+        if running:
+            # ONE wave over the full slot array; only the slots that were
+            # running before admission advance (fresh prefills join the
+            # wave next iteration, matching the plan's pricing)
+            logits, self.pools = self._decode(
+                self.model,
+                self.pools,
+                self._dev(self.page_table),
+                self._dev(self.kv_lens),
+                self._dev(self.last_tok[:, None].copy()),
+            )
+            toks = logits.argmax(dim=-1).cpu().numpy()
+            for r in running:
+                tok = int(toks[r.slot])
+                r.ctx += 1
+                self.kv_lens[r.slot] += 1
+                r.out.append(tok)
+                self.last_tok[r.slot] = tok
+        self.clock += self.scheduler.price(plan)
+        self.iterations.append(
+            {
+                "clock": self.clock,
+                "prefills": [r.rid for r in plan.prefills],
+                "decodes": [r.rid for r in running],
+                "decode_load": plan.decode_load,
+                "prefill_load": plan.prefill_load,
+                "price": self.scheduler.price(plan),
+                "oversize": plan.oversize,
+            }
+        )
+        for r in plan.prefills:
+            r.t_first = self.clock
+        for r in [*plan.prefills, *running]:
+            if r.state is not DONE and len(r.out) >= r.max_new:
+                self._finish(r)
+        return True
+
+    def run(self) -> list[Request]:
+        """Drain the queue; returns completed requests in finish order."""
+        while self.step():
+            pass
+        self.pool.assert_empty()
+        return self.done
 
 
 class DiffusionServeEngine:

@@ -50,6 +50,10 @@ class ServeConfig:
             )
 
     @property
+    def pages_max(self) -> int:
+        return self.max_seq // self.page_size
+
+    @property
     def mem_tokens(self) -> int:
         cap = self.num_pages * self.page_size
         return cap if self.m_mem_tokens is None else min(self.m_mem_tokens, cap)

@@ -1,9 +1,10 @@
 """Step functions of the port: the counterpart of ``repro.train.steps`` for
-the mmdit family.
+the mmdit family and the dense LM's serving.
 
-Serving needs one, a denoise step (one velocity evaluation, the unit of
-diffusion sampling).  Training needs the state, the loss, the pool
-microbatch's gradient step and the one-batch train step.
+Diffusion serving needs a denoise step (one velocity evaluation, the unit
+of diffusion sampling); LM serving a paged prefill and a paged decode wave.
+Training needs the state, the loss, the pool microbatch's gradient step
+and the one-batch train step.
 
 Randomness follows the reference's rule with numpy's ``SeedSequence`` in
 place of ``jax.random``: a step key is an integer, and a pool microbatch's
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models import transformer as T
 from repro_torch.models.mmdit import MMDiT, decays, rectified_flow_loss
 from repro_torch.optim.adamw import OptimizerConfig, adamw_update, init_opt_state
 
@@ -130,3 +132,34 @@ def make_denoise_step(cfg: ModelConfig) -> Callable:
             )
 
     return denoise_step
+
+
+def _lm_only(cfg: ModelConfig, what: str) -> None:
+    if cfg.family == "mmdit":
+        raise ValueError(f"{what} needs an LM config, got {cfg.family!r}")
+
+
+def make_paged_prefill_step(cfg: ModelConfig) -> Callable:
+    """Prefill into paged KV pools (continuous-batching serving), without
+    autograd state: run the padded prompts, scatter their caches into pool
+    pages, and return the logits at each request's true last token."""
+    _lm_only(cfg, "paged prefill")
+
+    def paged_prefill_step(model, tokens, true_len, page_table, pools):
+        with torch.inference_mode():
+            return T.paged_prefill(model, tokens, true_len, page_table, pools)
+
+    return paged_prefill_step
+
+
+def make_paged_decode_step(cfg: ModelConfig) -> Callable:
+    """One decode wave over paged pools, without autograd state: every slot
+    carries its own position (``kv_lens``), so one step serves requests at
+    mixed depths, the iteration unit of continuous batching."""
+    _lm_only(cfg, "paged decode")
+
+    def paged_decode_step(model, pools, page_table, kv_lens, token):
+        with torch.inference_mode():
+            return T.paged_decode_step(model, pools, page_table, kv_lens, token)
+
+    return paged_decode_step

@@ -14,9 +14,12 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py"))
 IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+# the library's norms in every spelling (functional calls, imports of the
+# functions, the modules); the port's own ``kernels.rms_norm`` is allowed
 LIBRARY_RE = re.compile(
-    r"scaled_dot_product_attention|layer_norm\(|rms_norm\(|torch\.compile|"
-    r"os\.environ|getenv"
+    r"scaled_dot_product_attention|(?:\bF|functional|torch)\.(?:layer_norm|rms_norm)\(|"
+    r"from\s+torch[\w.]*\s+import[^\n]*\b(?:layer_norm|rms_norm)\b|"
+    r"nn\.(?:LayerNorm|RMSNorm)\b|torch\.compile|os\.environ|getenv"
 )
 
 

@@ -99,13 +99,13 @@ def test_scheduler_plans_match_jax(target_step):
 
 
 def test_launcher_runs_on_cpu_and_needs_a_device(monkeypatch, capsys):
-    eng = launch_serve.main(["--smoke", "--device", "cpu", "--requests", "2",
-                             "--max-seq", "32", "--denoise-steps", "2"])
+    eng = launch_serve.main(["--arch", "wan2.1-1.3b", "--smoke", "--device", "cpu",
+                             "--requests", "2", "--max-seq", "32", "--denoise-steps", "2"])
     assert len(eng.done) == 2 and all(np.isfinite(r.result).all() for r in eng.done)
     assert "served 2 denoise requests" in capsys.readouterr().out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        launch_serve.main(["--smoke"])
+        launch_serve.main(["--arch", "wan2.1-1.3b", "--smoke"])
 
 
 def test_profile_breakdown_families_and_idle_share(monkeypatch):
@@ -122,6 +122,35 @@ def test_profile_breakdown_families_and_idle_share(monkeypatch):
     }
     assert out["busy_ms"] == pytest.approx(0.08) and out["window_ms"] == pytest.approx(0.1)
     assert out["idle_share"] == pytest.approx(0.2)
+    # the LM route's kernels: K4 on rows is not the q/k entry, K12 its own
+    assert profile_serve.family("void (anonymous namespace)::rms_fwd_kernel<float>(...)") \
+        == "K4 rms_fwd (rows)"
+    assert profile_serve.family("void qk_rms_fwd_kernel<__nv_bfloat16, 64>(Side, Side)") \
+        == "K4 qk_rms_fwd"
+    assert profile_serve.family("void paged_decode_kernel<__nv_bfloat16, 64>(PagedParams)") \
+        == "K12 paged_decode"
+    assert profile_serve.family("void gemv2T_kernel_val<int, int, __nv_bfloat16>") \
+        == "matmul (cuBLAS)"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_serve.main()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_serve.main(["--arch", "llama3.2-1b"])
+
+
+def test_profile_lm_workload_runs_on_cpu():
+    """The LM route's two profiled iterations, at the smoke size on the CPU:
+    eight resident requests at their own depths, one decode wave, one
+    prefill into pages no request holds."""
+    from repro_torch.configs.registry import get_smoke_config
+
+    cfg = get_smoke_config("llama3.2-1b")
+    decode_wave, prefill, eng = profile_serve.lm_workload(
+        cfg, "cpu", prompts=(5, 9, 16, 40), prefill=32)
+    depths = eng.kv_lens.copy()
+    assert not eng.waiting and all(r is not None for r in eng.slot_req)
+    assert len(set(depths.tolist())) == 4
+    assert decode_wave()
+    assert (eng.kv_lens == depths + 1).all()
+    logits, _ = prefill()
+    assert logits.shape == (1, cfg.vocab) and torch.isfinite(logits).all()
