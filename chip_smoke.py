@@ -9,7 +9,7 @@ Phases, any failure of which exits non-zero with no result line:
 1. card and toolchain: the card's name and power limit, the torch / CUDA
    versions; every kernel built from ``src/repro_torch/**/csrc/*.cu``
    (one nvcc per source, in parallel), with the build seconds;
-2. each of the nine kernels against its plain PyTorch version on the card,
+2. each kernel against its plain PyTorch version on the card,
    with kernel, plain and library times from CUDA events: the forward
    kernels at the serving shapes of Wan-2.1 1.3B (x [4, 6240, 1536]; q/k/v
    [4, 6240, 12, 128]; self-attention 6240 x 6240 and cross-attention
@@ -48,18 +48,38 @@ Phases, any failure of which exits non-zero with no result line:
    prefill ms by padded width, decode-wave ms, wall tokens/s, peak memory;
 7. the LM at full width and 2 layers, kernels against ``ops="plain"``: the
    prefill logits and three decode waves' logits on the same pools, rel-L2
-   <= 2e-2.
+   <= 2e-2;
+8. Mamba-2 training: (a) the launcher's ``main`` with ``--arch mamba2-2.7b
+   --adaptive --steps 2`` (buckets of S 272-448, none a multiple of the
+   256-token SSD chunk, so the mixer pads); (b) Mamba-2 2.7B at full width
+   and depth (64 layers, bf16, random weights from seed 0) trains 4 AdamW
+   steps of one B 4 x S 2048 microbatch through ``Trainer`` on
+   ``EmulatedEngine``: every loss and parameter finite, every kernel's
+   launch count in (a) and (b) equal to microbatches x its launches per
+   microbatch (K4 rows 2L+1, K13 2L, K5 and K6 rows 2L+1 each, the rest
+   0); the steady step time, tokens/s and peak memory; (c) 2 layers at
+   full width, kernel loss and gradients against the ``ops="plain"`` ones
+   at B 2 x S 2048 and B 4 x S 272: loss within 1e-2 and every gradient's
+   rel-L2 within 5e-2.
 
 Phase 2 also holds K4 on model rows (x [1, 2048, 2048] and [8, 1, 2048]
 bf16) and K12 (the decode wave of phase 6; 64 slots with kv_lens up to
 4096; dh 128 with 40 q heads over 8 kv heads) against their plain
 versions, with shuffled page tables, inactive slots, ragged last pages and
-scratch entries past each allocation.
+scratch entries past each allocation; and the Mamba-2 kernels at phase 8's
+shapes: K13 on x, g [8192, 5120] bf16 with g the strided z slice of the
+in_proj output, K4 on rows of [8192, 2560] (norm1 and final_norm), K5
+and K6 on rows of [8192, 2560] and [8192, 5120] against the plain rstd (K6
+also bitwise against a second run), the gated norm's whole backward, and
+K10 against its plain version and K3 at K3's shape, timed back to back
+with K3 there and at the paper's Fig. 1 width (D 5120, B 1, S 8192 to
+32768); all of them at small f32 shapes.
 
-Each kernel's launch counts in the record are those of the three main
+Each kernel's launch counts in the record are those of the four main
 paths, each reset to 0 just before its run and read just after: the
-serving waves of phase 3, the training steps of phase 5 (b) and the LM
-serving of phase 6 (b) (``launches_by_path``); ``launches`` is their sum.
+serving waves of phase 3, the training steps of phase 5 (b), the LM
+serving of phase 6 (b) and the Mamba-2 training steps of phase 8 (b)
+(``launches_by_path``); ``launches`` is their sum.
 
 Prints the kernels' JSON record on the line before the last and, as the
 last line, ``{"ok": true, "device": {...}}``.  The full record also goes to
@@ -730,8 +750,8 @@ def per_microbatch(n_layers: int) -> dict[str, int]:
             "flash_fwd": 4 * L, "flash_bwd_dq": 2 * L, "flash_bwd_dkv": 2 * L}
 
 
-def check_counts(counts: dict, micro: int, n_layers: int, what: str) -> None:
-    table = per_microbatch(n_layers)
+def check_counts(counts: dict, micro: int, n_layers: int, what: str, per=per_microbatch) -> None:
+    table = per(n_layers)
     for name in counts:
         if counts[name] != micro * table.get(name, 0):
             raise AssertionError(f"{what}: {name} launched {counts[name]} times, "
@@ -1084,6 +1104,327 @@ def phase_kernels_lm(dev) -> dict:
     return out
 
 
+# -- the Mamba-2 training slice ------------------------------------------------
+
+SSM_ROWS = 4 * 2048  # rows of one B 4 x S 2048 microbatch
+SSM_D, SSM_DI = 2560, 5120  # d_model and d_inner of mamba2-2.7b
+SSM_PROJ = 2 * SSM_DI + 2 * 128 + 80  # width of its in_proj output (z, xBC, dt)
+
+
+def phase_kernels_ssm(dev) -> dict:
+    """Phase 2, Mamba-2 training: K13, K4, K5 and K6 on model rows against
+    their plain versions at the path's shapes and small f32 shapes, K6 bitwise
+    against a second run, the gated backward through the autograd wiring;
+    K10 against its plain version and K3, and K10 and K3 timed back to back
+    at K3's shape and at the paper's width (D 5120, B 1, S 8192-32768)."""
+    from repro_torch.kernels.fused_adaln.adaln import adaln_bwd_dmod, adaln_bwd_dmod_naive, adaln_fwd
+    from repro_torch.kernels.fused_adaln.ref import adaln_bwd_dmod_ref
+    from repro_torch.kernels.fused_rmsnorm.ops import gated_rms_norm
+    from repro_torch.kernels.fused_rmsnorm.ref import (
+        gated_rms_bwd_ref, gated_rms_norm_ref, rms_bwd_ref, rms_norm_ref,
+    )
+    from repro_torch.kernels.fused_rmsnorm.rmsnorm import (
+        gated_rms_fwd, rms_bwd_dw, rms_bwd_dx, rms_fwd,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(dtype)
+
+    out = {}
+    n, di = SSM_ROWS, SSM_DI
+
+    # -- K13 gated RMSNorm forward ------------------------------------------------
+    log(f"K13 gated_rms_fwd  x [{n}, {di}] bf16, g the z slice of an in_proj output "
+        f"[{n}, {SSM_PROJ}] bf16, w [{di}] f32")
+    x = randn(n, di, dtype=torch.bfloat16)
+    zx = randn(n, SSM_PROJ, dtype=torch.bfloat16)
+    gz = zx[:, :di]
+    w = randn(di, scale=0.1, shift=1.0)
+    (y, r), (yr, rr) = gated_rms_fwd(x, w, gz), gated_rms_norm_ref(x, w, gz)
+    torch.cuda.synchronize()
+    # y is rounded once to bf16 from f32 values that agree to a few ulps
+    k13_err = check_rel("K13 y (bf16)", y, yr, BWD_TOL["grad_bf16"])
+    check("K13 rstd", max_err(r, rr), TOL["stat"])
+    for shape in [(3, 5, 256), (2, 7, 8192), (9, 8), (2, 3, 2056)]:
+        wide = randn(*shape[:-1], 3 * shape[-1], scale=1.5)
+        xf, gf = wide[..., : shape[-1]], wide[..., shape[-1] : 2 * shape[-1]]
+        wf = randn(shape[-1], scale=0.1, shift=1.0)
+        for nm, a_, b_ in zip(("y", "rstd"), gated_rms_fwd(xf, wf, gf), gated_rms_norm_ref(xf, wf, gf)):
+            check(f"K13 {nm} f32 {list(shape)} (strided x, g)", max_err(a_, b_), TOL["norm_f32"])
+    t_k = cuda_ms(lambda: gated_rms_fwd(x, w, gz), 20)
+    t_p = cuda_ms(lambda: gated_rms_norm_ref(x, w, gz), 5)
+    bms, bby = bound(3 * n * di * 2 + n * 4 + di * 4, 10 * n * di, F32_FLOPS)
+    out["gated_rms_fwd"] = dict(
+        route="cuda", source="src/repro_torch/kernels/fused_rmsnorm/csrc/rmsnorm_fwd.cu",
+        replaces="src/repro/kernels/fused_rmsnorm/rmsnorm.py:73",
+        max_abs_err=k13_err, ms=t_k, plain_ms=t_p, bound_ms=bms, bound_by=bby, library_ms=None,
+        shape=f"x, g [{n}, {di}] bf16 (g strided)",
+    )
+    log(f"  K13 ms {t_k:.4f}  plain {t_p:.4f}  bound {bms:.4f} ({bby})")
+
+    # -- the gated backward through its autograd wiring ------------------------------
+    log(f"K13 + K5/K6 rows: the gated norm's backward at [{n}, {di}] bf16 (dy_eff rounded "
+        f"to bf16 on the card, not in the plain version)")
+    dy = randn(n, di, dtype=torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in (x, w, gz)]
+    got = torch.autograd.grad(gated_rms_norm(*leaves), leaves, dy)
+    want = gated_rms_bwd_ref(dy, x, w, gz, r)
+    for nm, a_, b_ in zip(("dx", "dw", "dg"), got, want):
+        check_rel(f"gated backward {nm}", a_, b_, BWD_TOL["grad_bf16"])
+    del leaves, got, want, zx, gz
+
+    # -- K4 on model rows at the path's width, then K5, K6 on model rows ------------
+    k5_err = k6_err = 0.0
+    times = {}
+    for d_ in (SSM_D, SSM_DI):
+        xs = randn(n, d_, dtype=torch.bfloat16, scale=2.0, shift=0.3)
+        ws = randn(d_, scale=0.1, shift=1.0)
+        yr, rs = rms_norm_ref(xs, ws)
+        if d_ == SSM_D:
+            # at d 2560 a thread of K4 holds one or two 16-byte vectors
+            log(f"K4 rms_fwd (rows)  x [{n}, {d_}] bf16, w [{d_}] f32 (norm1, final_norm)")
+            y, r = rms_fwd(xs, ws)
+            torch.cuda.synchronize()
+            k4_err = max_err(y, yr)
+            check(f"K4 rows y [{n}, {d_}]", k4_err, TOL["norm_bf16"])
+            check(f"K4 rows rstd [{n}, {d_}]", max_err(r, rs), TOL["stat"])
+            wl = ws.bfloat16()
+            b4 = bound(2 * xs.numel() * 2 + n * 4 + d_ * 4, 4 * xs.numel(), F32_FLOPS)
+            out["rms_fwd_mamba2"] = dict(
+                shape=f"x [{n}, {d_}] bf16 (norm1, final_norm)", max_abs_err=k4_err,
+                ms=cuda_ms(lambda: rms_fwd(xs, ws), 20),
+                plain_ms=cuda_ms(lambda: rms_norm_ref(xs, ws), 5),
+                # yardstick only, never on the port's path: the library norm
+                library_ms=cuda_ms(lambda: F.rms_norm(xs, (d_,), wl, 1e-6), 20),
+                bound_ms=b4[0], bound_by=b4[1],
+            )
+            t = out["rms_fwd_mamba2"]
+            log(f"  K4 rows ms {t['ms']:.4f}  plain {t['plain_ms']:.4f}  library(F.rms_norm) "
+                f"{t['library_ms']:.4f}  bound {b4[0]:.4f} ({b4[1]})")
+            del y, r
+        log(f"K5 rms_bwd_dx, K6 rms_bwd_dw (rows)  dy, x [{n}, {d_}] bf16, w [{d_}] f32, "
+            f"rstd of the plain forward")
+        dys = randn(n, d_, dtype=torch.bfloat16)
+        dxr, dwr = rms_bwd_ref(dys, xs, ws, rs)
+        k5_err = max(k5_err, check_rel(f"K5 rows dx [{n}, {d_}]", rms_bwd_dx(dys, xs, ws, rs), dxr,
+                                       BWD_TOL["grad_bf16"]))
+        dw = rms_bwd_dw(dys, xs, rs)
+        k6_err = max(k6_err, check_rel(f"K6 rows dw [{n}, {d_}]", dw, dwr, BWD_TOL["sum_f32"]))
+        if not torch.equal(dw, rms_bwd_dw(dys, xs, rs)):
+            raise AssertionError("K6 on rows is not bitwise deterministic")
+        log("  K6 rows: a second run is bitwise equal")
+        nb = n * d_
+        wl = ws.bfloat16()
+        # yardstick only, never on the port's path: the library norm's
+        # backward, for the input (K5) and for the weight (K6)
+        leaves = [xs.detach().requires_grad_(), wl.detach().requires_grad_()]
+        yl = F.rms_norm(leaves[0], (d_,), leaves[1], 1e-6)
+        times[d_] = dict(
+            k5=cuda_ms(lambda: rms_bwd_dx(dys, xs, ws, rs), 20),
+            k6=cuda_ms(lambda: rms_bwd_dw(dys, xs, rs), 20),
+            plain=cuda_ms(lambda: rms_bwd_ref(dys, xs, ws, rs), 5),
+            lib5=cuda_ms(lambda: torch.autograd.grad(yl, leaves[:1], dys, retain_graph=True), 10),
+            lib6=cuda_ms(lambda: torch.autograd.grad(yl, leaves[1:], dys, retain_graph=True), 10),
+            bound5=bound(3 * nb * 2 + n * 4 + d_ * 4, 6 * nb, F32_FLOPS),
+            bound6=bound(2 * nb * 2 + n * 4 + d_ * 4, 3 * nb, F32_FLOPS),
+        )
+        t = times[d_]
+        log(f"  K5 rows ms {t['k5']:.4f}  K6 rows ms {t['k6']:.4f}  plain (dx and dw) "
+            f"{t['plain']:.4f}  library (F.rms_norm backward) dx {t['lib5']:.4f} dw "
+            f"{t['lib6']:.4f}  bound K5 {t['bound5'][0]:.4f} K6 {t['bound6'][0]:.4f} (bytes)")
+        del xs, yr, dys, leaves, yl
+    for shape in [(3, 5, 256), (2, 7, 8192), (9, 8), (2, 3, 2056), (70, 5120)]:
+        xf, wf = randn(*shape, scale=2.0, shift=0.3), randn(shape[-1], scale=0.1, shift=1.0)
+        rf, dyf = rms_norm_ref(xf, wf)[1], randn(*shape)
+        dxr, dwr = rms_bwd_ref(dyf, xf, wf, rf)
+        check_rel(f"K5 rows dx f32 {list(shape)}", rms_bwd_dx(dyf, xf, wf, rf), dxr, BWD_TOL["sum_f32"])
+        check_rel(f"K6 rows dw f32 {list(shape)}", rms_bwd_dw(dyf, xf, rf), dwr, BWD_TOL["sum_f32"])
+    src = "src/repro_torch/kernels/fused_rmsnorm/csrc/rmsnorm_bwd.cu"
+    for name, key, err, line in (("rms_bwd_dx", "5", k5_err, 111), ("rms_bwd_dw", "6", k6_err, 144)):
+        t, t2 = times[SSM_D], times[SSM_DI]
+        out[name] = dict(
+            route="cuda", source=src, replaces=f"src/repro/kernels/fused_rmsnorm/rmsnorm.py:{line}",
+            max_abs_err=err, ms=t["k" + key], plain_ms=t["plain"], bound_ms=t["bound" + key][0],
+            bound_by=t["bound" + key][1], library_ms=t["lib" + key],
+            shape=f"dy, x [{n}, {SSM_D}] bf16 (norm1, final_norm)",
+            gated=dict(shape=f"dy_eff, x [{n}, {SSM_DI}] bf16", ms=t2["k" + key],
+                       plain_ms=t2["plain"], library_ms=t2["lib" + key],
+                       bound_ms=t2["bound" + key][0]),
+        )
+
+    # -- K10 naive-access AdaLN d scale / d shift -------------------------------------
+    def adaln_case(b, s, d_, dtype):
+        xa = randn(b, s, d_, dtype=dtype, scale=2.0, shift=0.3)
+        mod = randn(b, 6, d_, scale=0.1)
+        _, mu, rstd = adaln_fwd(xa, mod[:, 1], mod[:, 0])
+        return randn(b, s, d_, dtype=dtype), xa, mu, rstd
+
+    b, s, d = 10, 1637, 1536
+    log(f"K10 adaln_bwd_dmod_naive  dy, x [{b}, {s}, {d}] bf16 (K3's shape), against the "
+        f"plain version and K3")
+    args = adaln_case(b, s, d, torch.bfloat16)
+    got = adaln_bwd_dmod_naive(*args)
+    k10_err = 0.0
+    for nm, a_, b_, c_ in zip(("dscale", "dshift"), got, adaln_bwd_dmod_ref(*args),
+                              adaln_bwd_dmod(*args)):
+        k10_err = max(k10_err, check_rel(f"K10 {nm}", a_, b_, BWD_TOL["sum_f32"]))
+        check_rel(f"K10 {nm} against K3", a_, c_, BWD_TOL["sum_f32"])
+    for shape in [(2, 100, 256), (3, 37, 1536), (1, 300, 4096)]:
+        argf = adaln_case(*shape, torch.float32)
+        for nm, a_, b_ in zip(("dscale", "dshift"), adaln_bwd_dmod_naive(*argf),
+                              adaln_bwd_dmod_ref(*argf)):
+            check_rel(f"K10 {nm} f32 {list(shape)}", a_, b_, BWD_TOL["sum_f32"])
+    t_k = cuda_ms(lambda: adaln_bwd_dmod_naive(*args), 5)
+    t_3 = cuda_ms(lambda: adaln_bwd_dmod(*args), 20)
+    t_p = cuda_ms(lambda: adaln_bwd_dmod_ref(*args), 5)
+    nb = b * s * d
+    bms, bby = bound(2 * nb * 2 + 2 * b * s * 4 + 2 * b * d * 4, 4 * nb, F32_FLOPS)
+    fig1 = [dict(shape=[b, s, d], naive_ms=t_k, k3_ms=t_3, bound_ms=bms)]
+    log(f"  K10 ms {t_k:.4f}  K3 ms {t_3:.4f}  plain {t_p:.4f}  bound {bms:.4f} ({bby})")
+    del args
+    for s_ in (8192, 16384, 32768):  # the paper's Fig. 1 width, Wan-14B's D 5120
+        argw = adaln_case(1, s_, 5120, torch.bfloat16)
+        nb_ = s_ * 5120
+        t3a = cuda_ms(lambda: adaln_bwd_dmod(*argw), 5)
+        tna = cuda_ms(lambda: adaln_bwd_dmod_naive(*argw), 2)
+        tnb = cuda_ms(lambda: adaln_bwd_dmod_naive(*argw), 2)
+        t3b = cuda_ms(lambda: adaln_bwd_dmod(*argw), 5)
+        bw = bound(2 * nb_ * 2 + 2 * s_ * 4 + 2 * 5120 * 4, 4 * nb_, F32_FLOPS)[0]
+        fig1.append(dict(shape=[1, s_, 5120], naive_ms=[tna, tnb], k3_ms=[t3a, t3b], bound_ms=bw))
+        log(f"  Fig. 1 [1, {s_}, 5120]: K3 {t3a:.4f}, {t3b:.4f} ms; K10 {tna:.4f}, {tnb:.4f} ms; "
+            f"bound {bw:.4f} ms")
+        del argw
+    out["adaln_bwd_dmod_naive"] = dict(
+        route="cuda", source="src/repro_torch/kernels/fused_adaln/csrc/adaln_bwd.cu",
+        replaces="src/repro/kernels/fused_adaln/adaln.py:189",
+        max_abs_err=k10_err, ms=t_k, plain_ms=t_p, bound_ms=bms, bound_by=bby, library_ms=None,
+        shape=f"dy, x [{b}, {s}, {d}] bf16", k3_ms=t_3, fig1=fig1,
+    )
+    return out
+
+
+def per_microbatch_ssm(n_layers: int) -> dict[str, int]:
+    """Launches of one LM training microbatch of n_layers Mamba-2 blocks
+    with per-block recompute: each block's norm1 (K4 on rows) and gated norm
+    (K13) run twice (forward, then again in the backward), the final norm
+    once; K5 and K6 on rows once per norm (norm1 and the gated norm of each
+    block, and the final norm)."""
+    L = n_layers
+    return {"rms_fwd": 2 * L + 1, "gated_rms_fwd": 2 * L, "rms_bwd_dx": 2 * L + 1,
+            "rms_bwd_dw": 2 * L + 1}
+
+
+SSM_BATCH, SSM_SEQ = 4, 2048  # phase 8 (b): 8,192-token steps
+
+
+def phase_train_ssm(K, dev) -> dict:
+    """Phase 8: Mamba-2 2.7B training on the card."""
+    import types
+
+    from repro_torch.configs.registry import get_config, get_optimizer
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import Transformer, lm_loss
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.steps import init_state
+
+    out = {}
+    cfg = get_config("mamba2-2.7b")
+
+    # (a) the launcher's entry point, as a user runs it
+    log("(a) python -m repro_torch.launch.train --arch mamba2-2.7b --adaptive --steps 2")
+    K.reset_launch_counts()
+    hist = launch_train.main(["--arch", "mamba2-2.7b", "--adaptive", "--steps", "2"])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    if not np.isfinite(hist.losses).all():
+        raise AssertionError(f"launcher: a loss is not finite: {hist.losses}")
+    check_counts(counts, sum(hist.microbatches), cfg.n_layers, "launcher", per_microbatch_ssm)
+    out["launcher"] = dict(losses=hist.losses, step_s=hist.step_times,
+                           microbatches=hist.microbatches, launches=counts)
+    del hist
+    torch.cuda.empty_cache()
+
+    # (b) 64 layers, 4 steps of one B 4 x S 2048 microbatch each
+    opt = OptimizerConfig(peak_lr=get_optimizer("mamba2-2.7b").peak_lr, schedule="constant",
+                          warmup=0, total_steps=4)
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["model"].parameters())
+    log(f"(b) Trainer on EmulatedEngine, {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"d_inner {cfg.d_inner}, {cfg.ssm_heads} heads, vocab {cfg.vocab}, bf16, "
+        f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s; "
+        f"B {SSM_BATCH} x S {SSM_SEQ} per step")
+    bucket = types.SimpleNamespace(batch_size=SSM_BATCH, seq_len=SSM_SEQ, tokens=SSM_BATCH * SSM_SEQ)
+    rng = np.random.default_rng(0)
+    stream = ([(bucket, make_lm_batch(int(rng.integers(2**31)), SSM_BATCH, SSM_SEQ, cfg.vocab,
+                                      cfg, dev))] for _ in range(4))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    state, hist = Trainer(cfg, opt).run(state, stream, 4, rng=1, log_every=1)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not np.isfinite(hist.losses).all():
+        raise AssertionError(f"a loss is not finite: {hist.losses}")
+    bad = [n for n, prm in state["model"].named_parameters() if not torch.isfinite(prm).all()]
+    if bad or state["step"] != 4:
+        raise AssertionError(f"parameters not finite after the updates: {bad[:5]}")
+    check_counts(counts, sum(hist.microbatches), cfg.n_layers, "training", per_microbatch_ssm)
+    steady = [i for i in range(4) if i not in hist.compile_steps]
+    if not steady:
+        raise AssertionError("every step ran a new batch signature: no steady step")
+    step_ms = [1e3 * t for t in hist.step_times]
+    steady_ms = float(np.mean([step_ms[i] for i in steady]))
+    for i, (ms, tok) in enumerate(zip(step_ms, hist.tokens)):
+        log(f"  step {i}: {tok} tokens, {ms:.1f} ms, loss {hist.losses[i]:.4f}"
+            f"{'  (first signature)' if i in hist.compile_steps else ''}")
+    log(f"  steady step {steady_ms:.1f} ms (steps {steady}), {hist.throughput:,.0f} tokens/s, "
+        f"peak memory {peak:.2f} GiB, events {hist.events}")
+    out["train"] = dict(
+        n_params=n_params, losses=hist.losses, step_ms=step_ms, tokens=hist.tokens,
+        events=hist.events, steady_steps=steady, steady_step_ms=steady_ms,
+        tokens_per_s=hist.throughput, peak_gib=peak, launches=counts,
+        per_microbatch=per_microbatch_ssm(cfg.n_layers),
+    )
+    del state, hist, stream
+    torch.cuda.empty_cache()
+
+    # (c) 2 layers at full width: kernel loss and gradients against the plain
+    # versions', at S 2048 (8 SSD chunks) and S 272 (padded to 512)
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    model = Transformer(cfg2, seed=1, device=dev)
+    out["grad_check"] = []
+    for b, s in ((2, 2048), (4, 272)):
+        batch = make_lm_batch(5, b, s, cfg2.vocab, cfg2, dev)
+        res = {}
+        for ops in ("kernel", "plain"):
+            model.zero_grad(set_to_none=True)
+            loss = lm_loss(model, batch["tokens"], batch["labels"], ops=ops)
+            loss.backward()
+            res[ops] = (loss.item(), {n: prm.grad.clone() for n, prm in model.named_parameters()})
+        loss_rel = abs(res["kernel"][0] - res["plain"][0]) / abs(res["plain"][0])
+        rels = {n: rel_l2(res["kernel"][1][n], gp) for n, gp in res["plain"][1].items()}
+        worst = max(rels, key=rels.get)
+        log(f"(c) 2 layers, full width, bf16, B {b} x S {s}: loss {res['kernel'][0]:.6f} kernel "
+            f"vs {res['plain'][0]:.6f} plain (rel {loss_rel:.2e}, tol 1e-2); largest gradient "
+            f"rel-L2 {rels[worst]:.3e} ({worst}, tol 5e-2)")
+        if not (np.isfinite(res["kernel"][0]) and loss_rel <= 1e-2 and rels[worst] <= 5e-2):
+            raise AssertionError("kernel training gradients disagree with the plain versions'")
+        out["grad_check"].append(dict(shape=[b, s], loss_kernel=res["kernel"][0],
+                                      loss_plain=res["plain"][0], loss_rel=loss_rel,
+                                      worst_grad=worst, worst_grad_rel_l2=rels[worst]))
+        del res
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 LM_PER_CALL = {  # launches of one prefill and one decode wave, per layer L
     "prefill": lambda L: {"rms_fwd": 2 * L + 1, "flash_fwd": L},
     "wave": lambda L: {"rms_fwd": 2 * L + 1, "paged_decode": L},
@@ -1281,6 +1622,7 @@ def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print(f"chip_smoke: the port's sources are missing under {SRC}", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(SRC))
     from repro_torch import kernels as K
     from repro_torch.kernels import _build
@@ -1308,6 +1650,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["kernels"].update(phase_kernels_bwd(dev))
     torch.cuda.empty_cache()
+    record["kernels"].update(phase_kernels_ssm(dev))
+    torch.cuda.empty_cache()
     record["serve"] = phase_serve(K, dev)
     torch.cuda.empty_cache()
     record["model_rel_l2"] = phase_model(dev)
@@ -1317,24 +1661,31 @@ def main() -> int:
     lm = phase_kernels_lm(dev)
     record["kernels"]["flash_fwd"]["lm_prefill"] = lm.pop("flash_fwd_lm_prefill")
     record["kernels"].update(lm)
+    record["kernels"]["rms_fwd"]["mamba2"] = record["kernels"].pop("rms_fwd_mamba2")
     torch.cuda.empty_cache()
     record["serve_lm"] = phase_serve_lm(K, dev)
     torch.cuda.empty_cache()
     record["model_lm"] = phase_model_lm(dev)
+    torch.cuda.empty_cache()
+    record["train_ssm"] = phase_train_ssm(K, dev)
 
     # launches: each main path's own count, reset to 0 just before that run
     # and read just after (the serving waves of phase 3, the 4 training steps
-    # of phase 5 (b), the LM serving of phase 6 (b)); "launches" is their sum
+    # of phase 5 (b), the LM serving of phase 6 (b), the 4 Mamba-2 training
+    # steps of phase 8 (b)); "launches" is their sum
     kernels = []
     for name, k in record["kernels"].items():
         by_path = {"serve": record["serve"]["launches"][name],
                    "train": record["train"]["train"]["launches"][name],
-                   "serve_lm": record["serve_lm"]["serve"]["launches"][name]}
+                   "serve_lm": record["serve_lm"]["serve"]["launches"][name],
+                   "train_lm": record["train_ssm"]["train"]["launches"][name]}
         kernels.append({"name": name, **{key: k[key] for key in (
             "route", "source", "replaces")}, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}})
+    record["wall_s"] = time.perf_counter() - t_start
+    log(f"chip_smoke: every phase passed in {record['wall_s']:.1f} s")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

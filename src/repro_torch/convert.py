@@ -12,7 +12,8 @@ port's module (``MMDiT`` or ``Transformer``) ``load_state_dict``:
   plan of ``cfg.superblocks()``: unrolled ``lead`` and ``tail`` lists and
   ``blocks.s<i>.*`` stacked over ``n_rep`` superblocks; layer ``len(lead)
   + r * len(pattern) + i`` of the port is ``blocks.s<i>`` entry r, and the
-  lists take the layers before and after;
+  lists take the layers before and after (attention blocks and Mamba-2
+  blocks, whose ``mixer.*`` leaves map like any other);
 * every weight keeps its ``[d_in, d_out]`` layout: the port applies
   projections as ``x @ w`` exactly as the JAX model does, so nothing is
   transposed.
@@ -30,7 +31,7 @@ import torch
 
 from repro_torch import resolve_device
 
-from .models.config import ModelConfig
+from .models.config import ModelConfig, lm_layers
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -49,17 +50,6 @@ def _flatten(tree, prefix=""):
             yield name, val
 
 
-def _lm_layers(cfg: ModelConfig):
-    """The place in the JAX LM tree of each of the port's layers, in layer
-    order: ``("lead", j)``, ``("s<i>", r)`` (superblock r) or ``("tail",
-    j)``."""
-    lead, pat, n_rep, tail = cfg.superblocks()
-    places = [("lead", j) for j in range(len(lead))]
-    places += [(f"s{i}", r) for r in range(n_rep) for i in range(len(pat))]
-    places += [("tail", j) for j in range(len(tail))]
-    return places
-
-
 def from_jax_params(params_np: dict, cfg: ModelConfig, *, device=None) -> dict:
     """The JAX parameter tree (numpy leaves) as the port's state dict."""
     device = resolve_device(device)
@@ -68,7 +58,7 @@ def from_jax_params(params_np: dict, cfg: ModelConfig, *, device=None) -> dict:
         top = {k: v for k, v in params_np.items() if k not in ("lead", "tail", "blocks")}
         for name, leaf in _flatten(top):
             state[name] = _to_torch(leaf, device)
-        for layer, (where, j) in enumerate(_lm_layers(cfg)):
+        for layer, (where, j) in enumerate(lm_layers(cfg)):
             if where in ("lead", "tail"):
                 for name, leaf in _flatten(params_np[where][j]):
                     state[f"blocks.{layer}.{name}"] = _to_torch(leaf, device)
@@ -121,7 +111,7 @@ def to_numpy(tensors: dict, cfg: ModelConfig) -> dict:
 
 
 def _lm_tree(tree: dict, stacked: dict, cfg: ModelConfig) -> dict:
-    places = _lm_layers(cfg)
+    places = lm_layers(cfg)
     tree["lead"] = [{} for where, _ in places if where == "lead"]
     tree["tail"] = [{} for where, _ in places if where == "tail"]
     tree["blocks"] = {}

@@ -1,5 +1,6 @@
-"""Synthetic data: the mixed image/video corpus and batch materialization,
-the counterpart of ``repro.data.synthetic``.
+"""Synthetic data: the mixed image/video corpus and batch materialization
+(diffusion latents, LM token streams), the counterpart of
+``repro.data.synthetic``.
 
 The paper stress-tests with "a mixed corpus of 10 million samples from
 WebDataset and Koala-36m, creating extreme sequence length variance"; this
@@ -48,3 +49,21 @@ def make_diffusion_batch(seed: int, bucket_batch: int, seq_len: int, cfg: ModelC
     text = torch.randn((bucket_batch, cfg.text_len, TEXT_DIM), generator=gen,
                        dtype=torch.float32, device=device).to(dt)
     return {"latents": latents, "text": text}
+
+
+def make_lm_batch(seed: int, batch: int, seq_len: int, vocab: int, cfg: ModelConfig,
+                  device) -> dict:
+    """A Markov-ish token stream (not uniform: the loss has a learnable
+    signal), the reference's construction: ``base`` uniform over the
+    vocabulary, each token replaced by its predecessor in ``base`` with
+    probability 1/2, and ``labels = roll(tokens, -1)``.  ``tokens`` and
+    ``labels`` [B, S] int32, drawn on ``device`` from ``seed``.  The VLM's
+    image memory is not ported."""
+    if cfg.family == "vlm":
+        raise ValueError("make_lm_batch: the VLM's image memory is not ported")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    base = torch.randint(0, vocab, (batch, seq_len), generator=gen, device=device)
+    shifted = torch.roll(base, 1, dims=1)
+    mask = torch.rand((batch, seq_len), generator=gen, device=device) < 0.5
+    tokens = torch.where(mask, shifted, base).to(torch.int32)
+    return {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}

@@ -1,6 +1,6 @@
 """Kernel dispatch layer of the port.
 
-Models call these five functions.  The device of the tensor chooses:
+Models call these six functions.  The device of the tensor chooses:
 
 * a CPU tensor goes to the plain PyTorch version (``plain.py``),
 * a CUDA tensor goes to the hand-written Hopper kernel, which launches or
@@ -10,10 +10,9 @@ Where autograd records the call (grad enabled and an input that requires
 grad), the operator runs as its ``torch.autograd.Function`` (``ops.py`` of
 each family): the forward kernel keeps its residuals and the backward runs
 the backward kernels, again by device.  Otherwise (serving, inference) the
-forward kernel runs alone and keeps nothing.  The row RMSNorm
-(:func:`rms_norm`) and paged decode attention (:func:`paged_attention`)
-serve the LM and have no backward kernel: on the card, autograd recording
-either is an error.
+forward kernel runs alone and keeps nothing.  Paged decode attention
+(:func:`paged_attention`) serves the LM and has no backward kernel: on the
+card, autograd recording it is an error.
 
 There is no backend setting and no fallback: a shape the kernel does not
 take is an error on the card, not a quiet detour through PyTorch.
@@ -32,9 +31,17 @@ from .flash_attention import ops as flash_ops
 from .flash_attention.flash import flash_bwd_dkv, flash_bwd_dq, flash_fwd
 from .flash_attention.paged import paged_decode
 from .fused_adaln import ops as adaln_ops
-from .fused_adaln.adaln import adaln_bwd_dmod, adaln_bwd_dx, adaln_fwd
+from .fused_adaln.adaln import adaln_bwd_dmod, adaln_bwd_dmod_naive, adaln_bwd_dx, adaln_fwd
 from .fused_rmsnorm import ops as rms_ops
-from .fused_rmsnorm.rmsnorm import qk_rms_bwd_dw, qk_rms_bwd_dx, qk_rms_fwd, rms_fwd
+from .fused_rmsnorm.rmsnorm import (
+    gated_rms_fwd,
+    qk_rms_bwd_dw,
+    qk_rms_bwd_dx,
+    qk_rms_fwd,
+    rms_bwd_dw,
+    rms_bwd_dx,
+    rms_fwd,
+)
 
 #: every CUDA kernel wrapper of the port, by kernel name
 KERNELS = {
@@ -43,12 +50,16 @@ KERNELS = {
     "adaln_bwd_dmod": adaln_bwd_dmod,  # K3
     "qk_rms_fwd": qk_rms_fwd,  # K4 (per-head q/k rows)
     "rms_fwd": rms_fwd,  # K4 (model rows)
-    "qk_rms_bwd_dx": qk_rms_bwd_dx,  # K5
-    "qk_rms_bwd_dw": qk_rms_bwd_dw,  # K6
+    "qk_rms_bwd_dx": qk_rms_bwd_dx,  # K5 (per-head q/k rows)
+    "qk_rms_bwd_dw": qk_rms_bwd_dw,  # K6 (per-head q/k rows)
+    "rms_bwd_dx": rms_bwd_dx,  # K5 (model rows)
+    "rms_bwd_dw": rms_bwd_dw,  # K6 (model rows)
     "flash_fwd": flash_fwd,  # K7
     "flash_bwd_dq": flash_bwd_dq,  # K8
     "flash_bwd_dkv": flash_bwd_dkv,  # K9
+    "adaln_bwd_dmod_naive": adaln_bwd_dmod_naive,  # K10 (no model calls it)
     "paged_decode": paged_decode,  # K12
+    "gated_rms_fwd": gated_rms_fwd,  # K13
 }
 
 
@@ -85,10 +96,23 @@ def _forward_only(name: str, *tensors) -> None:
 
 def rms_norm(x, w, eps: float = 1e-6):
     """RMSNorm over the last axis (the LM's norm1, norm2 and final_norm)."""
-    if _on_card(x):
-        _forward_only("rms_norm", x, w)
+    card = _on_card(x)
+    if _recorded(x, w):
+        return rms_ops.rms_norm(x, w, eps)
+    if card:
         return rms_fwd(x, w, eps)[0]
     return plain.rms_norm(x, w, eps)
+
+
+def gated_rms_norm(x, w, g, eps: float = 1e-6):
+    """``rms_norm(x, w) * silu(g)`` over the last axis — the paper's
+    Gate+Norm fusion (Mamba-2's norm before the out-projection)."""
+    card = _on_card(x)
+    if _recorded(x, w, g):
+        return rms_ops.gated_rms_norm(x, w, g, eps)
+    if card:
+        return gated_rms_fwd(x, w, g, eps)[0]
+    return plain.gated_rms_norm(x, w, g, eps)
 
 
 def qk_norm(q, k, wq, wk, eps: float = 1e-6):
@@ -146,6 +170,7 @@ __all__ = [
     "KERNELS",
     "adaln_modulate",
     "attention",
+    "gated_rms_norm",
     "launch_counts",
     "paged_attention",
     "plain",

@@ -1,11 +1,13 @@
 """Wrappers and ctypes bindings of the fused AdaLN kernels: the forward K1
-(``csrc/adaln_fwd.cu``) and the backward K2 (dx) and K3 (d scale, d shift)
-(``csrc/adaln_bwd.cu``).
+(``csrc/adaln_fwd.cu``) and the backward K2 (dx), K3 (d scale, d shift)
+and K10 (the same sums as K3 with the paper's naive access, which no model
+calls: the Fig. 1 yardstick of K3) (``csrc/adaln_bwd.cu``).
 
 Each wrapper takes CUDA tensors only: it checks them, allocates the
 outputs and scratch, launches on the current stream and counts the launch
 in its ``launches`` attribute.  The plain versions are in ``ref.py``
-(``adaln_modulate_ref``, ``adaln_bwd_dx_ref``, ``adaln_bwd_dmod_ref``).
+(``adaln_modulate_ref``, ``adaln_bwd_dx_ref``, ``adaln_bwd_dmod_ref``,
+which is K10's too).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 6 + [_I] * 3 + [_L] * 2 + [ctypes.c_float, _I, _P]
 _DX_ARGTYPES = [_P] * 6 + [_I] * 3 + [_L, _I, _P]
 _DMOD_ARGTYPES = [_P] * 8 + [_I] * 4 + [_P]
+_NAIVE_ARGTYPES = [_P] * 6 + [_I] * 4 + [_P]
 THREADS = 128  # one block per row, as in the sources
 MAX_CHUNKS = 8  # 16-byte chunks a thread holds
 DMOD_ROW_CHUNK = 32  # rows per partial sum of K3 (kRowChunk in the source)
@@ -136,3 +139,31 @@ def adaln_bwd_dmod(dy, x, mu, rstd):
 
 
 adaln_bwd_dmod.launches = 0
+
+
+def adaln_bwd_dmod_naive(dy, x, mu, rstd):
+    """K10: (dscale, dshift) [B, D] f32, K3's sums with the paper's naive
+    access (Fig. 1): one block per sample sweeps its whole [S, D] slab, no
+    D-tiling across blocks and no split over S.  Arguments as
+    :func:`adaln_bwd_dmod`; deterministic (one thread per column, rows in
+    order)."""
+    _build.require_cuda("adaln_bwd_dmod_naive", dy, x, mu, rstd)
+    _check_bwd("adaln_bwd_dmod_naive", dy, x, mu, rstd)
+    b, s, d = x.shape
+    dscale = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    dshift = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    if b * s == 0:
+        return dscale.zero_(), dshift.zero_()
+    fn = _build.bind("adaln_bwd", "adaln_bwd_dmod_naive", _NAIVE_ARGTYPES)
+    with torch.cuda.device(x.device):
+        code = fn(
+            dy.data_ptr(), x.data_ptr(), mu.data_ptr(), rstd.data_ptr(), dscale.data_ptr(),
+            dshift.data_ptr(), b, s, d, int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(code, "adaln_bwd_dmod_naive")
+    adaln_bwd_dmod_naive.launches += 1
+    return dscale, dshift
+
+
+adaln_bwd_dmod_naive.launches = 0

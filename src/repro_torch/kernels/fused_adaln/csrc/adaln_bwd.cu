@@ -1,8 +1,9 @@
-// Fused LayerNorm-Modulate (AdaLN) backward for Hopper (sm_90a): K2 (dx)
-// and K3 (d scale, d shift).
+// Fused LayerNorm-Modulate (AdaLN) backward for Hopper (sm_90a): K2 (dx),
+// K3 (d scale, d shift) and K10 (the same sums, naive access).
 //
 // Replaces: repro/kernels/fused_adaln/adaln.py, adaln_bwd_dx_pallas (body
-// _bwd_dx_kernel) and adaln_bwd_dmod_pallas (body _bwd_dmod_kernel):
+// _bwd_dx_kernel), adaln_bwd_dmod_pallas (body _bwd_dmod_kernel) and
+// adaln_bwd_dmod_naive_pallas (body _bwd_dmod_naive_kernel):
 //     x_hat = (x - mu) * rstd,   dxhat = dy * (1 + scale[b])
 //     dx     = (dxhat - mean(dxhat) - x_hat * mean(dxhat * x_hat)) * rstd
 //     dshift = sum_s dy,   dscale = sum_s dy * x_hat          ([B, D] f32)
@@ -26,6 +27,14 @@
 // are the same bits on every run.  The TPU kernel keeps its accumulator
 // resident across a sequential S grid axis; here the chunks run in
 // parallel and the fixed-order second pass takes the place of that axis.
+//
+// K10 design: the paper's Fig. 1 "naive access", kept on purpose as the
+// partner K3 is measured against.  As in the TPU kernel (one grid step per
+// sample over the whole [S, D] slab), one block per sample: its threads own
+// 16-byte columns and each sweeps all S rows in fp32 registers; no D-tiling
+// across blocks, no split over S, so only B blocks run on the 132 SMs and
+// each streams 2 * S * D elements alone.  Deterministic by construction
+// (one thread per column sum, rows in order).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -220,6 +229,59 @@ cudaError_t launch_dmod(const void* dy, const void* x, const void* mu, const voi
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K10: d scale, d shift with naive access — one block per sample
+// ---------------------------------------------------------------------------
+
+constexpr int kNaiveMaxThreads = 1024;
+
+template <typename T>
+__global__ void __launch_bounds__(kNaiveMaxThreads)
+adaln_bwd_dmod_naive_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                            const float* __restrict__ mu, const float* __restrict__ rstd,
+                            float* __restrict__ dscale, float* __restrict__ dshift, int S, int D) {
+  constexpr int V = 16 / sizeof(T);
+  const int b = blockIdx.x;
+  const long long base = static_cast<long long>(b) * S;
+  for (int c = threadIdx.x; c < D / V; c += blockDim.x) {
+    float ash[V], asc[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) ash[j] = asc[j] = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const long long row = base + s;
+      const float m = mu[row], r = rstd[row];
+      const uint4 rx = reinterpret_cast<const uint4*>(x + row * D)[c];
+      const uint4 rd = reinterpret_cast<const uint4*>(dy + row * D)[c];
+      const T* ex = reinterpret_cast<const T*>(&rx);
+      const T* ed = reinterpret_cast<const T*>(&rd);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float d = to_f32(ed[j]);
+        ash[j] += d;
+        asc[j] = fmaf(d, (to_f32(ex[j]) - m) * r, asc[j]);
+      }
+    }
+    const long long o = static_cast<long long>(b) * D + c * V;
+#pragma unroll
+    for (int j = 0; j < V; j += 4) {
+      *reinterpret_cast<float4*>(dshift + o + j) = make_float4(ash[j], ash[j + 1], ash[j + 2], ash[j + 3]);
+      *reinterpret_cast<float4*>(dscale + o + j) = make_float4(asc[j], asc[j + 1], asc[j + 2], asc[j + 3]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_dmod_naive(const void* dy, const void* x, const void* mu, const void* rstd,
+                              void* dscale, void* dshift, int B, int S, int D, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const int threads = min(kNaiveMaxThreads, (D / V + 31) / 32 * 32);
+  adaln_bwd_dmod_naive_kernel<T><<<B, threads, 0, st>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(x), static_cast<const float*>(mu),
+      static_cast<const float*>(rstd), static_cast<float*>(dscale), static_cast<float*>(dshift),
+      S, D);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // K2.  dy, x, dx: [rows, D] contiguous (rows = B*S), bf16 (is_bf16) or
@@ -247,5 +309,17 @@ extern "C" int adaln_bwd_dmod(const void* dy, const void* x, const void* mu, con
                                            dshift, B, S, D, st)
               : launch_dmod<float>(dy, x, mu, rstd, part_scale, part_shift, dscale, dshift,
                                    B, S, D, st);
+  return static_cast<int>(err);
+}
+
+// K10.  dy, x: [B, S, D] contiguous; mu, rstd: [B, S] f32; dscale, dshift:
+// [B, D] f32.  One launch of B blocks.
+extern "C" int adaln_bwd_dmod_naive(const void* dy, const void* x, const void* mu,
+                                    const void* rstd, void* dscale, void* dshift, int B, int S,
+                                    int D, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_dmod_naive<__nv_bfloat16>(dy, x, mu, rstd, dscale, dshift, B, S, D, st)
+              : launch_dmod_naive<float>(dy, x, mu, rstd, dscale, dshift, B, S, D, st);
   return static_cast<int>(err);
 }

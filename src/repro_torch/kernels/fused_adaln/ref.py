@@ -39,8 +39,9 @@ def adaln_bwd_dx_ref(dy, x, mu, rstd, scale):
 
 
 def adaln_bwd_dmod_ref(dy, x, mu, rstd):
-    """Plain K3: ``(dscale, dshift) = (sum_s dy * x_hat, sum_s dy)`` [B, D]
-    f32 (``repro.kernels.fused_adaln.adaln._bwd_dmod_kernel``)."""
+    """Plain K3 and K10: ``(dscale, dshift) = (sum_s dy * x_hat, sum_s dy)``
+    [B, D] f32 (``repro.kernels.fused_adaln.adaln._bwd_dmod_kernel`` and
+    ``_bwd_dmod_naive_kernel``, which compute the same sums)."""
     dyf = dy.float()
     x_hat = (x.float() - mu[..., None]) * rstd[..., None]
     return (dyf * x_hat).sum(dim=-2), dyf.sum(dim=-2)

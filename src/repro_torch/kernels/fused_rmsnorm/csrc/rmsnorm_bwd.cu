@@ -1,33 +1,46 @@
-// Joint q/k RMSNorm backward (QK-norm) for Hopper (sm_90a): K5 (dx) and K6
-// (dw), each for q and k in one launch.
+// RMSNorm backward for Hopper (sm_90a): K5 (dx) and K6 (dw), on per-head
+// q and k rows (QK-norm, both tensors in one launch) and on model rows.
 //
 // Replaces: repro/kernels/fused_rmsnorm/rmsnorm.py, rms_bwd_dx_pallas (body
 // _bwd_dx_kernel) and rms_bwd_dw_pallas (body _bwd_dw_kernel), which the
-// JAX model runs once for q and once for k:
+// JAX model runs once for q and once for k, on the rows of each RMSNorm of
+// the residual stream (norm1, final_norm) and, for the Mamba-2 mixer's
+// gated norm, on the gate-scaled cotangent dy * silu(g):
 //     x_hat = x * rstd,  dxhat = dy * w
 //     dx = rstd * (dxhat - x_hat * mean(dxhat * x_hat))      (per row)
-//     dw = sum_rows dy * x_hat                               ([dh] f32)
-// from K4's residuals (x, w, rstd).  blockIdx.y picks the tensor.
+//     dw = sum_rows dy * x_hat                               ([D] f32)
+// from K4's (or K13's) residuals (x, w, rstd).
 //
 // Bound on the H100: memory.  K5 reads dy and x and writes dx once; K6
-// reads dy and x once and writes 2 * dh floats.  The least time of each is
-// its bytes / 3.35 TB/s.
+// reads dy and x once and writes D floats (2 * dh for q/k).  The least time
+// of each is its bytes / 3.35 TB/s.
 //
-// K5 design: one warp per row of dh in {32, 64, 128}, each lane holding
-// dh/32 consecutive elements (one vector load of dy, one of x, one store of
-// dx), the row mean a warp shuffle reduction.  x arrives as the strided
-// [B, S, H, dh] view of the fused qkv projection that K4 took (no copy);
-// dy and dx are contiguous.
-// K6 design: the D-tile coalesced reduction of K3 on narrow rows.  A block
-// of 256 threads covers 256 / dh rows at a time with its threads across dh,
-// marching down a chunk of rows in fp32 registers; the row groups of the
-// block are added in a fixed order through shared memory, each block writes
-// one partial row, and a second kernel adds the partials of each tensor in
-// chunk order.  No atomics: the sums are the same bits on every run.
+// q/k entries.  K5: one warp per row of dh in {32, 64, 128}, each lane
+// holding dh/32 consecutive elements (one vector load of dy, one of x, one
+// store of dx), the row mean a warp shuffle reduction.  x arrives as the
+// strided [B, S, H, dh] view of the fused qkv projection that K4 took (no
+// copy); dy and dx are contiguous; blockIdx.y picks the tensor.  K6: the
+// D-tile coalesced reduction of K3 on narrow rows.  A block of 256 threads
+// covers 256 / dh rows at a time with its threads across dh, marching down
+// a chunk of rows in fp32 registers; the row groups of the block are added
+// in a fixed order through shared memory, each block writes one partial
+// row, and a second kernel adds the partials of each tensor in chunk order.
+//
+// Row entries (rows of any D that is a multiple of 8 up to 8192).  K5: one
+// block of 256 threads per row, as K4 on rows: a thread holds its 16-byte
+// vectors of dy and x in registers, the row mean is a block reduction over
+// them, and dx is written from the same registers.  K6: pass 1 gives each
+// block a chunk of 32 rows and 128 16-byte columns; a thread sums its
+// column's products down the chunk in f32 registers (neighbouring threads
+// on neighbouring addresses) and writes one partial; pass 2 adds the
+// partials of 32 columns per block, eight fixed groups of chunks in
+// registers and then the eight group sums in a fixed order.
+//
+// No atomics anywhere: the sums are the same bits on every run.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rmsnorm_common.cuh"
 
 namespace {
 
@@ -35,20 +48,6 @@ constexpr int kWarps = 8;  // K5: rows per block
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowChunk = 512;  // K6: rows per partial sum
 constexpr int kDwThreads = 256;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T, int E>
-struct alignas(sizeof(T) * E) Pack {
-  T v[E];
-};
 
 struct Side {  // one of the two tensors
   const void* dy;     // [rows, D] contiguous
@@ -184,6 +183,125 @@ Side side(const void* dy, const void* x, const void* w, const void* rstd, void* 
               static_cast<float*>(dw), H, sb, ss, sh};
 }
 
+// ---------------------------------------------------------------------------
+// Row entries: K5 dx, one block per row
+// ---------------------------------------------------------------------------
+
+constexpr int kDwRows = 32;  // K6 rows: rows per partial sum (pass 1)
+constexpr int kDwCols = 128;  // K6 rows: 16-byte columns per block (pass 1)
+constexpr int kRedCols = 32;  // K6 rows: columns per block (pass 2)
+constexpr int kRedGroups = 8;  // K6 rows: groups of chunks per column (pass 2)
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+rms_bwd_dx_kernel(const T* __restrict__ dy, const T* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ rstd, T* __restrict__ dx, int D) {
+  constexpr int E = 16 / sizeof(T);  // elements per 16-byte vector
+  constexpr int kMaxVec = kMaxD / E / kRowThreads;  // vectors a thread holds
+  const long long row = blockIdx.x;
+  const int nvec = D / E;
+  const float r = rstd[row];
+  Pack<T, E> xv[kMaxVec], dv[kMaxVec];
+  float m = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxVec; ++i) {
+    const int c = threadIdx.x + i * kRowThreads;
+    if (c < nvec) {
+      xv[i] = *reinterpret_cast<const Pack<T, E>*>(x + row * D + c * E);
+      dv[i] = *reinterpret_cast<const Pack<T, E>*>(dy + row * D + c * E);
+      float wf[E];
+      load_w(w, c, wf);
+#pragma unroll
+      for (int u = 0; u < E; ++u) m += (to_f32(dv[i].v[u]) * wf[u]) * (to_f32(xv[i].v[u]) * r);
+    }
+  }
+  m = row_sum(m) / D;
+#pragma unroll
+  for (int i = 0; i < kMaxVec; ++i) {
+    const int c = threadIdx.x + i * kRowThreads;
+    if (c < nvec) {
+      float wf[E];
+      load_w(w, c, wf);
+      Pack<T, E> o;
+#pragma unroll
+      for (int u = 0; u < E; ++u) {
+        const float xh = to_f32(xv[i].v[u]) * r, dxh = to_f32(dv[i].v[u]) * wf[u];
+        o.v[u] = from_f32<T>(r * (dxh - xh * m));
+      }
+      *reinterpret_cast<Pack<T, E>*>(dx + row * D + c * E) = o;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Row entries: K6 dw — pass 1, partial sums over a chunk of rows
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kDwCols)
+rms_bwd_dw_partial_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                          const float* __restrict__ rstd, float* __restrict__ part, int N, int D) {
+  constexpr int E = 16 / sizeof(T);
+  const int c = blockIdx.y * kDwCols + threadIdx.x;  // 16-byte column
+  if (c >= D / E) return;
+  const int r0 = blockIdx.x * kDwRows, r1 = min(r0 + kDwRows, N);
+  float acc[E];
+#pragma unroll
+  for (int u = 0; u < E; ++u) acc[u] = 0.f;
+#pragma unroll 4
+  for (int row = r0; row < r1; ++row) {
+    const float r = rstd[row];
+    const long long o = static_cast<long long>(row) * D + c * E;
+    const Pack<T, E> xv = *reinterpret_cast<const Pack<T, E>*>(x + o);
+    const Pack<T, E> dv = *reinterpret_cast<const Pack<T, E>*>(dy + o);
+#pragma unroll
+    for (int u = 0; u < E; ++u) acc[u] = fmaf(to_f32(dv.v[u]), to_f32(xv.v[u]) * r, acc[u]);
+  }
+  float* dst = part + static_cast<long long>(blockIdx.x) * D + c * E;
+#pragma unroll
+  for (int u = 0; u < E; u += 4)
+    *reinterpret_cast<float4*>(dst + u) = make_float4(acc[u], acc[u + 1], acc[u + 2], acc[u + 3]);
+}
+
+// pass 2: each column's partials in a fixed order (group k takes chunks k,
+// k + 8, k + 16, ...; then the eight group sums in order)
+__global__ void __launch_bounds__(kRedCols * kRedGroups)
+rms_bwd_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw, int n_chunks,
+                         int D) {
+  __shared__ float red[kRedGroups][kRedCols];
+  const int col = threadIdx.x % kRedCols, grp = threadIdx.x / kRedCols;
+  const int c = blockIdx.x * kRedCols + col;
+  float t = 0.f;
+  if (c < D) {
+#pragma unroll 4
+    for (int k = grp; k < n_chunks; k += kRedGroups) t += part[static_cast<long long>(k) * D + c];
+  }
+  red[grp][col] = t;
+  __syncthreads();
+  if (grp == 0 && c < D) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < kRedGroups; ++k) s += red[k][col];
+    dw[c] = s;
+  }
+}
+
+template <typename T>
+cudaError_t launch_row_dw(const void* dy, const void* x, const void* rstd, void* part, void* dw,
+                          int N, int D, cudaStream_t st) {
+  constexpr int E = 16 / sizeof(T);
+  const int n_chunks = (N + kDwRows - 1) / kDwRows;
+  const dim3 grid(n_chunks, (D / E + kDwCols - 1) / kDwCols);
+  rms_bwd_dw_partial_kernel<T><<<grid, kDwCols, 0, st>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(x), static_cast<const float*>(rstd),
+      static_cast<float*>(part), N, D);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rms_bwd_dw_reduce_kernel<<<(D + kRedCols - 1) / kRedCols, kRedCols * kRedGroups, 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(dw), n_chunks, D);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // K5.  dyq [B, S, Hq, D], dyk [B, S, Hk, D] contiguous; q, k: the forward's
@@ -219,5 +337,38 @@ extern "C" int qk_rms_bwd_dw(const void* dyq, const void* dyk, const void* q, co
   float* pp = static_cast<float*>(part);
   const cudaError_t err = is_bf16 ? launch_dw<__nv_bfloat16>(D, sq, sk, B, S, pp, n_chunks, st)
                                   : launch_dw<float>(D, sq, sk, B, S, pp, n_chunks, st);
+  return static_cast<int>(err);
+}
+
+// K5 on rows.  dy, x, dx: contiguous [N, D] rows (D % 8 == 0, D <= 8192,
+// 16-byte aligned), dy and dx in x's dtype; w: [D] f32; rstd: [N] f32.
+// Returns cudaGetLastError() after the launch.
+extern "C" int rms_bwd_dx(const void* dy, const void* x, const void* w, const void* rstd, void* dx,
+                          int N, int D, int is_bf16, void* stream) {
+  if (D % 8 != 0 || D > kMaxD || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* wf = static_cast<const float*>(w);
+  const float* r = static_cast<const float*>(rstd);
+  if (is_bf16) {
+    rms_bwd_dx_kernel<__nv_bfloat16><<<N, kRowThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(x), wf, r,
+        static_cast<__nv_bfloat16*>(dx), D);
+  } else {
+    rms_bwd_dx_kernel<float><<<N, kRowThreads, 0, st>>>(
+        static_cast<const float*>(dy), static_cast<const float*>(x), wf, r,
+        static_cast<float*>(dx), D);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6 on rows.  dy, x: contiguous [N, D] as K5; rstd: [N] f32; part:
+// scratch of ceil(N / 32) * D f32; dw: [D] f32.  Two launches (partials,
+// then their fixed-order sum).
+extern "C" int rms_bwd_dw(const void* dy, const void* x, const void* rstd, void* part, void* dw,
+                          int N, int D, int is_bf16, void* stream) {
+  if (D % 8 != 0 || D > kMaxD || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = is_bf16 ? launch_row_dw<__nv_bfloat16>(dy, x, rstd, part, dw, N, D, st)
+                                  : launch_row_dw<float>(dy, x, rstd, part, dw, N, D, st);
   return static_cast<int>(err);
 }

@@ -1,18 +1,22 @@
-// RMSNorm forward for Hopper (sm_90a), two C entries.
+// RMSNorm forward for Hopper (sm_90a), three C entries.
 //
 // Replaces: repro/kernels/fused_rmsnorm/rmsnorm.py, rms_fwd_pallas (body
 // _fwd_kernel):
-//     y = x * rsqrt(mean(x^2) + eps) * w,   rstd kept in f32.
-// The JAX model calls it on per-head q and k rows (QK-norm) and on model
-// rows of d_model (the LM's norm1, norm2 and final_norm).
+//     y = x * rsqrt(mean(x^2) + eps) * w,   rstd kept in f32,
+// and gated_rms_fwd_pallas (body _gated_fwd_kernel), K13:
+//     y = x * rsqrt(mean(x^2) + eps) * w * silu(g),   rstd kept in f32.
+// The JAX model calls the first on per-head q and k rows (QK-norm) and on
+// model rows of d_model (the LM's norm1, norm2 and final_norm), the second
+// on rows of d_inner (the Mamba-2 mixer's gate + norm before out_proj).
 //
 // * qk_rms_fwd: one launch normalises q and k together (the paper's
 //   QNorm+KNorm fusion): blockIdx.y picks the tensor.
-// * rms_fwd: rows of any d that is a multiple of 8, up to 8192.
+// * rms_fwd, gated_rms_fwd: rows of any d that is a multiple of 8, up to
+//   8192.
 //
 // Bound on the H100: memory.  Each row is read once and written once for
-// ~4 flops an element; the least time is (read x + write y + rstd) /
-// 3.35 TB/s.
+// ~4 flops an element (K13: x and g read, y written, ~10 flops); the least
+// time is (read x [+ g] + write y + rstd) / 3.35 TB/s.
 //
 // Design of qk_rms_fwd: one warp per row of dh in {32, 64, 128}, each lane holding dh/32
 // consecutive elements in registers (one vector load and one vector store
@@ -21,35 +25,25 @@
 // rows inside a wider token row), so the kernel takes (batch, token, head)
 // strides and no copy is made; the outputs are contiguous [B, S, H, dh].
 //
-// Design of rms_fwd: one block of 256 threads per row.  A thread loads its
-// 16-byte vectors of the row (8 bf16 or 4 f32; at most 4 or 8 of them for
-// d = 8192) into registers in one pass, the sum of squares is reduced over
-// the warp by shuffles and over the block's 8 warps through shared memory,
-// and the same registers are scaled and stored: x is read from device
-// memory once.
+// Design of rms_fwd and gated_rms_fwd: one block of 256 threads per row.
+// A thread loads its 16-byte vectors of the row (8 bf16 or 4 f32; at most
+// 4 or 8 of them for d = 8192) into registers in one pass, the sum of
+// squares is reduced over the warp by shuffles and over the block's 8 warps
+// through shared memory, and the same registers are scaled and stored: x
+// is read from device memory once.  K13 reads each 16-byte vector of the
+// gate only in the store pass, where it is used, so it too is read once and
+// never held beside x.  The gate arrives as the z slice of the mixer's
+// in_proj output (rows of d_inner inside rows of 2 d_inner + 2 d_state +
+// heads), so x and g each take a row stride and no copy is made.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rmsnorm_common.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;  // rows per block
 constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T, int E>
-struct alignas(sizeof(T) * E) Pack {
-  T v[E];
-};
 
 struct Side {  // one of the two tensors
   const void* x;
@@ -110,24 +104,21 @@ cudaError_t launch(int D, Side q, Side k, int B, int S, float eps, cudaStream_t 
   return cudaGetLastError();
 }
 
-constexpr int kRowThreads = 256;
-constexpr int kMaxD = 8192;
+// 1 / sqrt(mean of squares + eps) of a row from each thread's share of the
+// sum of squares; every thread gets it, and thread 0 stores it at *out.
+__device__ __forceinline__ float row_rstd(float ss, int D, float eps, float* out) {
+  const float r = rsqrtf(row_sum(ss) / D + eps);
+  if (threadIdx.x == 0) *out = r;
+  return r;
+}
 
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
-rms_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
-               float* __restrict__ rstd_out, int D, float eps) {
-  constexpr int E = 16 / sizeof(T);  // elements per 16-byte vector
-  constexpr int kMaxVec = kMaxD / E / kRowThreads;  // vectors a thread holds
-  const long long row = blockIdx.x;
-  const T* src = x + row * D;
-  const int nvec = D / E;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  Pack<T, E> v[kMaxVec];
+// Loads the row's 16-byte vectors into v and returns this thread's sum of
+// squares.
+template <typename T, int E, int NV>
+__device__ __forceinline__ float load_row(const T* __restrict__ src, int nvec, Pack<T, E> (&v)[NV]) {
   float ss = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMaxVec; ++i) {
+  for (int i = 0; i < NV; ++i) {
     const int c = threadIdx.x + i * kRowThreads;
     if (c < nvec) {
       v[i] = *reinterpret_cast<const Pack<T, E>*>(src + c * E);
@@ -138,38 +129,63 @@ rms_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __restri
       }
     }
   }
-  __shared__ float part[kRowThreads / 32];
-  __shared__ float rstd_s;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  if (lane == 0) part[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    float tot = lane < kRowThreads / 32 ? part[lane] : 0.f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) tot += __shfl_xor_sync(0xffffffffu, tot, o);
-    if (lane == 0) {
-      rstd_s = rsqrtf(tot / D + eps);
-      rstd_out[row] = rstd_s;
-    }
-  }
-  __syncthreads();
-  const float r = rstd_s;
+  return ss;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+rms_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
+               float* __restrict__ rstd_out, int D, float eps) {
+  constexpr int E = 16 / sizeof(T);  // elements per 16-byte vector
+  constexpr int kMaxVec = kMaxD / E / kRowThreads;  // vectors a thread holds
+  const long long row = blockIdx.x;
+  const int nvec = D / E;
+  Pack<T, E> v[kMaxVec];
+  const float r = row_rstd(load_row(x + row * D, nvec, v), D, eps, rstd_out + row);
   T* dst = y + row * D;
 #pragma unroll
   for (int i = 0; i < kMaxVec; ++i) {
     const int c = threadIdx.x + i * kRowThreads;
     if (c < nvec) {
-      const float4* wv = reinterpret_cast<const float4*>(w + c * E);
       float wf[E];
-#pragma unroll
-      for (int u = 0; u < E / 4; ++u) {
-        const float4 q4 = wv[u];
-        wf[4 * u] = q4.x; wf[4 * u + 1] = q4.y; wf[4 * u + 2] = q4.z; wf[4 * u + 3] = q4.w;
-      }
+      load_w(w, c, wf);
       Pack<T, E> o;
 #pragma unroll
       for (int u = 0; u < E; ++u) o.v[u] = from_f32<T>(to_f32(v[i].v[u]) * r * wf[u]);
+      *reinterpret_cast<Pack<T, E>*>(dst + c * E) = o;
+    }
+  }
+}
+
+// K13: y = x * rstd * w * silu(g), in that order of products (the JAX
+// kernel's); silu(g) = g * sigmoid(g) in f32.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+gated_rms_fwd_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ w,
+                     T* __restrict__ y, float* __restrict__ rstd_out, int D,
+                     long long x_stride, long long g_stride, float eps) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int kMaxVec = kMaxD / E / kRowThreads;
+  const long long row = blockIdx.x;
+  const int nvec = D / E;
+  Pack<T, E> v[kMaxVec];
+  const float r = row_rstd(load_row(x + row * x_stride, nvec, v), D, eps, rstd_out + row);
+  const T* gs = g + row * g_stride;
+  T* dst = y + row * D;
+#pragma unroll
+  for (int i = 0; i < kMaxVec; ++i) {
+    const int c = threadIdx.x + i * kRowThreads;
+    if (c < nvec) {
+      float wf[E];
+      load_w(w, c, wf);
+      const Pack<T, E> gp = *reinterpret_cast<const Pack<T, E>*>(gs + c * E);
+      Pack<T, E> o;
+#pragma unroll
+      for (int u = 0; u < E; ++u) {
+        const float gf = to_f32(gp.v[u]);
+        const float silu = gf * (1.f / (1.f + expf(-gf)));
+        o.v[u] = from_f32<T>(to_f32(v[i].v[u]) * r * wf[u] * silu);
+      }
       *reinterpret_cast<Pack<T, E>*>(dst + c * E) = o;
     }
   }
@@ -211,4 +227,27 @@ extern "C" int qk_rms_fwd(const void* q, const void* k, const void* wq,
   const cudaError_t err = is_bf16 ? launch<__nv_bfloat16>(D, sq, sk, B, S, eps, st)
                                   : launch<float>(D, sq, sk, B, S, eps, st);
   return static_cast<int>(err);
+}
+
+// K13.  x, g: N rows of D (D % 8 == 0, D <= 8192) with row strides x_stride
+// and g_stride in elements (each row 16-byte aligned, its elements
+// contiguous); w: [D] f32; y: contiguous [N, D] in x's dtype; rstd: [N] f32.
+// Returns cudaGetLastError() after the launch.
+extern "C" int gated_rms_fwd(const void* x, const void* g, const void* w, void* y, void* rstd,
+                             int N, int D, long long x_stride, long long g_stride, float eps,
+                             int is_bf16, void* stream) {
+  if (D % 8 != 0 || D > kMaxD || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* r = static_cast<float*>(rstd);
+  const float* wf = static_cast<const float*>(w);
+  if (is_bf16) {
+    gated_rms_fwd_kernel<__nv_bfloat16><<<N, kRowThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), wf,
+        static_cast<__nv_bfloat16*>(y), r, D, x_stride, g_stride, eps);
+  } else {
+    gated_rms_fwd_kernel<float><<<N, kRowThreads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g), wf, static_cast<float*>(y), r,
+        D, x_stride, g_stride, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

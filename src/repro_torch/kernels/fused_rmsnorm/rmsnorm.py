@@ -1,12 +1,14 @@
-"""Wrappers and ctypes bindings of the RMSNorm kernels: the forward K4
-(``csrc/rmsnorm_fwd.cu``) on model rows (:func:`rms_fwd`) and on per-head
-q and k rows (:func:`qk_rms_fwd`), and the joint q/k backward K5 (dx) and
-K6 (dw) (``csrc/rmsnorm_bwd.cu``).
+"""Wrappers and ctypes bindings of the RMSNorm kernels (``csrc/``): the
+forward K4 on model rows (:func:`rms_fwd`) and on per-head q and k rows
+(:func:`qk_rms_fwd`), the gated forward K13 (:func:`gated_rms_fwd`), and
+the backward K5 (dx) and K6 (dw) on model rows (:func:`rms_bwd_dx`,
+:func:`rms_bwd_dw`) and jointly on q and k (:func:`qk_rms_bwd_dx`,
+:func:`qk_rms_bwd_dw`).
 
 Each wrapper takes CUDA tensors only and counts each launch in its
 ``launches`` attribute; the q/k wrappers handle q and k in ONE launch.  The
-plain versions are in ``ref.py`` (``rms_norm_ref``, ``qk_norm_ref``,
-``qk_rms_bwd_ref``).
+plain versions are in ``ref.py`` (``rms_norm_ref``, ``gated_rms_norm_ref``,
+``qk_norm_ref``, ``rms_bwd_ref``, ``qk_rms_bwd_ref``).
 """
 
 from __future__ import annotations
@@ -22,9 +24,12 @@ _ARGTYPES = [_P] * 8 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _I, _P]
 _DX_ARGTYPES = [_P] * 10 + [_I] * 5 + [_L] * 6 + [_I, _P]
 _DW_ARGTYPES = [_P] * 9 + [_I] * 6 + [_L] * 6 + [_I, _P]
 _ROW_ARGTYPES = [_P] * 4 + [_I] * 2 + [ctypes.c_float, _I, _P]
+_GATED_ARGTYPES = [_P] * 5 + [_I] * 2 + [_L] * 2 + [ctypes.c_float, _I, _P]
+_ROW_BWD_ARGTYPES = [_P] * 5 + [_I] * 3 + [_P]
 HEAD_DIMS = (32, 64, 128)
 MAX_ROW = 8192  # kMaxD of the source
-DW_ROW_CHUNK = 512  # rows per partial sum of K6 (kRowChunk in the source)
+DW_ROW_CHUNK = 512  # rows per partial sum of the q/k K6 (kRowChunk in the source)
+ROW_DW_CHUNK = 32  # rows per partial sum of K6 on rows (kDwRows in the source)
 
 
 def _check_inputs(name, q, k):
@@ -58,6 +63,36 @@ def _check_bwd(name, dyq, dyk, q, k, rq, rk):
     return dims
 
 
+def _check_rows(name, x, *, contiguous=True):
+    """x [..., D]: bf16 or f32, D a multiple of 8 up to MAX_ROW, fewer than
+    2^31 rows.  Returns (rows, D)."""
+    d = x.shape[-1]
+    if d % 8 or not 8 <= d <= MAX_ROW:
+        raise ValueError(f"{name} takes rows of a multiple of 8 up to {MAX_ROW}, got {d}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} needs bf16 or f32 rows, got {x.dtype}")
+    if contiguous and (not x.is_contiguous() or x.data_ptr() % 16):
+        raise ValueError(f"{name} needs its rows contiguous and 16-byte aligned")
+    n = x.numel() // d
+    if n >= 2**31:
+        raise ValueError(f"{name} indexes rows with 32-bit integers")
+    return n, d
+
+
+def _check_w(name, w, d):
+    if w.shape != (d,) or w.dtype != torch.float32 or not w.is_contiguous() or w.data_ptr() % 16:
+        raise ValueError(f"{name} needs w as contiguous, 16-byte aligned [D] f32")
+
+
+def _row_view(name, t, d):
+    """t [..., D] as [N, D] rows with one row stride, each row 16-byte
+    aligned and contiguous (a view where torch can give one)."""
+    rows = t.reshape(-1, d)
+    if not _build.aligned(rows, 16 // t.element_size()):
+        raise ValueError(f"{name} needs each row contiguous and 16-byte aligned")
+    return rows
+
+
 def rms_fwd(x, w, eps: float = 1e-6):
     """RMSNorm of the rows of x [..., D] on the card: ``y = x * rsqrt(mean(x²)
     + eps) * w`` with f32 statistics.
@@ -67,18 +102,8 @@ def rms_fwd(x, w, eps: float = 1e-6):
     [x.shape[:-1]] f32.
     """
     _build.require_cuda("rms_fwd", x, w)
-    d = x.shape[-1]
-    if d % 8 or not 8 <= d <= MAX_ROW:
-        raise ValueError(f"rms_fwd takes rows of a multiple of 8 up to {MAX_ROW}, got {d}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"rms_fwd needs x bf16 or f32, got {x.dtype}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("rms_fwd needs x contiguous and 16-byte aligned")
-    if w.shape != (d,) or w.dtype != torch.float32 or not w.is_contiguous() or w.data_ptr() % 16:
-        raise ValueError("rms_fwd needs w as contiguous, 16-byte aligned [D] f32")
-    n = x.numel() // d
-    if n >= 2**31:
-        raise ValueError("rms_fwd indexes rows with 32-bit integers")
+    n, d = _check_rows("rms_fwd", x)
+    _check_w("rms_fwd", w, d)
     y = torch.empty_like(x)
     rstd = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     if n == 0:
@@ -95,6 +120,102 @@ def rms_fwd(x, w, eps: float = 1e-6):
 
 
 rms_fwd.launches = 0
+
+
+def gated_rms_fwd(x, w, g, eps: float = 1e-6):
+    """K13: ``y = x * rsqrt(mean(x²) + eps) * w * silu(g)`` over the rows of
+    x [..., D] on the card, f32 statistics (the Mamba-2 mixer's gate + norm).
+
+    x, g: one shape and dtype (bf16 or f32), D a multiple of 8 up to 8192;
+    each may be a strided view (the gate is the z slice of the mixer's
+    in_proj output) whose rows are contiguous and 16-byte aligned.  w:
+    contiguous [D] f32.  Returns ``(y, rstd)``: y contiguous, shaped and
+    typed as x; rstd [x.shape[:-1]] f32.
+    """
+    _build.require_cuda("gated_rms_fwd", x, w, g)
+    n, d = _check_rows("gated_rms_fwd", x, contiguous=False)
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError("gated_rms_fwd needs g shaped and typed as x")
+    _check_w("gated_rms_fwd", w, d)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    rstd = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    if n == 0:
+        return y, rstd
+    xr, gr = _row_view("gated_rms_fwd", x, d), _row_view("gated_rms_fwd", g, d)
+    fn = _build.bind("rmsnorm_fwd", "gated_rms_fwd", _GATED_ARGTYPES)
+    with torch.cuda.device(x.device):
+        code = fn(
+            xr.data_ptr(), gr.data_ptr(), w.data_ptr(), y.data_ptr(), rstd.data_ptr(), n, d,
+            xr.stride(0), gr.stride(0), eps, int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(code, "gated_rms_fwd")
+    gated_rms_fwd.launches += 1
+    return y, rstd
+
+
+gated_rms_fwd.launches = 0
+
+
+def _check_row_bwd(name, dy, x, rstd):
+    n, d = _check_rows(name, x)
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous() or dy.data_ptr() % 16:
+        raise ValueError(f"{name} needs dy contiguous, 16-byte aligned, shaped and typed as x")
+    if rstd.shape != x.shape[:-1] or rstd.dtype != torch.float32 or not rstd.is_contiguous():
+        raise ValueError(f"{name} needs rstd contiguous [x.shape[:-1]] f32")
+    return n, d
+
+
+def rms_bwd_dx(dy, x, w, rstd):
+    """K5 on model rows: dx of ``rms_norm(x, w)`` on the card, from the
+    forward's residuals (x, w, rstd).
+
+    dy, x: contiguous [..., D], one dtype (bf16 or f32), D a multiple of 8
+    up to 8192; w: [D] f32; rstd: [x.shape[:-1]] f32.  Returns dx shaped
+    and typed as x.
+    """
+    _build.require_cuda("rms_bwd_dx", dy, x, w, rstd)
+    n, d = _check_row_bwd("rms_bwd_dx", dy, x, rstd)
+    _check_w("rms_bwd_dx", w, d)
+    dx = torch.empty_like(x)
+    if n == 0:
+        return dx
+    fn = _build.bind("rmsnorm_bwd", "rms_bwd_dx", _ROW_BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        code = fn(
+            dy.data_ptr(), x.data_ptr(), w.data_ptr(), rstd.data_ptr(), dx.data_ptr(), n, d,
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(code, "rms_bwd_dx")
+    rms_bwd_dx.launches += 1
+    return dx
+
+
+rms_bwd_dx.launches = 0
+
+
+def rms_bwd_dw(dy, x, rstd):
+    """K6 on model rows: dw [D] f32 of ``rms_norm(x, w)`` on the card,
+    ``sum_rows dy * x_hat``, deterministic (partials per chunk of 32 rows,
+    then a fixed-order sum; no atomics).  Arguments as :func:`rms_bwd_dx`."""
+    _build.require_cuda("rms_bwd_dw", dy, x, rstd)
+    n, d = _check_row_bwd("rms_bwd_dw", dy, x, rstd)
+    dw = torch.empty(d, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return dw.zero_()
+    part = torch.empty((-(-n // ROW_DW_CHUNK), d), dtype=torch.float32, device=x.device)
+    fn = _build.bind("rmsnorm_bwd", "rms_bwd_dw", _ROW_BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        code = fn(
+            dy.data_ptr(), x.data_ptr(), rstd.data_ptr(), part.data_ptr(), dw.data_ptr(), n, d,
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(code, "rms_bwd_dw")
+    rms_bwd_dw.launches += 1
+    return dw
+
+
+rms_bwd_dw.launches = 0
 
 
 def qk_rms_fwd(q, k, wq, wk, eps: float = 1e-6):

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 from .flash_attention.ref import attention_ref, paged_attention_ref
 from .fused_adaln.ref import adaln_modulate_ref
-from .fused_rmsnorm.ref import qk_norm_ref, rms_norm_ref
+from .fused_rmsnorm.ref import gated_rms_norm_ref, qk_norm_ref, rms_norm_ref
 
 
 def adaln_modulate(x, scale, shift, eps: float = 1e-6):
@@ -16,6 +16,10 @@ def adaln_modulate(x, scale, shift, eps: float = 1e-6):
 
 def rms_norm(x, w, eps: float = 1e-6):
     return rms_norm_ref(x, w, eps)[0]
+
+
+def gated_rms_norm(x, w, g, eps: float = 1e-6):
+    return gated_rms_norm_ref(x, w, g, eps)[0]
 
 
 def qk_norm(q, k, wq, wk, eps: float = 1e-6):

@@ -45,12 +45,18 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("K9 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("K1 adaln_fwd", ("adaln_fwd_kernel",)),
     ("K2 adaln_bwd_dx", ("adaln_bwd_dx_kernel",)),
+    ("K10 adaln_bwd_dmod_naive", ("adaln_bwd_dmod_naive_kernel",)),
     ("K3 adaln_bwd_dmod", ("adaln_bwd_dmod_",)),
     ("K4 qk_rms_fwd", ("qk_rms_fwd_kernel",)),
+    ("K13 gated_rms_fwd", ("gated_rms_fwd_kernel",)),
     ("K4 rms_fwd (rows)", ("rms_fwd_kernel",)),
     ("K12 paged_decode", ("paged_decode_kernel",)),
     ("K5 qk_rms_bwd_dx", ("qk_rms_bwd_dx_kernel",)),
     ("K6 qk_rms_bwd_dw", ("qk_rms_bwd_dw_",)),
+    ("K5 rms_bwd_dx (rows)", ("rms_bwd_dx_kernel",)),
+    ("K6 rms_bwd_dw (rows)", ("rms_bwd_dw_",)),
+    # f32 products (the SSD einsums, the LM head's f32 logits)
+    ("matmul f32 (cuBLAS)", ("sgemm", "f32f32_f32f32", "gemm_f32")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")),
     ("copy", ("memcpy", "memset", "copy")),
     ("elementwise / reduce", ("elementwise", "reduce", "vectorized", "cat", "index")),
@@ -69,8 +75,10 @@ def breakdown(kernels: list[tuple[str, float, float]]) -> dict:
     """``kernels``: (name, start_us, end_us) of every device kernel.  Busy
     time is the union of their intervals; idle is the rest of the window."""
     by_family: dict[str, float] = {}
+    by_name: dict[str, float] = {}
     for name, t0, t1 in kernels:
         by_family[family(name)] = by_family.get(family(name), 0.0) + (t1 - t0)
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
     spans = sorted((t0, t1) for _, t0, t1 in kernels)
     busy, cur0, cur1 = 0.0, *spans[0]
     for t0, t1 in spans[1:]:
@@ -86,6 +94,9 @@ def breakdown(kernels: list[tuple[str, float, float]]) -> dict:
         "busy_ms": busy / 1e3,
         "window_ms": window / 1e3,
         "idle_share": 1.0 - busy / window,
+        # the 12 kernels with the most device time, by name (ms)
+        "top_kernels": {k[:120]: v / 1e3 for k, v in
+                        sorted(by_name.items(), key=lambda kv: -kv[1])[:12]},
     }
 
 

@@ -1,39 +1,97 @@
 """Where a training step's device time goes, measured with ``torch.profiler``.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_train
+    PYTHONPATH=src python -m repro_torch.launch.profile_train [--arch wan2.1-1.3b]
+    PYTHONPATH=src python -m repro_torch.launch.profile_train --arch mamba2-2.7b
 
-Builds Wan-2.1 1.3B (random weights from seed 0, bf16, 30 layers) on the
-GPU and a step of two microbatches from the 480p buckets of
-``chip_smoke.py`` phase 5: the image bucket (B 10 x S 1637) and the
-33-frame bucket (B 1 x S 7877).  Runs the step once to meet both batch
-signatures, then profiles one more through the same ``EmulatedEngine``.
-Prints one JSON object: device time by kernel family (the port's nine
-kernels, cuBLAS matrix products, elementwise/reduction, copies, other),
-the device's busy time, and its idle share of the window from the first
-kernel's start to the last kernel's end.
+``wan2.1-1.3b`` (the default): builds Wan-2.1 1.3B (random weights from
+seed 0, bf16, 30 layers) on the GPU and a step of two microbatches from
+the 480p buckets of ``chip_smoke.py`` phase 5: the image bucket (B 10 x S
+1637) and the 33-frame bucket (B 1 x S 7877).
+
+``mamba2-2.7b``: builds Mamba-2 2.7B (64 layers, bf16, random weights from
+seed 0) and a step of one B 4 x S 2048 microbatch of synthetic tokens, the
+step of ``chip_smoke.py`` phase 8 (b).  It also times the SSD scan of one
+layer (``models.ssm.ssd``: the einsums, cumulative sums and exponentials
+between the conv and the gated norm) and one whole block, forward and
+forward + backward, with CUDA events at the step's shape, and reports
+their share of the step: each runs forward, recompute and backward.
+
+Both run the step once to meet its batch signatures, then profile one more
+through the same ``EmulatedEngine``.  Prints one JSON object: device time
+by kernel family (the port's kernels, cuBLAS matrix products in bf16 and
+f32, elementwise/reduction, copies, other), the 12 kernels with the most
+device time, the device's busy time, and its idle share of the window
+from the first kernel's start to the last kernel's end.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import sys
+import types
 
 import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config, get_optimizer
 from repro_torch.core.bucketing import Bucket, DataShape
-from repro_torch.data.synthetic import make_diffusion_batch
+from repro_torch.data.synthetic import make_diffusion_batch, make_lm_batch
 from repro_torch.launch.profile_serve import profile
+from repro_torch.models import ssm as S
+from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.train.engine import EmulatedEngine
 from repro_torch.train.steps import init_state
 
 BUCKETS = (Bucket(DataShape(1, 480, 832, 77), 10), Bucket(DataShape(33, 480, 832, 77), 1))
+LM_BATCH, LM_SEQ = 4, 2048
 
 
-def main() -> dict:
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_train measures the GPU; no CUDA device is visible")
+def _events_ms(fn, iters: int = 3) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def ssm_layer_times(model, cfg, tokens) -> dict:
+    """ms of one layer's SSD scan and of one whole block at the step's
+    shape, forward alone and forward + backward, and their per-step totals
+    (``n_layers x (2 forward + backward)``: forward, recompute, backward)."""
+    bp = model.blocks[0]
+    p = bp.mixer
+    x = model.embed[tokens.long()].detach().requires_grad_()
+    with torch.no_grad():
+        _, *ins = S.ssd_inputs(p, T.apply_norm(bp.norm1, x, cfg.norm, cfg.norm_eps), cfg.ssm)
+    leaves = [t.contiguous().requires_grad_() for t in ins]
+    q = min(cfg.ssm.chunk, tokens.shape[1])
+
+    def ssd_fwd():
+        return S.ssd(*leaves, p, q, cfg.ssm.head_dim)
+
+    def block_fwd():
+        return T.apply_block(bp, x, cfg, None, T.kernels, "ssm")[0]
+
+    out = {}
+    for name, fwd in (("ssd", ssd_fwd), ("block", block_fwd)):
+        y = fwd()
+        dy = torch.randn_like(y)
+        del y
+        f = _events_ms(fwd)
+        fb = _events_ms(lambda: torch.autograd.backward(fwd(), dy))
+        out[name] = {"fwd_ms": f, "fwd_bwd_ms": fb,
+                     "per_step_ms": cfg.n_layers * (f + fb)}  # fwd + (recompute + bwd)
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def _main_mmdit() -> dict:
     cfg = get_config("wan2.1-1.3b")
     opt = OptimizerConfig(peak_lr=get_optimizer("wan2.1-1.3b").peak_lr, schedule="constant",
                           warmup=0, total_steps=2)
@@ -45,13 +103,44 @@ def main() -> dict:
     engine = EmulatedEngine(cfg, opt)
     engine.execute_step(state, step, step_key=0, step=0)  # first signatures
     torch.cuda.synchronize()
+    return {"device": torch.cuda.get_device_name(0),
+            "microbatches": [[b.batch_size, b.seq_len] for b in BUCKETS],
+            "tokens_per_step": sum(b.tokens for b in BUCKETS),
+            **profile(lambda: engine.execute_step(state, step, step_key=1, step=1))}
+
+
+def _main_ssm() -> dict:
+    cfg = get_config("mamba2-2.7b")
+    opt = OptimizerConfig(peak_lr=get_optimizer("mamba2-2.7b").peak_lr, schedule="constant",
+                          warmup=0, total_steps=2)
+    state = init_state(cfg, opt, seed=0)
+    dev = state["model"].device
+    bucket = types.SimpleNamespace(batch_size=LM_BATCH, seq_len=LM_SEQ, tokens=LM_BATCH * LM_SEQ)
+    batch = make_lm_batch(0, LM_BATCH, LM_SEQ, cfg.vocab, cfg, dev)
+    step = [[(bucket, batch)]]
+    engine = EmulatedEngine(cfg, opt)
+    engine.execute_step(state, step, step_key=0, step=0)  # first signature
+    torch.cuda.synchronize()
     out = {"device": torch.cuda.get_device_name(0),
-           "microbatches": [[b.batch_size, b.seq_len] for b in BUCKETS],
-           "tokens_per_step": sum(b.tokens for b in BUCKETS),
+           "microbatches": [[LM_BATCH, LM_SEQ]], "tokens_per_step": bucket.tokens,
            **profile(lambda: engine.execute_step(state, step, step_key=1, step=1))}
+    layer = ssm_layer_times(state["model"], cfg, batch["tokens"])
+    out["layer"] = layer
+    out["ssd_share_of_busy"] = layer["ssd"]["per_step_ms"] / out["busy_ms"]
+    out["blocks_share_of_busy"] = layer["block"]["per_step_ms"] / out["busy_ms"]
+    return out
+
+
+def main(argv=()) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="wan2.1-1.3b", choices=("wan2.1-1.3b", "mamba2-2.7b"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_train measures the GPU; no CUDA device is visible")
+    out = _main_ssm() if args.arch == "mamba2-2.7b" else _main_mmdit()
     print(json.dumps(out))
     return out
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

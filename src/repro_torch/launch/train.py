@@ -1,15 +1,19 @@
-"""Training launcher of the port (the mmdit route of ``repro.launch.train``,
-single rank):
+"""Training launcher of the port (the mmdit and LM routes of
+``repro.launch.train``, single rank):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch wan2.1-1.3b \\
+        --adaptive --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
         --adaptive --steps 2
 
 runs on CUDA; ``--device cpu --smoke`` trains the smoke configuration on
 the plain PyTorch path.  ``--adaptive`` feeds dual-constraint buckets
 (``B = min(M_mem / S, M_comp / S^p)``) through ``BucketedLoader`` with the
 reference launcher's shapes, budgets and seeds; without it every step is
-one fixed ``--batch`` x ``--seq`` microbatch.  Steps run through
-``Trainer`` on ``EmulatedEngine``.  It prints the final loss and tokens/s.
+one fixed ``--batch`` x ``--seq`` microbatch.  The mmdit trains on
+diffusion latents, the LM (``mamba2-2.7b``) on synthetic token streams
+(``make_lm_batch``) of the same shapes.  Steps run through ``Trainer`` on
+``EmulatedEngine``.  It prints the final loss and tokens/s.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.registry import ARCHS, get_config, get_optimizer, get_smoke_config
 from repro_torch.core.bucketing import BucketingPolicy, DataShape
 from repro_torch.data.pipeline import BucketedLoader
-from repro_torch.data.synthetic import make_diffusion_batch
+from repro_torch.data.synthetic import make_diffusion_batch, make_lm_batch
 from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.train.loop import Trainer, TrainHistory
 from repro_torch.train.steps import init_state
@@ -32,7 +36,10 @@ EPILOG = (
     "here): the final checkpoint save and --ckpt-dir/--resume/--keep/--ckpt-every/"
     "--digest-log (checkpoint), --workers/--dispatch/--mesh/--overlap/"
     "--deterministic-refine/--refine-rounds/--sp-max-ranks/--elastic (multi-rank), "
-    "--chaos/--preempt-flag (fault tolerance)."
+    "--chaos/--preempt-flag (fault tolerance).  The LM route trains the ssm family "
+    "(mamba2-2.7b); the dense LMs (llama3.2-1b) raise until their training comes "
+    "(ROADMAP Queue 1 item 8), so the default --arch stays wan2.1-1.3b, where the "
+    "reference launcher's is tinyllama-1.1b."
 )
 
 
@@ -83,11 +90,14 @@ def main(argv=None) -> TrainHistory:
         # exactly one draw from the loader's generator per microbatch, as
         # the reference launcher takes one for its PRNGKey
         seed = int(rng_np.integers(2**31))
-        return make_diffusion_batch(seed, bucket.batch_size, bucket.seq_len, cfg, device)
+        if cfg.family == "mmdit":
+            return make_diffusion_batch(seed, bucket.batch_size, bucket.seq_len, cfg, device)
+        return make_lm_batch(seed, bucket.batch_size, bucket.seq_len, cfg.vocab, cfg, device)
 
     if args.adaptive:
         # variable-shape bucketed stream with the dual constraint (the
-        # reference launcher's shapes and budgets)
+        # reference launcher's shapes and budgets; seq lens stay <= 512, so
+        # an LM's loss is a single softmax-xent chunk)
         shapes = [DataShape(1, 256, 256, 16), DataShape(9, 192, 192, 16),
                   DataShape(17, 192, 192, 16)]
         policy = BucketingPolicy(m_mem=args.batch * 1024, m_comp=2.0e7, p=2.0)

@@ -1,8 +1,9 @@
 """Model configuration schema: a copy of ``repro.models.config``'s
 dataclasses, field for field, so a configuration reads the same in both
 packages, with the layer plan (``layer_kinds``, ``superblocks``) the LM
-resolves its blocks and the JAX parameter tree's stacking from.  Only the
-validation the ported paths rely on is kept.
+resolves its blocks and the JAX parameter tree's stacking from
+(:func:`lm_layers`), and the SSM widths (``d_inner``, ``ssm_heads``).
+Only the validation the ported paths rely on is kept.
 """
 
 from __future__ import annotations
@@ -103,3 +104,22 @@ class ModelConfig:
                 return kinds, [], 0, []  # not a cycle: everything unrolled
         trailing = body[n_rep * len(pat) :]
         return kinds[:lead], pat, n_rep, trailing
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm.expand * self.d_model if self.ssm else 0
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm.head_dim if self.ssm else 0
+
+
+def lm_layers(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """The place in the JAX LM tree of each of the port's layers, in layer
+    order: ``("lead", j)``, ``("s<i>", r)`` (superblock r, stacked) or
+    ``("tail", j)``."""
+    lead, pat, n_rep, tail = cfg.superblocks()
+    places = [("lead", j) for j in range(len(lead))]
+    places += [(f"s{i}", r) for r in range(n_rep) for i in range(len(pat))]
+    places += [("tail", j) for j in range(len(tail))]
+    return places

@@ -1,6 +1,6 @@
 """Base layers (``repro.models.layers``): the initializers, both branches
 of ``apply_norm`` (LayerNorm in PyTorch, RMSNorm through the kernel
-dispatch), RoPE, the SwiGLU MLP and the LM head.
+dispatch), RoPE, the SwiGLU MLP, the LM head and the chunked LM loss.
 
 Weights keep the JAX package's ``x @ W`` meaning: a projection is a
 ``[d_in, d_out]`` parameter applied with ``x @ w``, not an ``nn.Linear``.
@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import kernels
 
@@ -100,3 +101,30 @@ def last_token_logits(x_last, emb):
     """[B, D] x [V, D] -> [B, V] f32 logits (the decode / prefill head): the
     product in the model's dtype, then cast."""
     return (x_last @ emb.T).float()
+
+
+def _chunk_xent(xi, emb, li):
+    # f32 logits of the bf16 (or f32) product, as the reference's
+    # preferred_element_type=f32: the operands are widened, so no rounding
+    # to the model's dtype happens before the logsumexp
+    logits = xi.float() @ emb.float().T  # [B, c, V]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+    return (lse - gold).sum()
+
+
+def chunked_softmax_xent(x, emb, labels, *, chunk: int = 512):
+    """Mean cross-entropy of ``x @ emb.T`` against ``labels`` without
+    materializing [B, S, V] logits: chunks of ``chunk`` positions, each
+    recomputed in the backward (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint``).  x [B, S, D]; emb [V, D]; labels [B, S]; S must be
+    a multiple of ``chunk``."""
+    b, s, _ = x.shape
+    n_chunks = s // chunk
+    if n_chunks * chunk != s:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpoint(_chunk_xent, x[:, sl], emb, labels[:, sl], use_reentrant=False)
+    return total / (b * s)

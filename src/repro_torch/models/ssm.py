@@ -1,0 +1,159 @@
+"""Mamba-2 SSD (state-space duality) mixer, chunked training forward: the
+counterpart of ``repro.models.ssm`` (``ssm_params``, ``_causal_conv``,
+``_split_proj``, ``apply_ssm``).
+
+Follows arXiv:2405.21060's block decomposition: within a chunk of length Q
+the output is the quadratic "attention-like" form; across chunks a [H, hd,
+ds] state is carried with a scalar decay per head.
+
+Layout (one group, as in the 2.7b config):
+  in_proj:   d_model -> [z (di), x (di), B (ds), C (ds), dt (H)]
+  conv1d:    causal depthwise width-4 over the (x, B, C) channels
+  SSD:       y[t] = sum_{j<=t} C[t]·h-contribution, h decays by exp(dt*A)
+  gate:      gated_rms_norm(y, w, z), through the kernel dispatch (K13)
+  out_proj:  di -> d_model
+
+The SSD arithmetic (einsums, cumulative sums, ``exp``, the causal conv) is
+plain PyTorch, as the JAX model leaves it to XLA outside any Pallas
+kernel; only the gated norm is a kernel.  The recurrent decode step
+(``ssm_cache_init``, ``apply_ssm_decode``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch import kernels
+
+from .config import SSMConfig
+from .layers import dense_init
+
+
+class SSM(nn.Module):
+    """The mixer's parameters under the reference's names (``ssm_params``):
+    ``in_proj`` [d, 2 di + 2 ds + H], ``conv_w`` [cw, di + 2 ds] and
+    ``conv_b`` in the model's dtype, ``A_log``, ``dt_bias``, ``D`` [H] and
+    ``norm_w`` [di] in f32, ``out_proj`` [di, d]."""
+
+    def __init__(self, d_model: int, cfg: SSMConfig, gen: torch.Generator, dtype, device):
+        super().__init__()
+        di = cfg.expand * d_model
+        nh = di // cfg.head_dim
+        ds = cfg.d_state
+        conv_dim = di + 2 * ds
+        f32 = dict(dtype=torch.float32, device=device)
+        self.in_proj = dense_init(gen, d_model, 2 * di + 2 * ds + nh, dtype, device)
+        conv = torch.randn((cfg.conv_width, conv_dim), generator=gen, **f32) * 0.2
+        self.conv_w = nn.Parameter(conv.to(dtype))
+        self.conv_b = nn.Parameter(torch.zeros(conv_dim, dtype=dtype, device=device))
+        self.A_log = nn.Parameter(torch.log(torch.linspace(1.0, 16.0, nh, **f32)))
+        self.dt_bias = nn.Parameter(torch.zeros(nh, **f32))
+        self.D = nn.Parameter(torch.ones(nh, **f32))
+        self.norm_w = nn.Parameter(torch.ones(di, **f32))
+        self.out_proj = dense_init(gen, di, d_model, dtype, device)
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv via shifted adds.  x: [B, S, C]; w: [cw, C]."""
+    cw = w.shape[0]
+    out = x * w[-1]
+    for i in range(1, cw):
+        shifted = F.pad(x[:, :-i], (0, 0, i, 0))
+        out = out + shifted * w[cw - 1 - i]
+    return out + b
+
+
+def _split_proj(zxbcdt, di: int, ds: int):
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di : di + di + 2 * ds]
+    dt = zxbcdt[..., di + di + 2 * ds :]
+    return z, xbc, dt
+
+
+def ssd(xs, bmat, cmat, dt, p: SSM, chunk: int, head_dim: int):
+    """The chunked SSD scan of one sequence batch, S a multiple of ``chunk``.
+
+    xs [B, S, di], bmat and cmat [B, S, ds] (after the conv), dt [B, S, H]
+    (before softplus).  Returns y [B, S, di] in f32, the skip term ``D x``
+    included."""
+    bsz, s, di = xs.shape
+    ds = bmat.shape[-1]
+    nh, hd, q = di // head_dim, head_dim, chunk
+    nc = s // q
+    dt = F.softplus(dt.float() + p.dt_bias)  # [B, S, H]
+    a = -torch.exp(p.A_log)  # [H]
+    da = dt * a
+
+    # chunk views
+    xh = xs.reshape(bsz, nc, q, nh, hd).float()
+    bm = bmat.reshape(bsz, nc, q, ds).float()
+    cm = cmat.reshape(bsz, nc, q, ds).float()
+    dac = da.reshape(bsz, nc, q, nh)
+    dtc = dt.reshape(bsz, nc, q, nh)
+
+    # within-chunk cumulative decay
+    cs = torch.cumsum(dac, dim=2)  # [B, nc, Q, H]
+    # intra-chunk (quadratic) term: L[t, j] = exp(cs_t - cs_j) for t >= j.
+    # Mask BEFORE exp: masked rel is positive and can overflow exp, and
+    # exp(rel) * mask still produces NaN gradients.
+    rel = cs[:, :, :, None, :] - cs[:, :, None, :, :]  # [B, nc, Q, Q, H]
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xs.device))
+    l_mat = torch.exp(torch.where(tri[None, None, :, :, None], rel, -math.inf))
+    cb = torch.einsum("bnts,bnjs->bntj", cm, bm)  # [B, nc, Q, Q]
+    w_mat = cb[..., None] * l_mat * dtc[:, :, None, :, :]  # [B, nc, Q(t), Q(j), H]
+    y_intra = torch.einsum("bntjh,bnjhd->bnthd", w_mat, xh)
+
+    # chunk-final states: S_n = sum_j exp(cs_last - cs_j) dt_j B_j (x) x_j
+    decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)  # [B, nc, Q, H]
+    # (the three-operand einsum "bnjh,bnjs,bnjhd->bnhds" in the order that
+    # keeps the largest intermediate at [B, nc, Q, H, hd])
+    sb = torch.einsum("bnjhd,bnjs->bnhds", xh * (decay_to_end * dtc)[..., None], bm)
+
+    # inter-chunk recurrence over nc (sequential; nc is small): the state
+    # entering each chunk, before that chunk's own contribution
+    chunk_decay = torch.exp(cs[:, :, -1, :])  # [B, nc, H]
+    h = torch.zeros((bsz, nh, hd, ds), dtype=torch.float32, device=xs.device)
+    h_in = []
+    for n in range(nc):
+        h_in.append(h)
+        h = h * chunk_decay[:, n, :, None, None] + sb[:, n]
+    h_in = torch.stack(h_in, dim=1)  # [B, nc, H, hd, ds]
+
+    # inter-chunk contribution: y += exp(cs_t) * C_t · h_in
+    y_inter = torch.einsum("bnts,bnhds->bnthd", cm, h_in) * torch.exp(cs)[..., None]
+    y = y_intra + y_inter + xh * p.D[None, None, None, :, None]
+    return y.reshape(bsz, s, di)
+
+
+def ssd_inputs(p: SSM, x, cfg: SSMConfig):
+    """The mixer up to the SSD scan: the input projection, split, and the
+    causal conv with its silu over the (x, B, C) channels.  x [B, S,
+    d_model] -> ``(z, xs, bmat, cmat, dt)``, the gate and :func:`ssd`'s
+    inputs."""
+    di, ds = cfg.expand * x.shape[-1], cfg.d_state
+    z, xbc, dt = _split_proj(x @ p.in_proj, di, ds)
+    xbc = F.silu(_causal_conv(xbc, p.conv_w, p.conv_b))
+    return z, xbc[..., :di], xbc[..., di : di + ds], xbc[..., di + ds :], dt
+
+
+def apply_ssm(p: SSM, x, cfg: SSMConfig, ops=kernels):
+    """Chunked SSD forward.  x: [B, S, d_model] -> [B, S, d_model].  The
+    gated norm runs through ``ops.gated_rms_norm`` (the kernel dispatch, or
+    ``kernels.plain``)."""
+    s = x.shape[1]
+    q = min(cfg.chunk, s)
+    if s % q != 0:
+        # pad at the end (causal: padded positions never influence real ones)
+        pad = q - s % q
+        return apply_ssm(p, F.pad(x, (0, 0, 0, pad)), cfg, ops)[:, :s]
+
+    z, xs, bmat, cmat, dt = ssd_inputs(p, x, cfg)
+    y = ssd(xs, bmat, cmat, dt, p, q, cfg.head_dim).to(x.dtype)
+
+    # Gate + Norm fusion (paper §4.4) then output projection
+    y = ops.gated_rms_norm(y, p.norm_w, z)
+    return y @ p.out_proj

@@ -1,17 +1,21 @@
-"""Decoder-only LM, dense path, for serving over a paged KV cache.
+"""Decoder-only LM: global-attention blocks for serving over a paged KV
+cache, and Mamba-2 blocks for training.
 
 The counterpart of ``repro.models.transformer`` for global-attention
-transformer blocks (``"attn"``): the same parameters under the same names
-(one ``blocks.<i>`` module per layer, run in one Python loop, where the
-JAX model scans the stacked superblocks), the same arithmetic, and the
-fused operators routed through ``repro_torch.kernels``, which picks the
-CUDA kernel or the plain version by the tensors' device.  ``ops="plain"``
-runs the plain versions on any device (the on-card comparison).
+transformer blocks (``"attn"``) and SSD mixer blocks (``"ssm"``: ``norm1``
+and ``mixer``, no MLP half): the same parameters under the same names (one
+``blocks.<i>`` module per layer, run in one Python loop, where the JAX
+model scans the stacked superblocks), the same arithmetic, and the fused
+operators routed through ``repro_torch.kernels``, which picks the CUDA
+kernel or the plain version by the tensors' device.  ``ops="plain"`` runs
+the plain versions on any device (the on-card comparison).
 
-Three entry points:
+Entry points:
 
-* :meth:`Transformer.forward` — the full-sequence forward, optionally
+* :meth:`Transformer.forward` — the full-sequence forward, each block
+  optionally recomputed in the backward (``remat``, training), or
   collecting each layer's k and v (prefill);
+* :func:`lm_loss` — the chunked next-token cross-entropy (training);
 * :func:`paged_prefill` — prompts through ``forward``, their k and v
   scattered into pool pages, logits at each prompt's last true token;
 * :func:`paged_decode_step` — one decode wave, one new token per slot,
@@ -22,18 +26,21 @@ The pools (:func:`init_paged_pools`: one k and one v pool per layer,
 ``[num_pages + 1, page_size, Hkv, dh]``, the last page a scratch sink) are
 updated in place with ``index_copy_``, where the JAX model builds new
 arrays with ``.at[].set``: prefill and decode return the pools they were
-given.  Block kinds other than ``"attn"`` (MoE, SSM, RG-LRU, local, cross)
-raise: they come with their slices of the port.
+given.  Paged serving takes ``"attn"`` blocks only, as the reference's
+``_paged_kinds`` takes attention kinds only; the SSM's recurrent decode is
+not ported.  Other block kinds (MoE, RG-LRU, local, cross) raise: they
+come with their slices of the port.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import kernels, resolve_device
 
-from .config import ModelConfig
+from .config import ModelConfig, lm_layers
 from .layers import (
     DTYPES,
     MLP,
@@ -41,12 +48,15 @@ from .layers import (
     apply_mlp,
     apply_norm,
     apply_rope,
+    chunked_softmax_xent,
     dense_init,
     embed_init,
     last_token_logits,
 )
+from .ssm import SSM, apply_ssm
 
-KINDS = ("attn",)  # the block kinds ported so far
+KINDS = ("attn", "ssm")  # the block kinds ported so far
+PAGED_KINDS = ("attn",)  # the kinds paged serving takes
 
 
 def _ops(ops: str):
@@ -55,14 +65,26 @@ def _ops(ops: str):
     return kernels if ops == "kernel" else kernels.plain
 
 
-def _dense_kinds(cfg: ModelConfig) -> list[str]:
-    """The layer plan, refusing the kinds not ported (``_paged_kinds``)."""
+def _model_kinds(cfg: ModelConfig) -> list[str]:
+    """The layer plan, refusing the kinds not ported."""
     kinds = cfg.layer_kinds()
     bad = sorted({k for k in kinds if k not in KINDS})
     if bad:
         raise ValueError(
-            f"the port serves global-attention transformer blocks only "
-            f"({KINDS}); config {cfg.name} has {bad}"
+            f"the port runs global-attention transformer blocks and Mamba-2 "
+            f"blocks only ({KINDS}); config {cfg.name} has {bad}"
+        )
+    return kinds
+
+
+def _paged_kinds(cfg: ModelConfig) -> list[str]:
+    """The layer plan of paged serving (the reference's ``_paged_kinds``)."""
+    kinds = _model_kinds(cfg)
+    bad = sorted({k for k in kinds if k not in PAGED_KINDS})
+    if bad:
+        raise ValueError(
+            f"paged serving supports global-attention transformer blocks only "
+            f"({PAGED_KINDS}); config {cfg.name} has {bad}"
         )
     return kinds
 
@@ -100,8 +122,21 @@ class Block(nn.Module):
         self.mlp = MLP(gen, cfg.d_model, cfg.d_ff, dtype, device)
 
 
+class SSMBlock(nn.Module):
+    """One Mamba-2 block's parameters (``block_params`` for ``"ssm"``):
+    ``norm1`` and the ``mixer``; the block has no MLP half."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype, device):
+        super().__init__()
+        self.norm1 = Norm(cfg.d_model, device, cfg.norm)
+        self.mixer = SSM(cfg.d_model, cfg.ssm, gen, dtype, device)
+
+
+BLOCKS = {"attn": Block, "ssm": SSMBlock}
+
+
 class Transformer(nn.Module):
-    """The dense decoder-only LM with weights drawn from ``seed`` (tied
+    """The decoder-only LM with weights drawn from ``seed`` (tied
     embeddings: ``embed`` is also the LM head).
 
     Runs on CUDA unless ``device`` names another device; raises when no GPU
@@ -110,30 +145,40 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None):
         super().__init__()
-        self.kinds = _dense_kinds(cfg)
+        self.kinds = _model_kinds(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = DTYPES[cfg.dtype]
         gen = torch.Generator(device=device).manual_seed(seed)
         self.embed = embed_init(gen, cfg.vocab, cfg.d_model, self.dtype, device)
-        self.blocks = nn.ModuleList(Block(cfg, gen, self.dtype, device) for _ in self.kinds)
+        self.blocks = nn.ModuleList(BLOCKS[k](cfg, gen, self.dtype, device) for k in self.kinds)
         self.final_norm = Norm(cfg.d_model, device, cfg.norm)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
-    def forward(self, tokens, *, collect_cache: bool = False, ops: str = "kernel"):
+    def forward(self, tokens, *, collect_cache: bool = False, ops: str = "kernel",
+                remat: bool = False):
         """Token ids [B, S] -> ``(hidden [B, S, d] after the final norm,
         caches)``: with ``collect_cache``, one ``{"k", "v"}`` [B, S, Hkv,
-        dh] per layer (k after RoPE), else None."""
+        dh] per layer (k after RoPE), else None.  ``remat`` recomputes each
+        block in the backward (``torch.utils.checkpoint``, the reference's
+        per-superblock ``jax.checkpoint``), as training does."""
         K = _ops(ops)
         cfg = self.cfg
+        if collect_cache:
+            _paged_kinds(cfg)
         x = self.embed[tokens.long()]
         positions = torch.arange(tokens.shape[1], device=x.device)
         caches = [] if collect_cache else None
-        for bp in self.blocks:
-            x, cache = apply_block(bp, x, cfg, positions, K, collect_cache=collect_cache)
+        for bp, kind in zip(self.blocks, self.kinds):
+            if remat:
+                x, cache = checkpoint(apply_block, bp, x, cfg, positions, K, kind,
+                                      use_reentrant=False)
+            else:
+                x, cache = apply_block(bp, x, cfg, positions, K, kind,
+                                       collect_cache=collect_cache)
             if collect_cache:
                 caches.append(cache)
         return apply_norm(self.final_norm, x, cfg.norm, cfg.norm_eps, K), caches
@@ -171,13 +216,50 @@ def _self_attn_full(bp: Attention, x, cfg: ModelConfig, positions, K):
     return ctx.reshape(b, s, cfg.n_heads * cfg.head_dim) @ bp.wo, (k, v)
 
 
-def apply_block(bp: Block, x, cfg: ModelConfig, positions, K, *, collect_cache: bool = False):
+def apply_block(bp: Block | SSMBlock, x, cfg: ModelConfig, positions, K, kind: str = "attn", *,
+                collect_cache: bool = False):
     """One block over a full sequence.  Returns ``(x, cache or None)``."""
     h = apply_norm(bp.norm1, x, cfg.norm, cfg.norm_eps, K)
+    if kind == "ssm":
+        return x + apply_ssm(bp.mixer, h, cfg.ssm, K), None
     out, (k, v) = _self_attn_full(bp.attn, h, cfg, positions, K)
     x = x + out
     h2 = apply_norm(bp.norm2, x, cfg.norm, cfg.norm_eps, K)
     return x + apply_mlp(bp.mlp, h2), ({"k": k, "v": v} if collect_cache else None)
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+
+def lm_loss(model: Transformer, tokens, labels, *, loss_chunk: int = 512, ops: str = "kernel",
+            remat: bool = True):
+    """Mean next-token cross-entropy of ``tokens`` [B, S] against ``labels``
+    [B, S] (``repro.models.transformer.lm_loss``): the forward with each
+    block recomputed in the backward, then :func:`chunked_softmax_xent`
+    over chunks of ``min(loss_chunk, S)`` positions against the tied
+    embedding.  The ported kinds carry no auxiliary loss (MoE's router
+    loss comes with MoE)."""
+    h, _ = model(tokens, ops=ops, remat=remat)
+    return chunked_softmax_xent(h, model.embed, labels, chunk=min(loss_chunk, tokens.shape[1]))
+
+
+def decays(cfg: ModelConfig):
+    """AdamW's weight-decay rule (``ndim >= 2``) in the JAX layout of this
+    LM: the per-layer tensors of the ``blocks.s<i>`` superblocks carry the
+    stacked repeat axis, so their 1-D gains, biases and SSM vectors decay
+    as in the reference; ``lead`` and ``tail`` layers are unstacked, and
+    top-level vectors (``final_norm.w``) do not decay.  Returns the
+    ``decay(name, p)`` predicate of :func:`repro_torch.optim.adamw.adamw_update`."""
+    stacked = {i for i, (where, _) in enumerate(lm_layers(cfg)) if where not in ("lead", "tail")}
+
+    def decay(name: str, p) -> bool:
+        parts = name.split(".", 2)
+        extra = 1 if parts[0] == "blocks" and int(parts[1]) in stacked else 0
+        return p.ndim + extra >= 2
+
+    return decay
 
 
 # --------------------------------------------------------------------------
@@ -192,7 +274,7 @@ def init_paged_pools(cfg: ModelConfig, num_pages: int, page_size: int, *, device
     all of them.  The extra final page (index ``num_pages``) is the scratch
     sink inactive decode slots and padding page-table entries point at; it
     is written but never read unmasked."""
-    kinds = _dense_kinds(cfg)
+    kinds = _paged_kinds(cfg)
     device = resolve_device(device)
     shape = (num_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
     dt = DTYPES[cfg.dtype]
@@ -222,7 +304,7 @@ def scatter_caches_into_pools(caches: list, pools: list, cfg: ModelConfig, page_
                               page_size: int) -> list:
     """Move ``forward(collect_cache=True)`` caches into the paged pools (in
     place); returns the pools."""
-    _dense_kinds(cfg)
+    _paged_kinds(cfg)
     for pool, cache in zip(pools, caches):
         _scatter_pages(pool["k"], cache["k"], page_table, page_size)
         _scatter_pages(pool["v"], cache["v"], page_table, page_size)

@@ -20,9 +20,8 @@ import torch
 
 from repro_torch.core.telemetry import WorkerStepRecord
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.mmdit import decays
 from repro_torch.optim.adamw import OptimizerConfig, adamw_update
-from repro_torch.train.steps import NoiseHook, make_pool_grad_step
+from repro_torch.train.steps import NoiseHook, decay_rule, make_pool_grad_step
 
 WorkerSteps = Sequence[Sequence[tuple[Any, dict]]]  # [rank][(bucket, batch)]
 
@@ -80,6 +79,7 @@ class EmulatedEngine(ExecutionEngine):
                  noise: NoiseHook | None = None):
         self.opt = opt
         self._grad_step = make_pool_grad_step(cfg, noise)
+        self._decay = decay_rule(cfg)
         self._seen_signatures: set = set()
         self._pending: list = []
         self._records: list[WorkerStepRecord] = []
@@ -120,7 +120,7 @@ class EmulatedEngine(ExecutionEngine):
         for name in acc:  # the pool mean, in f32; frees each sum as it goes
             acc[name] = acc[name].float() / pool_index
         params = dict(model.named_parameters())
-        adamw_update(params, acc, state["opt"], state["step"], self.opt, decay=decays)
+        adamw_update(params, acc, state["opt"], state["step"], self.opt, decay=self._decay)
         state["step"] += 1
         self._step = step
         return state, StepOutcome(loss=loss_sum.float() / pool_index, compiled=compiled)

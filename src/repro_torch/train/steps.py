@@ -1,10 +1,13 @@
 """Step functions of the port: the counterpart of ``repro.train.steps`` for
-the mmdit family and the dense LM's serving.
+training the mmdit and ssm families and for serving the mmdit and the
+dense LM.
 
 Diffusion serving needs a denoise step (one velocity evaluation, the unit
 of diffusion sampling); LM serving a paged prefill and a paged decode wave.
-Training needs the state, the loss, the pool microbatch's gradient step
-and the one-batch train step.
+Training needs the state, the loss (the rectified-flow loss, or the LM
+loss of ``tokens`` against ``labels``), the pool microbatch's gradient step
+and the one-batch train step.  The dense and packed LM's training (causal
+attention backward, segment ids) is ROADMAP Queue 1 item 8.
 
 Randomness follows the reference's rule with numpy's ``SeedSequence`` in
 place of ``jax.random``: a step key is an integer, and a pool microbatch's
@@ -31,9 +34,28 @@ from repro_torch.optim.adamw import OptimizerConfig, adamw_update, init_opt_stat
 NoiseHook = Callable[[int, int, dict], "tuple[torch.Tensor, torch.Tensor] | None"]
 
 
+#: the families the port trains
+TRAINED = ("mmdit", "ssm")
+
+
 def _mmdit_only(cfg: ModelConfig, what: str) -> None:
     if cfg.family != "mmdit":
         raise ValueError(f"{what} needs an mmdit config, got {cfg.family!r}")
+
+
+def _trained(cfg: ModelConfig, what: str) -> None:
+    if cfg.family not in TRAINED:
+        raise ValueError(
+            f"{what}: the port trains the {' and '.join(TRAINED)} families, not "
+            f"{cfg.name} ({cfg.family!r}); training the dense and packed LM is "
+            f"ROADMAP Queue 1 item 8"
+        )
+
+
+def decay_rule(cfg: ModelConfig) -> Callable:
+    """AdamW's ``decay(name, p)`` predicate for the model of ``cfg``: the
+    ``ndim >= 2`` rule in the JAX package's stacked layout."""
+    return decays if cfg.family == "mmdit" else T.decays(cfg)
 
 
 def fold_in(key: int, data: int) -> int:
@@ -45,10 +67,12 @@ def fold_in(key: int, data: int) -> int:
 
 
 def init_state(cfg: ModelConfig, opt: OptimizerConfig, *, seed: int = 0, device=None) -> dict:
-    """``{"model": MMDiT, "opt": {"m", "v"}, "step": 0}``; the model's
-    parameters are the state's parameters (``dict(model.named_parameters())``)."""
-    _mmdit_only(cfg, "init_state")
-    model = MMDiT(cfg, seed=seed, device=resolve_device(device))
+    """``{"model": MMDiT or Transformer, "opt": {"m", "v"}, "step": 0}``;
+    the model's parameters are the state's parameters
+    (``dict(model.named_parameters())``)."""
+    _trained(cfg, "init_state")
+    build = MMDiT if cfg.family == "mmdit" else T.Transformer
+    model = build(cfg, seed=seed, device=resolve_device(device))
     return {
         "model": model,
         "opt": init_opt_state(dict(model.named_parameters()), opt),
@@ -60,11 +84,18 @@ def init_state(cfg: ModelConfig, opt: OptimizerConfig, *, seed: int = 0, device=
 
 
 def make_loss_fn(cfg: ModelConfig) -> Callable:
-    """``loss_fn(model, batch, rng, noise=None)``: the rectified-flow loss
-    of one batch (``latents``, ``text`` and optional ``segment_ids`` /
-    ``text_segment_ids``), with blocks recomputed in the backward.  ``rng``
-    is a ``torch.Generator``; ``noise`` an injected ``(t, eps)``."""
-    _mmdit_only(cfg, "make_loss_fn")
+    """``loss_fn(model, batch, rng, noise=None)``, with blocks recomputed in
+    the backward: for the mmdit, the rectified-flow loss of one batch
+    (``latents``, ``text`` and optional ``segment_ids`` /
+    ``text_segment_ids``), ``rng`` a ``torch.Generator`` and ``noise`` an
+    injected ``(t, eps)``; for the LM, ``lm_loss`` of ``tokens`` against
+    ``labels`` (no draws: ``rng`` and ``noise`` are unused)."""
+    _trained(cfg, "make_loss_fn")
+    if cfg.family != "mmdit":
+        def lm_loss_fn(model, batch, rng, noise=None):
+            return T.lm_loss(model, batch["tokens"], batch["labels"])
+
+        return lm_loss_fn
 
     def loss_fn(model, batch, rng, noise=None):
         t, eps = noise if noise is not None else (None, None)
@@ -82,8 +113,10 @@ def make_pool_grad_step(cfg: ModelConfig, noise: NoiseHook | None = None) -> Cal
     ``grad_step(model, batch, step_key, pool_index) -> (loss, grads)`` with
     grads a dict by parameter name in the parameters' dtypes.  The draws
     come from a generator seeded by ``fold_in(step_key, pool_index)``
-    unless ``noise`` returns them."""
+    unless ``noise`` returns them (mmdit only)."""
     loss_fn = make_loss_fn(cfg)
+    if noise is not None:
+        _mmdit_only(cfg, "the noise hook")
 
     def grad_step(model, batch, step_key: int, pool_index: int):
         rng = torch.Generator(device=model.device).manual_seed(fold_in(step_key, pool_index))
@@ -100,6 +133,7 @@ def make_train_step(cfg: ModelConfig, opt: OptimizerConfig) -> Callable:
     """``train_step(state, batch, rng) -> (state, metrics)``: one batch's
     loss and gradient, then one AdamW update (in place)."""
     loss_fn = make_loss_fn(cfg)
+    decay = decay_rule(cfg)
 
     def train_step(state, batch, rng):
         model = state["model"]
@@ -107,7 +141,7 @@ def make_train_step(cfg: ModelConfig, opt: OptimizerConfig) -> Callable:
         loss = loss_fn(model, batch, rng)
         grads = dict(zip(names, torch.autograd.grad(loss, params)))
         _, _, stats = adamw_update(dict(zip(names, params)), grads, state["opt"],
-                                   state["step"], opt, decay=decays)
+                                   state["step"], opt, decay=decay)
         state["step"] += 1
         return state, {"loss": loss.detach(), **stats}
 
