@@ -8,7 +8,8 @@ Phases, any failure of which exits non-zero with no result line:
 
 1. card and toolchain: the card's name and power limit, the torch / CUDA
    versions; every kernel built from ``src/repro_torch/**/csrc/*.cu``
-   (one nvcc per source, in parallel), with the build seconds;
+   (one nvcc per source, in parallel, beside the host's one-time set-up),
+   with the build seconds;
 2. each kernel against its plain PyTorch version on the card,
    with kernel, plain and library times from CUDA events: the forward
    kernels at the serving shapes of Wan-2.1 1.3B (x [4, 6240, 1536]; q/k/v
@@ -27,8 +28,9 @@ Phases, any failure of which exits non-zero with no result line:
 4. the whole model at full width and 2 layers, kernel forward against the
    ``ops="plain"`` forward: velocity rel-L2 <= 2e-2 in bf16;
 5. training: (a) the launcher's ``main`` with ``--arch wan2.1-1.3b
-   --adaptive --steps 2``; (b) Wan-2.1 1.3B, 30 layers, bf16, trains 4
-   AdamW steps through ``Trainer`` on ``EmulatedEngine``, fed by
+   --adaptive --steps 2``; (b) Wan-2.1 1.3B at full width and 10 of its 30
+   layers (the depth cut keeps the whole script within its time), bf16,
+   trains 4 AdamW steps through ``Trainer`` on ``EmulatedEngine``, fed by
    ``BucketedLoader`` over the 480p image, 17- and 33-frame shapes
    (S = 1637, 4757, 7877; B = 10, 2, 1 under M_mem 16384, M_comp 6.4e7,
    p 2) in 16384-token steps: every loss and parameter finite, and every
@@ -50,9 +52,10 @@ Phases, any failure of which exits non-zero with no result line:
    prefill logits and three decode waves' logits on the same pools, rel-L2
    <= 2e-2;
 8. Mamba-2 training: (a) the launcher's ``main`` with ``--arch mamba2-2.7b
-   --adaptive --steps 2`` (buckets of S 272-448, none a multiple of the
-   256-token SSD chunk, so the mixer pads); (b) Mamba-2 2.7B at full width
-   and depth (64 layers, bf16, random weights from seed 0) trains 4 AdamW
+   --adaptive --steps 2 --batch 1`` (64 layers; buckets of S 272-448, none
+   a multiple of the 256-token SSD chunk, so the mixer pads); (b) Mamba-2
+   2.7B at full width and 16 of its 64 layers (the depth cut keeps the
+   script within its time; bf16, random weights from seed 0) trains 4 AdamW
    steps of one B 4 x S 2048 microbatch through ``Trainer`` on
    ``EmulatedEngine``: every loss and parameter finite, every kernel's
    launch count in (a) and (b) equal to microbatches x its launches per
@@ -60,7 +63,28 @@ Phases, any failure of which exits non-zero with no result line:
    0); the steady step time, tokens/s and peak memory; (c) 2 layers at
    full width, kernel loss and gradients against the ``ops="plain"`` ones
    at B 2 x S 2048 and B 4 x S 272: loss within 1e-2 and every gradient's
-   rel-L2 within 5e-2.
+   rel-L2 within 5e-2;
+9. packed dense-LM training and its sequence-parallel (SP) step: (a) K11's
+   merge kernels (``ring_merge``, ``ring_finalize``) against the plain
+   merge on one ring rank's state of (c) (1e-6 of the largest value); K11
+   on a ``LocalRing(4)`` against its plain version at small f32 shapes
+   (dh 32/64/128, k 2 and 4) and at Llama-3.2-1B's attention (Hq 32, Hkv
+   8, dh 64, bf16, causal, packed ``lm_length_corpus`` documents and a -1
+   tail) at S 8192, and against the whole-window K7-K9 at S 32768 (out
+   3e-2, gradients rel-L2 2e-2 in bf16 and 1e-5 in f32); one layer's ring
+   forward and forward + backward times, with SDPA (mask) on the gathered
+   window as the library time; (b) the launcher's ``main`` with ``--arch
+   llama3.2-1b --adaptive --steps 2``, then Llama-3.2-1B at full width and
+   depth (16 layers, bf16, seed 0) trains 4 AdamW steps through
+   ``Trainer``, each one microbatch of two packed 8192-token windows
+   (``materialize_packed_windows``, a -1 tail each): every loss and
+   parameter finite, every launch count exact (``per_microbatch_dense``),
+   the steady step time, tokens/s and peak memory; (c)
+   ``make_sp_pool_grad_step`` on a ``LocalRing(4)`` over one packed
+   32768-token window (shards of 8192, a -1 tail): every launch count the
+   live table's (``per_sp_step``), step ms and peak memory, and the loss
+   within 1e-2 and every gradient's rel-L2 within 5e-2 of the unsplit
+   ``make_pool_grad_step`` on the same window.
 
 Phase 2 also holds K4 on model rows (x [1, 2048, 2048] and [8, 1, 2048]
 bf16) and K12 (the decode wave of phase 6; 64 slots with kv_lens up to
@@ -75,12 +99,14 @@ K10 against its plain version and K3 at K3's shape, timed back to back
 with K3 there and at the paper's Fig. 1 width (D 5120, B 1, S 8192 to
 32768); all of them at small f32 shapes.
 
-Each kernel's launch counts in the record are those of the four main
+Each kernel's launch counts in the record are those of the six main
 paths, each reset to 0 just before its run and read just after: the
 serving waves of phase 3, the training steps of phase 5 (b), the LM
-serving of phase 6 (b) and the Mamba-2 training steps of phase 8 (b)
+serving of phase 6 (b), the Mamba-2 training steps of phase 8 (b), the
+dense-LM training steps of phase 9 (b) and the SP step of phase 9 (c)
 (``launches_by_path``); ``launches`` is their sum.
 
+Each phase's wall seconds go to the log and to the record (``phase_s``).
 Prints the kernels' JSON record on the line before the last and, as the
 last line, ``{"ok": true, "device": {...}}``.  The full record also goes to
 ``chiprun_out/chip_smoke.json``.
@@ -88,7 +114,9 @@ last line, ``{"ok": true, "device": {...}}``.  The full record also goes to
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import importlib
 import json
 import pathlib
 import subprocess
@@ -655,15 +683,17 @@ def phase_kernels_bwd(dev) -> dict:
     by9 = 2 * rows_q + rows_kv + 2 * stats + rows_kv  # q do, k v, lse delta, dk dv
     bms8, bby8 = bound(by8, tiles * 3 * mm, BF16_FLOPS)
     bms9, bby9 = bound(by9, tiles * 4 * mm, BF16_FLOPS)
-    src = "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu"
+    src = "src/repro_torch/kernels/flash_attention/csrc/flash_bwd_{}.cu"
     shape = f"self {s}x{s} + cross {s}x{TEXT_LEN}, B={b}, H={h}, dh={dh}, bf16"
     out["flash_bwd_dq"] = dict(
-        route="cuda", source=src, replaces="src/repro/kernels/flash_attention/flash.py:279",
+        route="cuda", source=src.format("dq"),
+        replaces="src/repro/kernels/flash_attention/flash.py:279",
         max_abs_err=k8_err, ms=t_k8, plain_ms=t_p, bound_ms=bms8, bound_by=bby8,
         library_ms=t_l, shape=shape, live_tile_pairs=tiles,
         tflops_per_s=tiles * 3 * mm / (t_k8 * 1e-3) / 1e12)
     out["flash_bwd_dkv"] = dict(
-        route="cuda", source=src, replaces="src/repro/kernels/flash_attention/flash.py:375",
+        route="cuda", source=src.format("dkv"),
+        replaces="src/repro/kernels/flash_attention/flash.py:375",
         max_abs_err=k9_err, ms=t_k9, plain_ms=t_p, bound_ms=bms9, bound_by=bby9,
         library_ms=t_l, shape=shape, live_tile_pairs=tiles,
         tflops_per_s=tiles * 4 * mm / (t_k9 * 1e-3) / 1e12)
@@ -759,6 +789,9 @@ def check_counts(counts: dict, micro: int, n_layers: int, what: str, per=per_mic
     log(f"  {what}: every launch count is {micro} microbatches x the per-microbatch table")
 
 
+WAN_TRAIN_LAYERS = 10  # phase 5 (b): a third of the depth keeps the script's time
+
+
 def phase_train(K, dev) -> dict:
     """Phase 5: training on the card."""
     from repro_torch.configs.registry import get_config, get_optimizer
@@ -788,7 +821,9 @@ def phase_train(K, dev) -> dict:
     del hist
     torch.cuda.empty_cache()
 
-    # (b) Wan-2.1 1.3B, 30 layers, 4 steps over the 480p buckets
+    # (b) Wan-2.1 1.3B at full width and WAN_TRAIN_LAYERS of its 30 layers,
+    # 4 steps over the 480p buckets
+    cfg = dataclasses.replace(cfg, n_layers=WAN_TRAIN_LAYERS)
     shapes, weights = wan_mixed_corpus()
     sel = [0, 2, 3]  # 480p image, 17 and 33 frames: S = 1637, 4757, 7877
     policy = BucketingPolicy(m_mem=16384, m_comp=6.4e7, p=2.0)
@@ -797,7 +832,7 @@ def phase_train(K, dev) -> dict:
         raise AssertionError(f"unexpected buckets {buckets}")
     opt = OptimizerConfig(peak_lr=get_optimizer("wan2.1-1.3b").peak_lr, schedule="constant",
                           warmup=0, total_steps=4)
-    log(f"(b) Trainer on EmulatedEngine, {cfg.name} {cfg.n_layers} layers bf16, seed 0; "
+    log(f"(b) Trainer on EmulatedEngine, {cfg.name} {cfg.n_layers} of 30 layers bf16, seed 0; "
         f"buckets (S, B) {[(b.seq_len, b.batch_size) for b in buckets]}, 16384-token steps")
     state = init_state(cfg, opt, seed=0, device=dev)
 
@@ -1317,6 +1352,7 @@ def per_microbatch_ssm(n_layers: int) -> dict[str, int]:
 
 
 SSM_BATCH, SSM_SEQ = 4, 2048  # phase 8 (b): 8,192-token steps
+SSM_TRAIN_LAYERS = 16  # phase 8 (b): a quarter of the depth keeps the script's time
 
 
 def phase_train_ssm(K, dev) -> dict:
@@ -1335,9 +1371,9 @@ def phase_train_ssm(K, dev) -> dict:
     cfg = get_config("mamba2-2.7b")
 
     # (a) the launcher's entry point, as a user runs it
-    log("(a) python -m repro_torch.launch.train --arch mamba2-2.7b --adaptive --steps 2")
+    log("(a) python -m repro_torch.launch.train --arch mamba2-2.7b --adaptive --steps 2 --batch 1")
     K.reset_launch_counts()
-    hist = launch_train.main(["--arch", "mamba2-2.7b", "--adaptive", "--steps", "2"])
+    hist = launch_train.main(["--arch", "mamba2-2.7b", "--adaptive", "--steps", "2", "--batch", "1"])
     torch.cuda.synchronize()
     counts = K.launch_counts()
     if not np.isfinite(hist.losses).all():
@@ -1348,14 +1384,16 @@ def phase_train_ssm(K, dev) -> dict:
     del hist
     torch.cuda.empty_cache()
 
-    # (b) 64 layers, 4 steps of one B 4 x S 2048 microbatch each
+    # (b) full width and SSM_TRAIN_LAYERS of the 64 layers, 4 steps of one
+    # B 4 x S 2048 microbatch each
+    cfg = dataclasses.replace(cfg, n_layers=SSM_TRAIN_LAYERS)
     opt = OptimizerConfig(peak_lr=get_optimizer("mamba2-2.7b").peak_lr, schedule="constant",
                           warmup=0, total_steps=4)
     t0 = time.perf_counter()
     state = init_state(cfg, opt, seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in state["model"].parameters())
-    log(f"(b) Trainer on EmulatedEngine, {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+    log(f"(b) Trainer on EmulatedEngine, {cfg.name}: {cfg.n_layers} of 64 layers, d {cfg.d_model}, "
         f"d_inner {cfg.d_inner}, {cfg.ssm_heads} heads, vocab {cfg.vocab}, bf16, "
         f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s; "
         f"B {SSM_BATCH} x S {SSM_SEQ} per step")
@@ -1615,6 +1653,425 @@ def phase_model_lm(dev) -> dict:
     return dict(prefill_rel_l2=rels[0], decode_rel_l2=rels[1:])
 
 
+# -- the packed dense-LM training slice and its sequence-parallel step ------------
+
+RING_K = 4  # phase 9: ring ranks
+RING_S = 32768  # phase 9 (c): the SP window (shards of 8192)
+RING_S_SMALL = 8192  # phase 9 (a): K11 against its plain version
+LLAMA_ATTN = dict(hq=32, hkv=8, dh=64)  # llama3.2-1b's attention
+
+
+def ring_inputs(dev, g, s: int, *, hq=32, hkv=8, dh=64, dtype=torch.bfloat16, seed=0):
+    """One packed window of ``s`` tokens at an attention's shapes: q, k, v
+    views of a fused projection [1, s, (hq + 2 hkv) dh], the output
+    gradient, and the segment ids of ``lm_length_corpus`` documents packed
+    first-fit-decreasing with a -1 tail (``profile_train
+    .packed_microbatches``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.profile_train import packed_microbatches
+
+    seg = packed_microbatches(get_config("llama3.2-1b"), s, 1, 1, seed=seed)[0]["segment_ids"]
+    qkv = torch.randn((1, s, (hq + 2 * hkv) * dh), generator=g, device=dev).to(dtype)
+    q = qkv[..., : hq * dh].reshape(1, s, hq, dh)
+    k = qkv[..., hq * dh : (hq + hkv) * dh].reshape(1, s, hkv, dh)
+    v = qkv[..., (hq + hkv) * dh :].reshape(1, s, hkv, dh)
+    dy = torch.randn((1, s, hq, dh), generator=g, device=dev).to(dtype)
+    return q, k, v, dy, torch.from_numpy(seg).to(dev)
+
+
+def stack_shards(x, k: int):
+    """[B, S, ...] -> the k contiguous shards stacked rank-major [k B, S/k, ...]."""
+    return torch.cat(x.chunk(k, dim=1), dim=0)
+
+
+def ring_run(q, k, v, dy, seg, kranks: int, *, plain: bool = False, grads: bool = True):
+    """K11 (or its plain version) on a LocalRing over the gathered window:
+    (out, dq, dk, dv) in the stacked layout, and the ring's live table."""
+    from repro_torch.kernels.flash_attention.ring import LocalRing, ring_attention
+
+    group = LocalRing(kranks)
+    leaves = [stack_shards(t, kranks).detach().requires_grad_(grads) for t in (q, k, v)]
+    ids = stack_shards(seg, kranks)
+    out = ring_attention(*leaves, ids, ids, group=group, causal=True, plain=plain)
+    res = [out.detach()]
+    if grads:
+        res += list(torch.autograd.grad(out, leaves, stack_shards(dy, kranks)))
+    return res, group.table(ids, ids, True)
+
+
+def ring_live_tiles(seg, kranks: int, table) -> int:
+    """(q tile, kv tile) pairs the ring's live hops run, one head."""
+    from repro_torch.kernels.flash_attention.flash import live_tile_pairs
+
+    shards = seg.chunk(kranks, dim=1)
+    n = 0
+    for t in range(kranks):
+        for r in range(kranks):
+            if table[t, r]:
+                sq = shards[r].shape[1]
+                n += live_tile_pairs(sq, sq, shards[r], shards[(r - t) % kranks], causal=t == 0)
+    return n
+
+
+def phase_kernels_ring(dev) -> dict:
+    """Phase 9 (a): the merge kernels against the plain merge, K11 against
+    its plain version and against the whole-window K7-K9; times."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.flash import KV_TILE, Q_TILE
+    from repro_torch.kernels.flash_attention.ref import NEG_INF
+    from repro_torch.kernels.flash_attention.ring import (
+        finalize_ref, merge_ref, ring_finalize, ring_merge,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    hq, hkv, dh = LLAMA_ATTN["hq"], LLAMA_ATTN["hkv"], LLAMA_ATTN["dh"]
+    sl = RING_S // RING_K
+
+    # -- ring_merge, ring_finalize: one rank's state at phase (c) ---------------------
+    log(f"K11 ring_merge, ring_finalize  state m, s [1, {hq}, {sl}], num [1, {sl}, {hq}, {dh}] "
+        f"f32; a quarter of the rows masked in the hop (o 0, lse -2e38), a quarter masked in "
+        f"every hop so far (m -2e38)")
+
+    def state(dead_hop=0.25, dead_rows=0.25):
+        m = torch.randn((1, hq, sl), generator=g, device=dev) * 3
+        s = torch.rand((1, hq, sl), generator=g, device=dev) * 3 + 0.5
+        num = torch.randn((1, sl, hq, dh), generator=g, device=dev)
+        o = torch.randn((1, sl, hq, dh), generator=g, device=dev)
+        lse = torch.randn((1, hq, sl), generator=g, device=dev) * 3
+        hop = torch.rand((1, hq, sl), generator=g, device=dev) < dead_hop
+        lse[hop] = NEG_INF
+        o.transpose(1, 2)[hop] = 0.0
+        rows = torch.rand((1, hq, sl), generator=g, device=dev) < dead_rows
+        m[rows] = NEG_INF
+        num.transpose(1, 2)[rows] = 0.0
+        return m, s, num, o, lse
+
+    m, s, num, o, lse = state()
+    want = merge_ref(m, s, num, o, lse)
+    got = [t.clone() for t in (m, s, num)]
+    ring_merge(*got, o, lse)
+    torch.cuda.synchronize()
+    # the same operations, each rounded once; the card's expf and logf and
+    # torch's may differ in the last bit: 1e-6 of the largest value
+    merge_err = max(check_rel(f"ring_merge {nm}", a, b, 1e-6)
+                    for nm, a, b in zip(("m", "s", "num"), got, want))
+    fin_want = finalize_ref(*want)
+    fin_got = ring_finalize(*[t.clone() for t in want])
+    torch.cuda.synchronize()
+    fin_err = max(check_rel(f"ring_finalize {nm}", a, b, 1e-6)
+                  for nm, a, b in zip(("out", "lse"), fin_got, fin_want))
+    dead = want[0] == NEG_INF
+    if not (fin_got[1][dead] == NEG_INF).all() or torch.count_nonzero(
+            fin_got[0].transpose(1, 2)[dead]) != 0:
+        raise AssertionError("ring_finalize: a row masked in every hop is not (0, -2e38)")
+    for d_ in (32, 128):  # the other head widths the kernels take
+        st = [torch.randn((2, 3, 200), generator=g, device=dev),
+              torch.rand((2, 3, 200), generator=g, device=dev) + 0.5,
+              torch.randn((2, 200, 3, d_), generator=g, device=dev),
+              torch.randn((2, 200, 3, d_), generator=g, device=dev),
+              torch.randn((2, 3, 200), generator=g, device=dev)]
+        got = [t.clone() for t in st[:3]]
+        ring_merge(*got, *st[3:])
+        for nm, a, b in zip(("m", "s", "num"), got, merge_ref(*st)):
+            check_rel(f"ring_merge dh={d_} {nm}", a, b, 1e-6)
+        for nm, a, b in zip(("out", "lse"), ring_finalize(*got), finalize_ref(*merge_ref(*st))):
+            check_rel(f"ring_finalize dh={d_} {nm}", a, b, 1e-6)
+    rows = hq * sl
+    copies = [t.clone() for t in (m, s, num)]
+    t_merge = device_ms(lambda: ring_merge(*copies, o, lse), 50)
+    t_merge_p = device_ms(lambda: merge_ref(m, s, num, o, lse), 10)
+    t_fin = device_ms(lambda: ring_finalize(*copies), 50)
+    t_fin_p = device_ms(lambda: finalize_ref(m, s, num), 10)
+    merge_bytes = rows * (5 * 4 + 3 * dh * 4)  # m s lse in, m s out; num o in, num out
+    fin_bytes = rows * (3 * 4 + 2 * dh * 4)  # m s in, m out; num in, num out
+    bm = bound(merge_bytes, rows * (3 * dh + 6), F32_FLOPS)
+    bf = bound(fin_bytes, rows * (dh + 3), F32_FLOPS)
+    src = "src/repro_torch/kernels/flash_attention/csrc/ring_merge.cu"
+    shape = f"m, s [1, {hq}, {sl}], num, o [1, {sl}, {hq}, {dh}] f32"
+    out["ring_merge"] = dict(
+        route="cuda", source=src, replaces="src/repro/kernels/flash_attention/ring.py:90",
+        max_abs_err=merge_err, ms=t_merge, plain_ms=t_merge_p, bound_ms=bm[0], bound_by=bm[1],
+        library_ms=None, shape=shape)
+    out["ring_finalize"] = dict(
+        route="cuda", source=src, replaces="src/repro/kernels/flash_attention/ring.py:195",
+        max_abs_err=fin_err, ms=t_fin, plain_ms=t_fin_p, bound_ms=bf[0], bound_by=bf[1],
+        library_ms=None, shape=shape)
+    log(f"  ring_merge ms {t_merge:.4f}  plain {t_merge_p:.4f}  bound {bm[0]:.4f} ({bm[1]}); "
+        f"ring_finalize ms {t_fin:.4f}  plain {t_fin_p:.4f}  bound {bf[0]:.4f} ({bf[1]})")
+    del m, s, num, o, lse, want, got, fin_want, fin_got, copies
+
+    # -- K11 against its plain version, small f32 shapes ------------------------------
+    for d_ in (32, 64, 128):
+        for kranks in (2, 4):
+            args = ring_inputs(dev, g, 1024, hq=4, hkv=2, dh=d_, dtype=torch.float32,
+                               seed=d_ + kranks)
+            # a 1024-token window holds one document: give it four and a tail
+            args = (*args[:4], segs([[(0, 300), (1, 200), (2, 250), (3, 150), (-1, 124)]], dev))
+            got, _ = ring_run(*args, kranks)
+            want, _ = ring_run(*args, kranks, plain=True)
+            torch.cuda.synchronize()
+            tag = f"dh={d_} k={kranks}"
+            check(f"K11 f32 out {tag}", max_err(got[0], want[0]), TOL["attn_f32"])
+            for nm, a_, b_ in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+                check_l2(f"K11 f32 {nm} {tag}", a_, b_, BWD_TOL["flash_f32"])
+
+    # -- K11 against its plain version at the Llama shapes, S 8192 ----------------------
+    log(f"K11 ring_attention  q [1, {RING_S_SMALL}, {hq}, {dh}], k, v [1, {RING_S_SMALL}, {hkv}, "
+        f"{dh}] bf16 (views of qkv), causal, packed documents + a -1 tail, LocalRing({RING_K})")
+    args = ring_inputs(dev, g, RING_S_SMALL, **LLAMA_ATTN, seed=2)
+    got, table = ring_run(*args, RING_K)
+    want, _ = ring_run(*args, RING_K, plain=True)
+    torch.cuda.synchronize()
+    log(f"  live table (hop x rank) {table.astype(int).tolist()}")
+    k11_err = max_err(got[0], want[0])
+    check("K11 out (S 8192)", k11_err, TOL["attn_bf16"])
+    for nm, a_, b_ in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        check_l2(f"K11 {nm} (S 8192)", a_, b_, BWD_TOL["flash_bf16"])
+    del got, want, args
+
+    # -- K11 against the whole-window K7-K9 at the SP window, S 32768 ---------------------
+    log(f"K11 against flash_fwd/flash_bwd_dq/flash_bwd_dkv on the gathered window, S {RING_S}, "
+        f"LocalRing({RING_K})")
+    q, k, v, dy, seg = ring_inputs(dev, g, RING_S, **LLAMA_ATTN, seed=1)
+    got, table = ring_run(q, k, v, dy, seg, RING_K)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o_w = flash_ops.attention(*leaves, causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    grads_w = torch.autograd.grad(o_w, leaves, dy)
+    torch.cuda.synchronize()
+    log(f"  live table (hop x rank) {table.astype(int).tolist()}")
+    err = max_err(got[0], stack_shards(o_w, RING_K))
+    check("K11 out vs window", err, TOL["attn_bf16"])
+    k11_err = max(k11_err, err)
+    for nm, a_, b_ in zip(("dq", "dk", "dv"), got[1:], grads_w):
+        check_l2(f"K11 {nm} vs window", a_, stack_shards(b_, RING_K), BWD_TOL["flash_bf16"])
+    del got, o_w, grads_w, leaves
+
+    # per layer: one forward pass of the ring, and one forward + backward
+    stacked = [stack_shards(t, RING_K).detach().requires_grad_() for t in (q, k, v)]
+    ids, dys = stack_shards(seg, RING_K), stack_shards(dy, RING_K)
+    from repro_torch.kernels.flash_attention.ring import LocalRing, ring_attention
+
+    def fwd():
+        with torch.no_grad():
+            return ring_attention(*stacked, ids, ids, group=LocalRing(RING_K), causal=True)
+
+    def fwd_bwd(plain=False):
+        o_ = ring_attention(*stacked, ids, ids, group=LocalRing(RING_K), causal=True, plain=plain)
+        return torch.autograd.grad(o_, stacked, dys)
+
+    t_f, t_fb = cuda_ms(fwd, 3), cuda_ms(fwd_bwd, 2)
+    # the plain ring takes 1.1 s a pass here: one pass, not warmed up (the
+    # S 8192 comparison above ran its operations already)
+    t_pfb = cuda_ms(lambda: fwd_bwd(True), 1, warmup=0)
+    # yardstick only, never on the port's path: the library's attention on
+    # the gathered window, kv heads repeated, the causal segment mask built
+    # beforehand (forward and forward + backward)
+    mask = (seg[0][:, None] == seg[0][None, :]).tril_()[None, None]
+    lib = [t.detach().transpose(1, 2).repeat_interleave(hq // t.shape[2], dim=1).requires_grad_()
+           for t in (q, k, v)]
+    dyt = dy.transpose(1, 2)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(*lib, attn_mask=mask)
+
+    def lib_fwd_bwd():
+        return torch.autograd.grad(F.scaled_dot_product_attention(*lib, attn_mask=mask), lib, dyt)
+
+    t_lf, t_lfb = cuda_ms(lib_fwd, 2), cuda_ms(lib_fwd_bwd, 1)
+    del mask, lib
+    tiles = ring_live_tiles(seg, RING_K, table) * hq
+    mm = 2 * Q_TILE * KV_TILE * dh  # flops of one 64 x 64 x dh product
+    live = int(table.sum())
+    # each input read once, each output written once (the merged state is
+    # the ring's own traffic): q k v and dy in, out, dq dk dv out, bf16.
+    # The function needs 7 products per live tile: q k^T and p v forward;
+    # q k^T once more, then dO v^T, p^T dO, dS k and dS^T q backward (K8 and
+    # K9 each form s and dP themselves: the split costs 9, not 7)
+    io_fwd = (2 * q.numel() + 2 * k.numel()) * 2
+    bms, bby = bound(2 * io_fwd, tiles * 7 * mm, BF16_FLOPS)
+    bms_f, bby_f = bound(io_fwd, tiles * 2 * mm, BF16_FLOPS)
+    out["ring_attention"] = dict(
+        route="cuda", source="src/repro_torch/kernels/flash_attention/ring.py",
+        replaces="src/repro/kernels/flash_attention/ring.py:300",
+        max_abs_err=k11_err, ms=t_fb, plain_ms=t_pfb, bound_ms=bms, bound_by=bby,
+        library_ms=t_lfb,
+        shape=f"one layer's ring forward + backward, S {RING_S} over LocalRing({RING_K}), "
+              f"Hq {hq}, Hkv {hkv}, dh {dh}, bf16 in, f32 backward hops",
+        forward=dict(ms=t_f, library_ms=t_lf, bound_ms=bms_f, bound_by=bby_f),
+        live_table=table.astype(int).tolist(), live_hops=live, live_tile_pairs=tiles,
+        tflops_per_s=tiles * 7 * mm / (t_fb * 1e-3) / 1e12)
+    log(f"  K11 per layer: forward {t_f:.3f} ms (SDPA+mask {t_lf:.3f}, bound "
+        f"{bms_f:.4f} {bby_f}); forward + backward {t_fb:.3f} ms (plain {t_pfb:.1f}, SDPA+mask "
+        f"{t_lfb:.3f}, bound {bms:.4f} {bby}); {live} live hops, {tiles} live 64x64 tiles")
+    return out
+
+
+def per_microbatch_dense(n_layers: int) -> dict[str, int]:
+    """Launches of one dense LM training microbatch of n_layers attention
+    blocks with per-block recompute: each block's norm1 and norm2 (K4 on
+    rows) and its attention forward (K7) run twice (forward, then again in
+    the backward), the final norm once; K5 and K6 on rows once per norm,
+    K8 and K9 once per attention."""
+    L = n_layers
+    return {"rms_fwd": 4 * L + 1, "rms_bwd_dx": 2 * L + 1, "rms_bwd_dw": 2 * L + 1,
+            "flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+
+
+def per_sp_step(n_layers: int, live: int) -> dict[str, int]:
+    """Launches of one SP step on a LocalRing whose live table has ``live``
+    entries: the norms as a dense microbatch (the shards are stacked along
+    the batch, so one launch covers the ring); per block, the ring's
+    forward pass twice (forward and recompute: K7 and ring_merge once per
+    live hop, ring_finalize once) and its backward pass once (K8 and K9 once
+    per live hop); ring_attention counts the 3 passes."""
+    L = n_layers
+    return {"rms_fwd": 4 * L + 1, "rms_bwd_dx": 2 * L + 1, "rms_bwd_dw": 2 * L + 1,
+            "flash_fwd": 2 * L * live, "ring_merge": 2 * L * live, "ring_finalize": 2 * L,
+            "flash_bwd_dq": L * live, "flash_bwd_dkv": L * live, "ring_attention": 3 * L}
+
+
+DENSE_WINDOW, DENSE_WINDOWS = 8192, 2  # phase 9 (b): 16,384-slot steps
+
+
+def phase_train_dense(K, dev) -> dict:
+    """Phase 9 (b), (c): packed dense-LM training of Llama-3.2-1B and its
+    sequence-parallel step."""
+    import types
+
+    from repro_torch.configs.registry import get_config, get_optimizer
+    from repro_torch.data.packing import split_packed_batch
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels.flash_attention.ring import LocalRing
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.profile_train import packed_microbatches
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.steps import init_state, make_pool_grad_step, make_sp_pool_grad_step, sp_batch
+
+    out = {}
+    cfg = get_config("llama3.2-1b")
+
+    # (a) the launcher's entry point, as a user runs it
+    log("(b) python -m repro_torch.launch.train --arch llama3.2-1b --adaptive --steps 2")
+    K.reset_launch_counts()
+    hist = launch_train.main(["--arch", "llama3.2-1b", "--adaptive", "--steps", "2"])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    if not np.isfinite(hist.losses).all():
+        raise AssertionError(f"launcher: a loss is not finite: {hist.losses}")
+    check_counts(counts, sum(hist.microbatches), cfg.n_layers, "launcher", per_microbatch_dense)
+    out["launcher"] = dict(losses=hist.losses, step_s=hist.step_times,
+                           microbatches=hist.microbatches, launches=counts)
+    del hist
+    torch.cuda.empty_cache()
+
+    # (b) 16 layers, 4 steps of one microbatch of two packed 8192-token windows
+    opt = OptimizerConfig(peak_lr=get_optimizer("llama3.2-1b").peak_lr, schedule="constant",
+                          warmup=0, total_steps=4)
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["model"].parameters())
+    mbs = packed_microbatches(cfg, DENSE_WINDOW, DENSE_WINDOWS, 4)
+    docs = [int(mb["segment_ids"].max(axis=1).sum()) + DENSE_WINDOWS for mb in mbs]
+    log(f"(b) Trainer on EmulatedEngine, {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, vocab {cfg.vocab}, bf16, "
+        f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s; each step one "
+        f"microbatch of {DENSE_WINDOWS} packed {DENSE_WINDOW}-token windows ({docs} documents)")
+    bucket = types.SimpleNamespace(batch_size=DENSE_WINDOWS, seq_len=DENSE_WINDOW,
+                                   tokens=DENSE_WINDOWS * DENSE_WINDOW)
+    stream = iter([[(bucket, to_device(mb, dev))] for mb in mbs])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    state, hist = Trainer(cfg, opt).run(state, stream, 4, rng=1, log_every=1)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not np.isfinite(hist.losses).all():
+        raise AssertionError(f"a loss is not finite: {hist.losses}")
+    model = state["model"]
+    bad = [n for n, prm in model.named_parameters() if not torch.isfinite(prm).all()]
+    if bad or state["step"] != 4:
+        raise AssertionError(f"parameters not finite after the updates: {bad[:5]}")
+    check_counts(counts, sum(hist.microbatches), cfg.n_layers, "training", per_microbatch_dense)
+    steady = [i for i in range(4) if i not in hist.compile_steps]
+    if not steady:
+        raise AssertionError("every step ran a new batch signature: no steady step")
+    step_ms = [1e3 * t for t in hist.step_times]
+    steady_ms = float(np.mean([step_ms[i] for i in steady]))
+    for i, (ms, tok) in enumerate(zip(step_ms, hist.tokens)):
+        log(f"  step {i}: {tok} tokens, {ms:.1f} ms, loss {hist.losses[i]:.4f}"
+            f"{'  (first signature)' if i in hist.compile_steps else ''}")
+    log(f"  steady step {steady_ms:.1f} ms (steps {steady}), {hist.throughput:,.0f} tokens/s, "
+        f"peak memory {peak:.2f} GiB, events {hist.events}")
+    out["train"] = dict(
+        n_params=n_params, documents=docs, losses=hist.losses, step_ms=step_ms,
+        tokens=hist.tokens, events=hist.events, steady_steps=steady, steady_step_ms=steady_ms,
+        tokens_per_s=hist.throughput, peak_gib=peak, launches=counts,
+        per_microbatch=per_microbatch_dense(cfg.n_layers),
+    )
+    state["opt"] = None
+    del state, hist, stream, mbs
+    torch.cuda.empty_cache()
+
+    # (c) the SP step: one packed 32768-token window over a LocalRing of 4
+    window = packed_microbatches(cfg, RING_S, 1, 1, seed=1)[0]
+    group = LocalRing(RING_K)
+    batch = sp_batch(split_packed_batch(window, RING_K), group, dev)
+    table = group.table(batch["segment_ids"], batch["segment_ids"], True)
+    live = int(table.sum())
+    log(f"(c) make_sp_pool_grad_step on LocalRing({RING_K}), {cfg.name} {cfg.n_layers} layers "
+        f"bf16: one packed window of {RING_S} tokens ({int(window['segment_ids'].max()) + 1} "
+        f"documents, a -1 tail), shards of {RING_S // RING_K}; live table "
+        f"{table.astype(int).tolist()} ({live} live hops)")
+    sp = make_sp_pool_grad_step(cfg, group)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    loss, grads = sp(model, batch, 0, 0)
+    ev[1].record()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    peak_sp = torch.cuda.max_memory_allocated() / 2**30
+    sp_ms = ev[0].elapsed_time(ev[1])
+    want = per_sp_step(cfg.n_layers, live)
+    for name in counts:
+        if counts[name] != want.get(name, 0):
+            raise AssertionError(f"SP step: {name} launched {counts[name]} times, expected "
+                                 f"{want.get(name, 0)} from the live table")
+    log("  SP step: every launch count is the live table's")
+    # the unsplit step on the merged window, with the kernels
+    ev[0].record()
+    uloss, ugrads = make_pool_grad_step(cfg)(model, to_device(window, dev), 0, 0)
+    ev[1].record()
+    torch.cuda.synchronize()
+    unsplit_ms = ev[0].elapsed_time(ev[1])
+    if not (torch.isfinite(loss) and all(torch.isfinite(t).all() for t in grads.values())):
+        raise AssertionError("SP step: a loss or gradient is not finite")
+    loss_rel = abs(loss.item() - uloss.item()) / abs(uloss.item())
+    rels = {n: rel_l2(grads[n], gu) for n, gu in ugrads.items()}
+    worst = max(rels, key=rels.get)
+    log(f"  SP step {sp_ms:.1f} ms (its first call); peak memory {peak_sp:.2f} GiB; "
+        f"unsplit step on the window {unsplit_ms:.1f} ms")
+    log(f"  loss {loss.item():.6f} SP vs {uloss.item():.6f} unsplit (rel {loss_rel:.2e}, tol "
+        f"1e-2); largest gradient rel-L2 {rels[worst]:.3e} ({worst}, tol 5e-2)")
+    if not (loss_rel <= 1e-2 and rels[worst] <= 5e-2):
+        raise AssertionError("the SP step disagrees with the unsplit step")
+    out["sp"] = dict(window=RING_S, ranks=RING_K, live_table=table.astype(int).tolist(),
+                     step_ms=sp_ms, unsplit_step_ms=unsplit_ms, peak_gib=peak_sp,
+                     loss_sp=loss.item(), loss_unsplit=uloss.item(), loss_rel=loss_rel,
+                     worst_grad=worst, worst_grad_rel_l2=rels[worst], launches=counts,
+                     per_step=want)
+    del model, grads, ugrads, batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1627,6 +2084,13 @@ def main() -> int:
     from repro_torch import kernels as K
     from repro_torch.kernels import _build
 
+    # one nvcc per source, in the background; meanwhile the host does the
+    # process's one-time set-up that needs no kernel of ours: the CUDA
+    # context, and torch._dynamo, which torch.utils.checkpoint imports at
+    # its first call (seconds of Python imports, on the first training step)
+    t0 = time.perf_counter()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    building = pool.submit(_build.build_all)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1637,48 +2101,59 @@ def main() -> int:
     log(card)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    reports = _build.build_all()
-    log(f"built {len(reports)} kernels in {time.perf_counter() - t0:.1f} s")
+    torch.zeros(1, device=dev)
+    importlib.import_module("torch._dynamo")
+
+    t_host = time.perf_counter() - t0
+    reports = building.result()
+    pool.shutdown()
+    log(f"built {len(reports)} kernels in {time.perf_counter() - t0:.1f} s (the host's set-up "
+        f"beside it {t_host:.1f} s)")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
     record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
-    record["kernels"] = phase_kernels(dev)
-    torch.cuda.empty_cache()
-    record["kernels"].update(phase_kernels_bwd(dev))
-    torch.cuda.empty_cache()
-    record["kernels"].update(phase_kernels_ssm(dev))
-    torch.cuda.empty_cache()
-    record["serve"] = phase_serve(K, dev)
-    torch.cuda.empty_cache()
-    record["model_rel_l2"] = phase_model(dev)
-    torch.cuda.empty_cache()
-    record["train"] = phase_train(K, dev)
-    torch.cuda.empty_cache()
-    lm = phase_kernels_lm(dev)
+    record["phase_s"] = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.empty_cache()
+        record["phase_s"][name] = time.perf_counter() - t
+        log(f"[{name}: {record['phase_s'][name]:.1f} s]")
+        return res
+
+    record["kernels"] = timed("1 kernels", phase_kernels, dev)
+    record["kernels"].update(timed("2 kernels_bwd", phase_kernels_bwd, dev))
+    record["kernels"].update(timed("2 kernels_ssm", phase_kernels_ssm, dev))
+    record["serve"] = timed("3 serve", phase_serve, K, dev)
+    record["model_rel_l2"] = timed("4 model", phase_model, dev)
+    record["train"] = timed("5 train", phase_train, K, dev)
+    lm = timed("2 kernels_lm", phase_kernels_lm, dev)
     record["kernels"]["flash_fwd"]["lm_prefill"] = lm.pop("flash_fwd_lm_prefill")
     record["kernels"].update(lm)
     record["kernels"]["rms_fwd"]["mamba2"] = record["kernels"].pop("rms_fwd_mamba2")
-    torch.cuda.empty_cache()
-    record["serve_lm"] = phase_serve_lm(K, dev)
-    torch.cuda.empty_cache()
-    record["model_lm"] = phase_model_lm(dev)
-    torch.cuda.empty_cache()
-    record["train_ssm"] = phase_train_ssm(K, dev)
+    record["serve_lm"] = timed("6 serve_lm", phase_serve_lm, K, dev)
+    record["model_lm"] = timed("7 model_lm", phase_model_lm, dev)
+    record["train_ssm"] = timed("8 train_ssm", phase_train_ssm, K, dev)
+    record["kernels"].update(timed("9a kernels_ring", phase_kernels_ring, dev))
+    record["train_dense"] = timed("9bc train_dense", phase_train_dense, K, dev)
 
     # launches: each main path's own count, reset to 0 just before that run
     # and read just after (the serving waves of phase 3, the 4 training steps
     # of phase 5 (b), the LM serving of phase 6 (b), the 4 Mamba-2 training
-    # steps of phase 8 (b)); "launches" is their sum
+    # steps of phase 8 (b), the 4 dense-LM training steps of phase 9 (b) and
+    # the SP step of phase 9 (c)); "launches" is their sum
     kernels = []
     for name, k in record["kernels"].items():
         by_path = {"serve": record["serve"]["launches"][name],
                    "train": record["train"]["train"]["launches"][name],
                    "serve_lm": record["serve_lm"]["serve"]["launches"][name],
-                   "train_lm": record["train_ssm"]["train"]["launches"][name]}
+                   "train_lm": record["train_ssm"]["train"]["launches"][name],
+                   "train_dense": record["train_dense"]["train"]["launches"][name],
+                   "train_sp": record["train_dense"]["sp"]["launches"][name]}
         kernels.append({"name": name, **{key: k[key] for key in (
             "route", "source", "replaces")}, "launches": sum(by_path.values()),
             "launches_by_path": by_path,

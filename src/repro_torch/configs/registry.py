@@ -8,6 +8,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import OptimizerConfig
 
 ARCHS = {
+    "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "wan2.1-1.3b": "repro_torch.configs.wan2_1_mmdit",

@@ -1,6 +1,8 @@
 """Bucketed data pipeline: the paper's Fig. 2 dataloader, the counterpart
 of ``repro.data.pipeline.BucketedLoader`` (a copy: the loader is
-framework-free; ``make_batch`` decides where batches live).
+framework-free; ``make_batch`` decides where batches live), and the packed
+LM microbatches of ``materialize_packed_windows`` / ``make_packed_batch``
+(numpy arrays, as the reference's; :func:`to_device` moves them).
 
 ``BucketedLoader`` drives ONE data-parallel worker's stream:
 
@@ -20,9 +22,11 @@ import threading
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.bucketing import Bucket
 from repro_torch.core.dispatch import normalized_weights
+from repro_torch.data.packing import PackedBucket, PackedWindow, pack_documents, segment_id_batch
 
 
 class BucketedLoader:
@@ -97,3 +101,64 @@ class BucketedLoader:
         except queue.Empty:
             pass
         self._thread.join(timeout=2.0)
+
+
+def materialize_packed_windows(
+    lengths: Sequence[int],
+    *,
+    window: int,
+    vocab: int = 32_000,
+    batch_windows: int = 1,
+    seed: int = 0,
+) -> list[dict]:
+    """Pack documents by token count and materialize packed microbatches of
+    ``batch_windows`` windows each:
+
+    * ``tokens`` / ``labels`` — ``[Bw, window]`` int32 synthetic streams
+      (label 0 at padding, at each document's last token and at the
+      window's last slot: the loss has no ignore-index),
+    * ``segment_ids`` — ``[Bw, window]`` int32 (document j -> j, padding
+      -> -1), and
+    * ``windows`` — the ``PackedWindow`` records.
+    """
+    windows = pack_documents(lengths, window=window)
+    rng = np.random.default_rng(seed)
+    out: list[dict] = []
+    for i in range(0, len(windows), batch_windows):
+        group: list[PackedWindow] = windows[i : i + batch_windows]
+        out.append({**_packed_arrays(rng, group, window, vocab), "windows": group})
+    return out
+
+
+def _packed_arrays(rng: np.random.Generator, group: Sequence[PackedWindow], window: int,
+                   vocab: int) -> dict:
+    """Model-ready arrays for one group of packed windows: padding slots
+    and document-final positions carry label 0 (boundary and padding
+    targets neutralized to a constant class, never the next document's
+    first token)."""
+    seg = segment_id_batch(group, window)
+    tokens = rng.integers(1, vocab, size=seg.shape, dtype=np.int64)
+    tokens[seg < 0] = 0
+    labels = np.roll(tokens, -1, axis=1)
+    labels[seg < 0] = 0
+    labels[:, -1] = 0
+    labels[:, :-1][seg[:, :-1] != seg[:, 1:]] = 0
+    return {
+        "tokens": tokens.astype(np.int32),
+        "labels": labels.astype(np.int32),
+        "segment_ids": seg,
+    }
+
+
+def make_packed_batch(rng: np.random.Generator, bucket: PackedBucket, *,
+                      vocab: int = 32_000) -> dict:
+    """``make_batch`` of ``PackedBucket`` microbatches: the arrays only
+    (``tokens``/``labels``/``segment_ids``)."""
+    return _packed_arrays(rng, bucket.windows, bucket.window, vocab)
+
+
+def to_device(batch: dict, device) -> dict:
+    """The numpy arrays of a batch as tensors on ``device`` (other entries,
+    such as ``windows``, are dropped)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items() if isinstance(v, np.ndarray)}

@@ -9,10 +9,12 @@ videos) and generates synthetic latents and text states on the fly — the
 bucketing system only ever sees shapes and the device only ever sees
 tensors ("synthetic pixel scans", paper §3.2).  Batches are drawn on the
 device they train on, from a ``torch.Generator`` seeded by the loader.
+``lm_length_corpus`` draws document lengths with numpy, as the reference.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.bucketing import DataShape
@@ -35,6 +37,14 @@ def wan_mixed_corpus() -> tuple[list[DataShape], list[float]]:
     ]
     weights = [0.20, 0.13, 0.15, 0.15, 0.12, 0.12, 0.08, 0.05]
     return shapes, weights
+
+
+def lm_length_corpus(rng: np.random.Generator, n: int, *, lo: int = 64,
+                     hi: int = 8192) -> np.ndarray:
+    """Document lengths with a heavy tail (lognormal), the LM analogue of
+    mixed video shapes."""
+    raw = rng.lognormal(mean=np.log(600), sigma=1.1, size=n)
+    return np.clip(raw.astype(np.int64), lo, hi)
 
 
 def make_diffusion_batch(seed: int, bucket_batch: int, seq_len: int, cfg: ModelConfig,

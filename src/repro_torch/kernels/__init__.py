@@ -30,6 +30,7 @@ from . import plain
 from .flash_attention import ops as flash_ops
 from .flash_attention.flash import flash_bwd_dkv, flash_bwd_dq, flash_fwd
 from .flash_attention.paged import paged_decode
+from .flash_attention.ring import ring_attention, ring_finalize, ring_merge
 from .fused_adaln import ops as adaln_ops
 from .fused_adaln.adaln import adaln_bwd_dmod, adaln_bwd_dmod_naive, adaln_bwd_dx, adaln_fwd
 from .fused_rmsnorm import ops as rms_ops
@@ -58,6 +59,9 @@ KERNELS = {
     "flash_bwd_dq": flash_bwd_dq,  # K8
     "flash_bwd_dkv": flash_bwd_dkv,  # K9
     "adaln_bwd_dmod_naive": adaln_bwd_dmod_naive,  # K10 (no model calls it)
+    "ring_attention": ring_attention,  # K11: ring passes over K7-K9 (sequence parallel)
+    "ring_merge": ring_merge,  # K11's per-hop log-sum-exp merge
+    "ring_finalize": ring_finalize,  # K11's final normalisation
     "paged_decode": paged_decode,  # K12
     "gated_rms_fwd": gated_rms_fwd,  # K13
 }
@@ -126,13 +130,19 @@ def qk_norm(q, k, wq, wk, eps: float = 1e-6):
 
 
 def attention(q, k, v, *, causal: bool, q_segment_ids=None,
-              kv_segment_ids=None, scale: float | None = None):
+              kv_segment_ids=None, scale: float | None = None, seq_group=None):
     """Segment-aware self/cross attention in the model's [B, S, H, dh] layout.
 
     Visibility is segment-id equality (``-1`` pads, and padding attends
-    padding), plus ``q_pos >= k_pos`` when ``causal``.
+    padding), plus ``q_pos >= k_pos`` when ``causal``.  With ``seq_group``
+    (a ``LocalRing`` or ``ProcessRing``) the call holds contiguous sequence
+    shards of one packed window and runs the ring (K11): its hops run K7-K9
+    and the merge kernels on the card, their plain versions on the CPU.
     """
     card = _on_card(q)
+    if seq_group is not None:
+        return ring_attention(q, k, v, q_segment_ids, kv_segment_ids, group=seq_group,
+                              causal=causal, scale=scale)
     if _recorded(q, k, v):
         return flash_ops.attention(q, k, v, causal=causal, q_segment_ids=q_segment_ids,
                                    kv_segment_ids=kv_segment_ids, scale=scale)

@@ -30,6 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    "-split-compile", "0",  # nvcc's optimiser on threads: about 2 s off a parallel build
 )
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,7 @@
 // Segment-aware flash-attention backward for Hopper (sm_90a): K8 (dq) and
-// K9 (dk, dv).
+// K9 (dk, dv).  Their entry points are flash_bwd_dq.cu and
+// flash_bwd_dkv.cu, one translation unit each, so that nvcc builds the two
+// kernels' instantiations side by side.
 //
 // Replaces: repro/kernels/flash_attention/flash.py,
 // flash_attention_bwd_dq_pallas (body _bwd_dq_kernel, a kv sweep) and
@@ -37,6 +39,8 @@
 // keeps them exact).  Operand tiles stream in with cp.async, one buffer
 // each, the next tile's loads issued as soon as the current one's last
 // reader is done.  Not yet used: wgmma, TMA, double buffers.
+
+#pragma once
 
 #include "flash_common.cuh"
 
@@ -327,11 +331,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Params p)
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const Params& p, int B, int which, cudaStream_t st) {
+// Which = 0 launches K8, 1 launches K9; a translation unit instantiates
+// only the kernel its entry point names.
+template <int Which, typename T, int DH>
+cudaError_t launch(const Params& p, int B, cudaStream_t st) {
   constexpr int bytes = smem_bytes<T, DH>();
   const dim3 block(kThreads);
-  if (which == 0) {
+  if constexpr (Which == 0) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_bwd_dq_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
@@ -345,20 +351,21 @@ cudaError_t launch(const Params& p, int B, int which, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dh(const Params& p, int B, int dh, int which, cudaStream_t st) {
+template <int Which, typename T>
+cudaError_t launch_dh(const Params& p, int B, int dh, cudaStream_t st) {
   switch (dh) {
-    case 32: return launch<T, 32>(p, B, which, st);
-    case 64: return launch<T, 64>(p, B, which, st);
-    case 128: return launch<T, 128>(p, B, which, st);
+    case 32: return launch<Which, T, 32>(p, B, st);
+    case 64: return launch<Which, T, 64>(p, B, st);
+    case 128: return launch<Which, T, 128>(p, B, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <int Which>
 int run(Params& p, const void* q, const void* k, const void* v, const void* dout,
         const void* out, const void* lse, void* delta, const void* q_seg, const void* kv_seg,
         int B, int Hq, int Hkv, int Sq, int Skv, int dh, const long long* st,
-        float scale, int causal, int is_bf16, int which, void* stream) {
+        float scale, int causal, int is_bf16, void* stream) {
   p.q = q;
   p.k = k;
   p.v = v;
@@ -379,43 +386,9 @@ int run(Params& p, const void* q, const void* k, const void* v, const void* dout
   p.scale = scale;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_bf16 ? launch_dh<__nv_bfloat16>(p, B, dh, which, s)
-                                  : launch_dh<float>(p, B, dh, which, s);
+  const cudaError_t err = is_bf16 ? launch_dh<Which, __nv_bfloat16>(p, B, dh, s)
+                                  : launch_dh<Which, float>(p, B, dh, s);
   return static_cast<int>(err);
 }
 
 }  // namespace
-
-// Common arguments: q [B, Sq, Hq, dh], k, v [B, Skv, Hkv, dh] and dout
-// [B, Sq, Hq, dh], each with element strides (batch, token, head) in
-// `strides` (12 values, q k v dout) and a contiguous last axis; q_seg
-// [B, Sq] / kv_seg [B, Skv] int32, both null for one segment; lse, delta
-// [B, Hq, Sq] f32.  Each returns cudaGetLastError() after its launch.
-
-// K8.  out: contiguous [B, Sq, Hq, dh] f32 (the forward's output); writes
-// delta and dq (contiguous [B, Sq, Hq, dh], q's dtype).
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                            const void* out, const void* lse, void* delta,
-                            const void* q_seg, const void* kv_seg, void* dq,
-                            int B, int Hq, int Hkv, int Sq, int Skv, int dh,
-                            const long long* strides, float scale, int causal, int is_bf16,
-                            void* stream) {
-  Params p{};
-  p.dq = dq;
-  return run(p, q, k, v, dout, out, lse, delta, q_seg, kv_seg, B, Hq, Hkv, Sq, Skv, dh,
-             strides, scale, causal, is_bf16, 0, stream);
-}
-
-// K9.  Reads delta (K8's); writes dk, dv (contiguous [B, Skv, Hkv, dh]).
-extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta,
-                             const void* q_seg, const void* kv_seg, void* dk, void* dv,
-                             int B, int Hq, int Hkv, int Sq, int Skv, int dh,
-                             const long long* strides, float scale, int causal, int is_bf16,
-                             void* stream) {
-  Params p{};
-  p.dk = dk;
-  p.dv = dv;
-  return run(p, q, k, v, dout, nullptr, lse, const_cast<void*>(delta), q_seg, kv_seg,
-             B, Hq, Hkv, Sq, Skv, dh, strides, scale, causal, is_bf16, 1, stream);
-}

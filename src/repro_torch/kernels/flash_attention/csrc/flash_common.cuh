@@ -1,5 +1,5 @@
 // Device helpers shared by the flash-attention kernels (flash_fwd.cu: K7,
-// flash_bwd.cu: K8 and K9).
+// flash_bwd.cuh: K8 and K9).
 //
 // Tiles are 64 rows of a [S, DH] matrix held in shared memory with a
 // 16-byte row pad (conflict-free ldmatrix).  A warp owns 16 rows of the

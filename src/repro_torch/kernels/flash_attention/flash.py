@@ -1,6 +1,7 @@
 """Wrappers and ctypes bindings of the segment-aware flash-attention
-kernels: the forward K7 (``csrc/flash_fwd.cu``) and the backward K8 (dq)
-and K9 (dk, dv) (``csrc/flash_bwd.cu``).
+kernels: the forward K7 (``csrc/flash_fwd.cu``) and the backward K8 (dq,
+``csrc/flash_bwd_dq.cu``) and K9 (dk, dv, ``csrc/flash_bwd_dkv.cu``), both
+kernels in ``csrc/flash_bwd.cuh``.
 
 Each wrapper takes CUDA tensors only, in the model's ``[B, S, H, dh]``
 layout (strided views are fine as long as the last axis is contiguous), and
@@ -132,7 +133,7 @@ def flash_bwd_dq(q, k, v, out, do, lse, q_segment_ids=None, kv_segment_ids=None,
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if b * sq == 0:
         return dq, delta
-    fn = _build.bind("flash_bwd", "flash_bwd_dq", _DQ_ARGTYPES)
+    fn = _build.bind("flash_bwd_dq", "flash_bwd_dq", _DQ_ARGTYPES)
     strides = _strides(q, k, v, do)
     with torch.cuda.device(q.device):
         code = fn(
@@ -167,7 +168,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, q_segment_ids=None, kv_segment_ids=No
         return dk, dv
     if sq == 0:
         return dk.zero_(), dv.zero_()
-    fn = _build.bind("flash_bwd", "flash_bwd_dkv", _DKV_ARGTYPES)
+    fn = _build.bind("flash_bwd_dkv", "flash_bwd_dkv", _DKV_ARGTYPES)
     strides = _strides(q, k, v, do)
     with torch.cuda.device(q.device):
         code = fn(

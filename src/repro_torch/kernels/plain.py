@@ -6,6 +6,7 @@ on-card whole-model comparison)."""
 from __future__ import annotations
 
 from .flash_attention.ref import attention_ref, paged_attention_ref
+from .flash_attention.ring import ring_attention
 from .fused_adaln.ref import adaln_modulate_ref
 from .fused_rmsnorm.ref import gated_rms_norm_ref, qk_norm_ref, rms_norm_ref
 
@@ -27,7 +28,10 @@ def qk_norm(q, k, wq, wk, eps: float = 1e-6):
 
 
 def attention(q, k, v, *, causal: bool, q_segment_ids=None,
-              kv_segment_ids=None, scale: float | None = None):
+              kv_segment_ids=None, scale: float | None = None, seq_group=None):
+    if seq_group is not None:  # the ring's schedule with its plain blocks and merge
+        return ring_attention(q, k, v, q_segment_ids, kv_segment_ids, group=seq_group,
+                              causal=causal, scale=scale, plain=True)
     return attention_ref(
         q, k, v, q_segment_ids, kv_segment_ids, causal=causal, scale=scale
     )[0]

@@ -43,6 +43,8 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("K7 flash_fwd", ("flash_fwd_kernel",)),
     ("K8 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K9 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K11 ring_merge", ("merge_kernel",)),
+    ("K11 ring_finalize", ("finalize_kernel",)),
     ("K1 adaln_fwd", ("adaln_fwd_kernel",)),
     ("K2 adaln_bwd_dx", ("adaln_bwd_dx_kernel",)),
     ("K10 adaln_bwd_dmod_naive", ("adaln_bwd_dmod_naive_kernel",)),

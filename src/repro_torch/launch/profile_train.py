@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train [--arch wan2.1-1.3b]
     PYTHONPATH=src python -m repro_torch.launch.profile_train --arch mamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.profile_train --arch llama3.2-1b
 
 ``wan2.1-1.3b`` (the default): builds Wan-2.1 1.3B (random weights from
 seed 0, bf16, 30 layers) on the GPU and a step of two microbatches from
@@ -15,6 +16,14 @@ layer (``models.ssm.ssd``: the einsums, cumulative sums and exponentials
 between the conv and the gated norm) and one whole block, forward and
 forward + backward, with CUDA events at the step's shape, and reports
 their share of the step: each runs forward, recompute and backward.
+
+``llama3.2-1b``: builds Llama-3.2-1B (16 layers, bf16, random weights from
+seed 0) and profiles two steps of ``chip_smoke.py`` phase 9: one dense
+packed step (one microbatch of two 8192-token windows of
+``materialize_packed_windows`` over ``lm_length_corpus`` documents,
+through ``EmulatedEngine``) and one sequence-parallel gradient step
+(``make_sp_pool_grad_step`` on a ``LocalRing`` of 4, one 32768-token
+window in shards of 8192), each run once before.
 
 Both run the step once to meet its batch signatures, then profile one more
 through the same ``EmulatedEngine``.  Prints one JSON object: device time
@@ -36,16 +45,43 @@ import torch
 
 from repro_torch.configs.registry import get_config, get_optimizer
 from repro_torch.core.bucketing import Bucket, DataShape
-from repro_torch.data.synthetic import make_diffusion_batch, make_lm_batch
+from repro_torch.data.packing import split_packed_batch
+from repro_torch.data.pipeline import materialize_packed_windows, to_device
+from repro_torch.data.synthetic import lm_length_corpus, make_diffusion_batch, make_lm_batch
+from repro_torch.kernels.flash_attention.ring import LocalRing
 from repro_torch.launch.profile_serve import profile
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.train.engine import EmulatedEngine
-from repro_torch.train.steps import init_state
+from repro_torch.train.steps import init_state, make_sp_pool_grad_step, sp_batch
 
 BUCKETS = (Bucket(DataShape(1, 480, 832, 77), 10), Bucket(DataShape(33, 480, 832, 77), 1))
 LM_BATCH, LM_SEQ = 4, 2048
+DENSE_WINDOW, DENSE_WINDOWS = 8192, 2  # chip_smoke.py phase 9 (b)
+SP_WINDOW, SP_RANKS = 32768, 4  # phase 9 (c)
+
+
+TAIL = 100  # padding slots (-1) at the end of every packed window
+
+
+def packed_microbatches(cfg, window: int, n_windows: int, count: int, seed: int = 0) -> list:
+    """``count`` microbatches (numpy) of ``n_windows`` packed windows of
+    ``window`` tokens each: ``lm_length_corpus`` documents (at most 8192
+    tokens) packed first-fit-decreasing by ``materialize_packed_windows``
+    into ``window - TAIL`` slots, then a padding tail of ``TAIL`` (segment
+    id -1, token and label 0) on every window."""
+    rng = np.random.default_rng(seed)
+    need = 2 * count * n_windows * window // 1000  # documents of about 1,100 tokens
+    lengths = lm_length_corpus(rng, need, hi=min(8192, window - TAIL))
+    mbs = materialize_packed_windows(lengths, window=window - TAIL, vocab=cfg.vocab,
+                                     batch_windows=n_windows, seed=seed)
+    if len(mbs) < count or mbs[count - 1]["tokens"].shape[0] < n_windows:
+        raise ValueError(f"the corpus packed into too few windows: {len(mbs)}")
+    pad = ((0, 0), (0, TAIL))
+    return [{"tokens": np.pad(mb["tokens"], pad), "labels": np.pad(mb["labels"], pad),
+             "segment_ids": np.pad(mb["segment_ids"], pad, constant_values=-1)}
+            for mb in mbs[:count]]
 
 
 def _events_ms(fn, iters: int = 3) -> float:
@@ -131,13 +167,50 @@ def _main_ssm() -> dict:
     return out
 
 
+def _main_dense() -> dict:
+    cfg = get_config("llama3.2-1b")
+    opt = OptimizerConfig(peak_lr=get_optimizer("llama3.2-1b").peak_lr, schedule="constant",
+                          warmup=0, total_steps=2)
+    state = init_state(cfg, opt, seed=0)
+    model = state["model"]
+    dev = model.device
+    arrays = packed_microbatches(cfg, DENSE_WINDOW, DENSE_WINDOWS, 1)[0]
+    bucket = types.SimpleNamespace(batch_size=DENSE_WINDOWS, seq_len=DENSE_WINDOW,
+                                   tokens=DENSE_WINDOWS * DENSE_WINDOW)
+    step = [[(bucket, to_device(arrays, dev))]]
+    engine = EmulatedEngine(cfg, opt)
+    engine.execute_step(state, step, step_key=0, step=0)  # first signature
+    torch.cuda.synchronize()
+    out = {"device": torch.cuda.get_device_name(0),
+           "dense": {"microbatches": [[DENSE_WINDOWS, DENSE_WINDOW]],
+                     "tokens_per_step": bucket.tokens,
+                     **profile(lambda: engine.execute_step(state, step, step_key=1, step=1))}}
+    group = LocalRing(SP_RANKS)
+    window = packed_microbatches(cfg, SP_WINDOW, 1, 1, seed=1)[0]
+    batch = sp_batch(split_packed_batch(window, SP_RANKS), group, dev)
+    sp = make_sp_pool_grad_step(cfg, group)
+
+    def sp_step():
+        loss, grads = sp(model, batch, 0, 0)
+        del grads
+
+    sp_step()
+    torch.cuda.synchronize()
+    out["sp"] = {"window": SP_WINDOW, "ranks": SP_RANKS, "table": group.table(
+        batch["segment_ids"], batch["segment_ids"], True).astype(int).tolist(),
+        **profile(sp_step)}
+    return out
+
+
 def main(argv=()) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="wan2.1-1.3b", choices=("wan2.1-1.3b", "mamba2-2.7b"))
+    ap.add_argument("--arch", default="wan2.1-1.3b",
+                    choices=("wan2.1-1.3b", "mamba2-2.7b", "llama3.2-1b"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train measures the GPU; no CUDA device is visible")
-    out = _main_ssm() if args.arch == "mamba2-2.7b" else _main_mmdit()
+    out = {"wan2.1-1.3b": _main_mmdit, "mamba2-2.7b": _main_ssm,
+           "llama3.2-1b": _main_dense}[args.arch]()
     print(json.dumps(out))
     return out
 

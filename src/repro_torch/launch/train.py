@@ -1,9 +1,10 @@
 """Training launcher of the port (the mmdit and LM routes of
 ``repro.launch.train``, single rank):
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch wan2.1-1.3b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --adaptive --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --adaptive --steps 2
-    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wan2.1-1.3b \\
         --adaptive --steps 2
 
 runs on CUDA; ``--device cpu --smoke`` trains the smoke configuration on
@@ -11,8 +12,10 @@ the plain PyTorch path.  ``--adaptive`` feeds dual-constraint buckets
 (``B = min(M_mem / S, M_comp / S^p)``) through ``BucketedLoader`` with the
 reference launcher's shapes, budgets and seeds; without it every step is
 one fixed ``--batch`` x ``--seq`` microbatch.  The mmdit trains on
-diffusion latents, the LM (``mamba2-2.7b``) on synthetic token streams
-(``make_lm_batch``) of the same shapes.  Steps run through ``Trainer`` on
+diffusion latents, the LMs (the dense ``tinyllama-1.1b``, the default as
+in the reference launcher, and ``llama3.2-1b``; the ssm ``mamba2-2.7b``)
+on unpacked synthetic token streams (``make_lm_batch``) of the same
+shapes.  Steps run through ``Trainer`` on
 ``EmulatedEngine``.  It prints the final loss and tokens/s.
 """
 
@@ -36,10 +39,10 @@ EPILOG = (
     "here): the final checkpoint save and --ckpt-dir/--resume/--keep/--ckpt-every/"
     "--digest-log (checkpoint), --workers/--dispatch/--mesh/--overlap/"
     "--deterministic-refine/--refine-rounds/--sp-max-ranks/--elastic (multi-rank), "
-    "--chaos/--preempt-flag (fault tolerance).  The LM route trains the ssm family "
-    "(mamba2-2.7b); the dense LMs (llama3.2-1b) raise until their training comes "
-    "(ROADMAP Queue 1 item 8), so the default --arch stays wan2.1-1.3b, where the "
-    "reference launcher's is tinyllama-1.1b."
+    "--chaos/--preempt-flag (fault tolerance).  --workers and --mesh wait for the "
+    "multi-GPU plan executor and --sp-max-ranks for the planner's split decision "
+    "(ROADMAP Queue 1 items 7 and 4); the sequence-parallel step itself is "
+    "repro_torch.train.steps.make_sp_pool_grad_step."
 )
 
 
@@ -66,7 +69,7 @@ class _Fixed:
 
 def main(argv=None) -> TrainHistory:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0], epilog=EPILOG)
-    ap.add_argument("--arch", default="wan2.1-1.3b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="tinyllama-1.1b", choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--steps", type=int, default=30, help="optimizer steps")
     ap.add_argument("--batch", type=int, default=4)

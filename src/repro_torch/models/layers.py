@@ -1,6 +1,8 @@
 """Base layers (``repro.models.layers``): the initializers, both branches
 of ``apply_norm`` (LayerNorm in PyTorch, RMSNorm through the kernel
-dispatch), RoPE, the SwiGLU MLP, the LM head and the chunked LM loss.
+dispatch), RoPE and the document-relative positions of packed windows
+(``repro.models.attention.segment_relative_positions``), the SwiGLU MLP,
+the LM head and the chunked LM loss.
 
 Weights keep the JAX package's ``x @ W`` meaning: a projection is a
 ``[d_in, d_out]`` parameter applied with ``x @ w``, not an ``nn.Linear``.
@@ -59,6 +61,19 @@ def apply_norm(p: Norm, x, kind: str, eps: float, ops=kernels):
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * p.w + p.b).to(x.dtype)
+
+
+def segment_relative_positions(segment_ids):
+    """[B, S] segment ids (contiguous runs) -> int32 position within each
+    run (``repro.models.attention.segment_relative_positions``): packed
+    windows restart RoPE at every document boundary; padding (-1) runs
+    restart too, which is harmless."""
+    b, s = segment_ids.shape
+    idx = torch.arange(s, dtype=torch.int32, device=segment_ids.device).expand(b, s)
+    boundary = torch.ones((b, s), dtype=torch.bool, device=segment_ids.device)
+    boundary[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+    run_start = torch.cummax(torch.where(boundary, idx, 0), dim=1).values
+    return idx - run_start
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):

@@ -14,7 +14,10 @@ Entry points:
 
 * :meth:`Transformer.forward` — the full-sequence forward, each block
   optionally recomputed in the backward (``remat``, training), or
-  collecting each layer's k and v (prefill);
+  collecting each layer's k and v (prefill); packed windows pass
+  ``segment_ids`` (attention scoped to each document, RoPE restarting at
+  each), and a sequence-parallel shard passes its ring ``seq_group`` and
+  the whole window's ``positions``;
 * :func:`lm_loss` — the chunked next-token cross-entropy (training);
 * :func:`paged_prefill` — prompts through ``forward``, their k and v
   scattered into pool pages, logits at each prompt's last true token;
@@ -52,11 +55,13 @@ from .layers import (
     dense_init,
     embed_init,
     last_token_logits,
+    segment_relative_positions,
 )
 from .ssm import SSM, apply_ssm
 
 KINDS = ("attn", "ssm")  # the block kinds ported so far
 PAGED_KINDS = ("attn",)  # the kinds paged serving takes
+SP_KINDS = ("attn", "moe")  # the kinds sequence parallelism takes (MoE is not ported)
 
 
 def _ops(ops: str):
@@ -159,26 +164,43 @@ class Transformer(nn.Module):
         return self.embed.device
 
     def forward(self, tokens, *, collect_cache: bool = False, ops: str = "kernel",
-                remat: bool = False):
+                remat: bool = False, segment_ids=None, positions=None, seq_group=None):
         """Token ids [B, S] -> ``(hidden [B, S, d] after the final norm,
         caches)``: with ``collect_cache``, one ``{"k", "v"}`` [B, S, Hkv,
         dh] per layer (k after RoPE), else None.  ``remat`` recomputes each
         block in the backward (``torch.utils.checkpoint``, the reference's
-        per-superblock ``jax.checkpoint``), as training does."""
+        per-superblock ``jax.checkpoint``), as training does.
+
+        ``segment_ids`` [B, S] int32 (packed windows, -1 = padding) scope
+        attention to each document, and RoPE restarts at each document
+        unless ``positions`` ([B, S] or [S]) are given.  Under sequence
+        parallelism (``seq_group``, a ring of ``kernels.flash_attention
+        .ring``) the tokens and ids are contiguous shards of one window and
+        ``positions`` must be the whole window's, sliced: recomputed per
+        shard they would restart at the shard boundary."""
         K = _ops(ops)
         cfg = self.cfg
         if collect_cache:
             _paged_kinds(cfg)
+        if seq_group is not None and positions is None:
+            raise ValueError(
+                "sequence-parallel forward needs globally computed positions "
+                "(per-shard recomputation would restart at the shard boundary)"
+            )
         x = self.embed[tokens.long()]
-        positions = torch.arange(tokens.shape[1], device=x.device)
+        if positions is None:
+            positions = (segment_relative_positions(segment_ids) if segment_ids is not None
+                         else torch.arange(tokens.shape[1], device=x.device))
         caches = [] if collect_cache else None
         for bp, kind in zip(self.blocks, self.kinds):
             if remat:
                 x, cache = checkpoint(apply_block, bp, x, cfg, positions, K, kind,
+                                      segment_ids=segment_ids, seq_group=seq_group,
                                       use_reentrant=False)
             else:
                 x, cache = apply_block(bp, x, cfg, positions, K, kind,
-                                       collect_cache=collect_cache)
+                                       collect_cache=collect_cache, segment_ids=segment_ids,
+                                       seq_group=seq_group)
             if collect_cache:
                 caches.append(cache)
         return apply_norm(self.final_norm, x, cfg.norm, cfg.norm_eps, K), caches
@@ -205,24 +227,34 @@ def _project_qkv(bp: Attention, x, cfg: ModelConfig, K):
     return q, k, v
 
 
-def _self_attn_full(bp: Attention, x, cfg: ModelConfig, positions, K):
-    """Causal self-attention over the whole sequence (prefill; no segment
-    ids).  Returns ``(out [B, S, d], (k, v))``."""
+def _self_attn_full(bp: Attention, x, cfg: ModelConfig, positions, K, *, segment_ids=None,
+                    seq_group=None):
+    """Causal self-attention over the whole sequence, scoped to each
+    document by ``segment_ids``, or over this rank's shard of the ring
+    ``seq_group``.  Returns ``(out [B, S, d], (k, v))``."""
     q, k, v = _project_qkv(bp, x, cfg, K)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    ctx = K.attention(q, k, v, causal=True)
+    ctx = K.attention(q, k, v, causal=True, q_segment_ids=segment_ids,
+                      kv_segment_ids=segment_ids, seq_group=seq_group)
     b, s = x.shape[:2]
     return ctx.reshape(b, s, cfg.n_heads * cfg.head_dim) @ bp.wo, (k, v)
 
 
 def apply_block(bp: Block | SSMBlock, x, cfg: ModelConfig, positions, K, kind: str = "attn", *,
-                collect_cache: bool = False):
-    """One block over a full sequence.  Returns ``(x, cache or None)``."""
+                collect_cache: bool = False, segment_ids=None, seq_group=None):
+    """One block over a full sequence (or a ring shard of one, with
+    ``seq_group``).  Returns ``(x, cache or None)``."""
+    if seq_group is not None and kind not in SP_KINDS:
+        raise ValueError(
+            f"sequence parallelism does not support {kind!r} blocks "
+            f"(global-attention transformer blocks only)"
+        )
     h = apply_norm(bp.norm1, x, cfg.norm, cfg.norm_eps, K)
     if kind == "ssm":
         return x + apply_ssm(bp.mixer, h, cfg.ssm, K), None
-    out, (k, v) = _self_attn_full(bp.attn, h, cfg, positions, K)
+    out, (k, v) = _self_attn_full(bp.attn, h, cfg, positions, K, segment_ids=segment_ids,
+                                  seq_group=seq_group)
     x = x + out
     h2 = apply_norm(bp.norm2, x, cfg.norm, cfg.norm_eps, K)
     return x + apply_mlp(bp.mlp, h2), ({"k": k, "v": v} if collect_cache else None)
@@ -234,14 +266,18 @@ def apply_block(bp: Block | SSMBlock, x, cfg: ModelConfig, positions, K, kind: s
 
 
 def lm_loss(model: Transformer, tokens, labels, *, loss_chunk: int = 512, ops: str = "kernel",
-            remat: bool = True):
+            remat: bool = True, segment_ids=None, positions=None, seq_group=None):
     """Mean next-token cross-entropy of ``tokens`` [B, S] against ``labels``
     [B, S] (``repro.models.transformer.lm_loss``): the forward with each
     block recomputed in the backward, then :func:`chunked_softmax_xent`
     over chunks of ``min(loss_chunk, S)`` positions against the tied
-    embedding.  The ported kinds carry no auxiliary loss (MoE's router
-    loss comes with MoE)."""
-    h, _ = model(tokens, ops=ops, remat=remat)
+    embedding.  ``segment_ids``, ``positions`` and ``seq_group`` as in
+    :meth:`Transformer.forward`; on a ``LocalRing`` the k shards are
+    stacked along the batch axis, so the mean over all their tokens is the
+    mean of the k shard means.  The ported kinds carry no auxiliary loss
+    (MoE's router loss comes with MoE)."""
+    h, _ = model(tokens, ops=ops, remat=remat, segment_ids=segment_ids, positions=positions,
+                 seq_group=seq_group)
     return chunked_softmax_xent(h, model.embed, labels, chunk=min(loss_chunk, tokens.shape[1]))
 
 

@@ -1,13 +1,15 @@
 """Step functions of the port: the counterpart of ``repro.train.steps`` for
-training the mmdit and ssm families and for serving the mmdit and the
-dense LM.
+training the mmdit, dense and ssm families and for serving the mmdit and
+the dense LM.
 
 Diffusion serving needs a denoise step (one velocity evaluation, the unit
 of diffusion sampling); LM serving a paged prefill and a paged decode wave.
 Training needs the state, the loss (the rectified-flow loss, or the LM
-loss of ``tokens`` against ``labels``), the pool microbatch's gradient step
-and the one-batch train step.  The dense and packed LM's training (causal
-attention backward, segment ids) is ROADMAP Queue 1 item 8.
+loss of ``tokens`` against ``labels``, packed windows with their
+``segment_ids``), the pool microbatch's gradient step, the one-batch train
+step, and the sequence-parallel step of one packed window split over a
+ring of ranks (:func:`make_sp_pool_grad_step`, fed by
+``data.packing.split_packed_batch`` shards).
 
 Randomness follows the reference's rule with numpy's ``SeedSequence`` in
 place of ``jax.random``: a step key is an integer, and a pool microbatch's
@@ -35,7 +37,7 @@ NoiseHook = Callable[[int, int, dict], "tuple[torch.Tensor, torch.Tensor] | None
 
 
 #: the families the port trains
-TRAINED = ("mmdit", "ssm")
+TRAINED = ("mmdit", "dense", "ssm")
 
 
 def _mmdit_only(cfg: ModelConfig, what: str) -> None:
@@ -46,9 +48,8 @@ def _mmdit_only(cfg: ModelConfig, what: str) -> None:
 def _trained(cfg: ModelConfig, what: str) -> None:
     if cfg.family not in TRAINED:
         raise ValueError(
-            f"{what}: the port trains the {' and '.join(TRAINED)} families, not "
-            f"{cfg.name} ({cfg.family!r}); training the dense and packed LM is "
-            f"ROADMAP Queue 1 item 8"
+            f"{what}: the port trains the {', '.join(TRAINED)} families, not "
+            f"{cfg.name} ({cfg.family!r})"
         )
 
 
@@ -89,11 +90,13 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
     (``latents``, ``text`` and optional ``segment_ids`` /
     ``text_segment_ids``), ``rng`` a ``torch.Generator`` and ``noise`` an
     injected ``(t, eps)``; for the LM, ``lm_loss`` of ``tokens`` against
-    ``labels`` (no draws: ``rng`` and ``noise`` are unused)."""
+    ``labels``, scoped per document by the optional ``segment_ids`` of a
+    packed batch (no draws: ``rng`` and ``noise`` are unused)."""
     _trained(cfg, "make_loss_fn")
     if cfg.family != "mmdit":
         def lm_loss_fn(model, batch, rng, noise=None):
-            return T.lm_loss(model, batch["tokens"], batch["labels"])
+            return T.lm_loss(model, batch["tokens"], batch["labels"],
+                             segment_ids=batch.get("segment_ids"))
 
         return lm_loss_fn
 
@@ -127,6 +130,64 @@ def make_pool_grad_step(cfg: ModelConfig, noise: NoiseHook | None = None) -> Cal
         return loss.detach(), dict(zip(names, grads))
 
     return grad_step
+
+
+def make_sp_loss_fn(cfg: ModelConfig, group) -> Callable:
+    """``loss_fn(model, batch, rng)`` of a sequence-parallel split
+    microbatch: the batch holds the ring ``group``'s local shards of ONE
+    packed window (``tokens``, ``labels``, ``segment_ids`` and the whole
+    window's ``positions``, sliced; a ``LocalRing``'s k shards stacked
+    along the batch axis, :func:`sp_batch`).  Returns the mean token loss
+    of the local shards; with equal shard widths the mean over the ring is
+    the whole window's mean token loss."""
+    if cfg.family != "dense":
+        raise ValueError(
+            f"sequence parallelism supports the dense transformer LM path "
+            f"only (got family={cfg.family!r})"
+        )
+
+    def loss_fn(model, batch, rng):
+        del rng  # the LM path is deterministic given the batch
+        return T.lm_loss(model, batch["tokens"], batch["labels"],
+                         segment_ids=batch.get("segment_ids"), positions=batch["positions"],
+                         seq_group=group)
+
+    return loss_fn
+
+
+def make_sp_pool_grad_step(cfg: ModelConfig, group) -> Callable:
+    """The gradient step of a split microbatch on the ring ``group``:
+    ``grad_step(model, batch, step_key, pool_index) -> (loss, grads)``,
+    where every rank of the ring returns the same whole-window mean loss
+    and its gradient: each rank's loss and grads, summed over the ring and
+    divided by k (one ``all_reduce`` each on a ``ProcessRing``; a
+    ``LocalRing`` holds every shard and already has the mean).  The
+    cross-shard attention terms travel through the ring's backward.  The
+    generator is seeded by ``fold_in(step_key, pool_index)`` as in
+    :func:`make_pool_grad_step`, so a split entry folds into the pool
+    enumeration like an unsplit one."""
+    loss_fn = make_sp_loss_fn(cfg, group)
+
+    def grad_step(model, batch, step_key: int, pool_index: int):
+        rng = torch.Generator(device=model.device).manual_seed(fold_in(step_key, pool_index))
+        names, params = zip(*model.named_parameters())
+        loss = loss_fn(model, batch, rng)
+        grads = dict(zip(names, torch.autograd.grad(loss, params)))
+        return group.mean(loss.detach(), grads)
+
+    return grad_step
+
+
+def sp_batch(shards: list[dict], group, device) -> dict:
+    """The batch of ``group``'s local ring ranks from the k shards of
+    ``data.packing.split_packed_batch``: rank r's shard for a
+    ``ProcessRing``, all k stacked rank-major along the batch axis for a
+    ``LocalRing``; numpy or tensors, moved to ``device``."""
+    if len(shards) != group.k:
+        raise ValueError(f"{len(shards)} shards for a ring of {group.k} ranks")
+    local = [shards[r] for r in group.local_ranks]
+    return {name: torch.cat([torch.as_tensor(sh[name]) for sh in local], dim=0).to(device)
+            for name in local[0]}
 
 
 def make_train_step(cfg: ModelConfig, opt: OptimizerConfig) -> Callable:

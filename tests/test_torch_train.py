@@ -433,7 +433,8 @@ def test_trainer_takes_no_later_slice_arguments():
 
 
 def test_launch_train_smoke_adaptive_on_cpu(capsys):
-    hist = launch_train.main(["--smoke", "--device", "cpu", "--adaptive", "--steps", "2"])
+    hist = launch_train.main(["--arch", "wan2.1-1.3b", "--smoke", "--device", "cpu",
+                              "--adaptive", "--steps", "2"])
     assert len(hist.losses) == 2 and np.isfinite(hist.losses).all()
     assert hist.microbatches == [1, 1] and hist.throughput > 0
     assert "final loss" in capsys.readouterr().out
