@@ -9,7 +9,8 @@ Phases, any failure of which exits non-zero with no result line:
 1. card and toolchain: the card's name and power limit, the torch / CUDA
    versions; every kernel built from ``src/repro_torch/**/csrc/*.cu``
    (one nvcc per source, in parallel, beside the host's one-time set-up),
-   with the build seconds;
+   with the build seconds, each kernel's registers and spills (K7 by entry
+   function, with any ptxas notice of serialised wgmmas);
 2. each kernel against its plain PyTorch version on the card,
    with kernel, plain and library times from CUDA events: the forward
    kernels at the serving shapes of Wan-2.1 1.3B (x [4, 6240, 1536]; q/k/v
@@ -19,7 +20,9 @@ Phases, any failure of which exits non-zero with no result line:
    1536] and [1, 7877, 1536]; q/k [10, 1637, 12, 128] and [1, 7877, 12,
    128]; attention 7877 x 7877 and 7877 x 512, packed and padded), the
    reductions K3 and K6 also bitwise against a second run; all of them at
-   small f32 shapes (dh 32/64/128, causal, GQA);
+   small f32 shapes (dh 32/64/128, causal, GQA), and K7 on bf16 at small
+   shapes too (dh 32/64/128 x causal x GQA x three segment layouts, strided
+   views; its f32-out mode bitwise);
 3. serving: Wan-2.1 1.3B at full width and depth (30 layers, random weights
    from a seed) serves 4 clips of 1-4 latent frames at 480x832 through
    ``DiffusionServeEngine``; every result finite, and every kernel's
@@ -73,7 +76,9 @@ Phases, any failure of which exits non-zero with no result line:
    tail) at S 8192, and against the whole-window K7-K9 at S 32768 (out
    3e-2, gradients rel-L2 2e-2 in bf16 and 1e-5 in f32); one layer's ring
    forward and forward + backward times, with SDPA (mask) on the gathered
-   window as the library time; (b) the launcher's ``main`` with ``--arch
+   window as the library time; one f32 backward hop alone (K8 and K9 at
+   [1, 8192, 32, 64], Hkv 8) against the plain backward (rel-L2 1e-5),
+   timed; (b) the launcher's ``main`` with ``--arch
    llama3.2-1b --adaptive --steps 2``, then Llama-3.2-1B at full width and
    depth (16 layers, bf16, seed 0) trains 4 AdamW steps through
    ``Trainer``, each one microbatch of two packed 8192-token windows
@@ -133,6 +138,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak
 
 # tolerances: outputs in the working dtype (one bf16 rounding apart at
 # most, as tests/test_kernels.py allows), f32 statistics summed in another
@@ -262,10 +268,55 @@ def segs(runs_per_row, device):
     return torch.stack(rows).to(device)
 
 
+def k7_small_bf16(dev, randn) -> None:
+    """K7 on bf16 inputs (the warp-specialised kernel) against its plain
+    version at every head width, causal or not, GQA or not, under three
+    segment layouts, q, k and v strided views of one fused projection over
+    S 300 (two 128-row tiles and a ragged one): out, lse, rows that see no
+    key, and the f32-out mode rounded equal to the bf16 mode bitwise."""
+    from repro_torch.kernels.flash_attention.flash import flash_fwd
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    s = 300
+    sg = segs([[(0, 70), (1, 130), (-1, 100)], [(5, s)]], dev)
+    sq_ = segs([[(0, 70), (1, 130), (-1, 100)], [(5, 150), (9, 150)]], dev)
+    n, worst, worst_lse = 0, 0.0, 0.0
+    for dhs in (32, 64, 128):
+        for causal in (False, True):
+            for hq, hkv in ((4, 4), (4, 2)):
+                qkv = randn(2, s, (hq + 2 * hkv) * dhs, dtype=torch.bfloat16)
+                qs_ = qkv[..., : hq * dhs].reshape(2, s, hq, dhs)
+                ks_ = qkv[..., hq * dhs : (hq + hkv) * dhs].reshape(2, s, hkv, dhs)
+                vs_ = qkv[..., (hq + hkv) * dhs :].reshape(2, s, hkv, dhs)
+                for ids in ((None, None), (sg, sg), (sq_, sg)):
+                    o, lse = flash_fwd(qs_, ks_, vs_, *ids, causal=causal)
+                    o32, lse32 = flash_fwd(qs_, ks_, vs_, *ids, causal=causal,
+                                           out_dtype=torch.float32)
+                    o_r, lse_r = attention_ref(qs_, ks_, vs_, *ids, causal=causal)
+                    torch.cuda.synchronize()
+                    tag = f"dh={dhs} causal={causal} gqa={hq // hkv} segs={ids[0] is not None}"
+                    err = max_err(o, o_r)
+                    live = lse_r > -1e38
+                    err_lse = max_err(lse[live], lse_r[live])
+                    if not (err <= TOL["attn_bf16"] and err_lse <= TOL["lse_bf16"]):
+                        check(f"K7 bf16 {tag}", err, TOL["attn_bf16"])
+                        check(f"K7 bf16 lse {tag}", err_lse, TOL["lse_bf16"])
+                    dead = (~live).transpose(1, 2)
+                    if not torch.equal(live, lse > -1e38) or torch.count_nonzero(o[dead]):
+                        raise AssertionError(f"K7 bf16 {tag}: rows that see no key differ")
+                    if not (torch.equal(o32.to(o.dtype), o) and torch.equal(lse32, lse)):
+                        raise AssertionError(f"K7 bf16 {tag}: the f32-out mode rounded is not "
+                                             f"the bf16 mode's output and lse")
+                    n, worst, worst_lse = n + 1, max(worst, err), max(worst_lse, err_lse)
+    log(f"  K7 bf16 small shapes: {n} cases (dh 32/64/128 x causal x GQA x 3 segment layouts, "
+        f"S {s}): max_abs_err {worst:.3e} (tol {TOL['attn_bf16']:.0e}), lse {worst_lse:.3e} "
+        f"(tol {TOL['lse_bf16']:.0e}), dead rows exact zeros, f32-out mode bitwise")
+
+
 def phase_kernels(dev) -> dict:
     """Phase 2: every kernel against its plain version; times."""
     from repro_torch.kernels.flash_attention.flash import (
-        KV_TILE, Q_TILE, flash_fwd, live_tile_pairs,
+        BOUND_TILE, FWD_TILE, flash_fwd, live_tile_pairs,
     )
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.fused_adaln.adaln import adaln_fwd
@@ -421,6 +472,7 @@ def phase_kernels(dev) -> dict:
                     tag = f"dh={dhs} causal={causal} gqa={hq // hkv} segs={ids[0] is not None}"
                     check(f"K7 f32 {tag}", max_err(a_[0], b_[0]), TOL["attn_f32"])
                     check(f"K7 f32 lse {tag}", max_err(a_[1], b_[1]), TOL["attn_f32"])
+    k7_small_bf16(dev, randn)
 
     def pair(fn):
         return lambda: (fn(*self_args), fn(*cross_args))
@@ -441,7 +493,10 @@ def phase_kernels(dev) -> dict:
     t_l = cuda_ms(sdpa, 3)
     del self_mask, cross_mask
     tiles = (live_tile_pairs(s, s, seg, seg) + live_tile_pairs(s, TEXT_LEN, seg, tseg)) * h
-    flops = tiles * 4 * Q_TILE * KV_TILE * dh
+    # the work K7 runs: its own 128 x 128 tiles, in 64 x 64 equivalents
+    run = 4 * h * (live_tile_pairs(s, s, seg, seg, tile=FWD_TILE)
+                   + live_tile_pairs(s, TEXT_LEN, seg, tseg, tile=FWD_TILE))
+    flops = tiles * 4 * BOUND_TILE ** 2 * dh
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, qx, kx, vx)) \
         + 2 * q.numel() * 2 + 2 * b * h * s * 4 + (2 * seg.numel() + tseg.numel()) * 4
     bms, bby = bound(nbytes, flops, BF16_FLOPS)
@@ -450,10 +505,11 @@ def phase_kernels(dev) -> dict:
         replaces="src/repro/kernels/flash_attention/flash.py:136",
         max_abs_err=k7_err, ms=t_k, plain_ms=t_p, bound_ms=bms, bound_by=bby,
         library_ms=t_l, shape="self 6240x6240 + cross 6240x512, B=4, H=12, dh=128, bf16",
-        live_tile_pairs=tiles, tflops_per_s=flops / (t_k * 1e-3) / 1e12,
+        live_tile_pairs=tiles, run_tile_pairs=run, tflops_per_s=flops / (t_k * 1e-3) / 1e12,
     )
     log(f"  K7 ms {t_k:.4f} (self + cross)  plain {t_p:.4f}  library(SDPA, bool mask) {t_l:.4f}  "
-        f"bound {bms:.4f} ({bby}, {tiles} live 64x64 tiles)")
+        f"bound {bms:.4f} ({bby}, {tiles} live 64x64 tiles; the kernel's 128x128 tiles run "
+        f"{run} of them)")
     return out
 
 
@@ -461,7 +517,7 @@ def phase_kernels_bwd(dev) -> dict:
     """Phase 2, backward: K2, K3, K5, K6, K8 and K9 against their plain
     versions at the training shapes and small f32 shapes; times."""
     from repro_torch.kernels.flash_attention.flash import (
-        KV_TILE, Q_TILE, flash_bwd_dkv, flash_bwd_dq, flash_fwd, live_tile_pairs,
+        BOUND_TILE, flash_bwd_dkv, flash_bwd_dq, flash_fwd, live_tile_pairs,
     )
     from repro_torch.kernels.flash_attention.ref import (
         attention_bwd_ref, attention_delta_ref, attention_ref,
@@ -675,7 +731,7 @@ def phase_kernels_bwd(dev) -> dict:
                            for o, lv, gg in lib.values()], 3)
     del lib
     tiles = (live_tile_pairs(s, s, seg, seg) + live_tile_pairs(s, TEXT_LEN, seg, tseg)) * h
-    mm = 2 * Q_TILE * KV_TILE * dh  # flops of one 64 x 64 x dh product
+    mm = 2 * BOUND_TILE ** 2 * dh  # flops of one 64 x 64 x dh product
     rows_q = 2 * b * s * h * dh * 2  # q and qx, bf16
     rows_kv = 2 * (b * s + b * TEXT_LEN) * h * dh * 2  # k, v and kx, vx
     stats = 2 * b * h * s * 4  # one [B, Hq, Sq] f32 per case
@@ -1047,7 +1103,7 @@ def phase_kernels_lm(dev) -> dict:
     out["rms_fwd"]["host_us_per_call"] = host_us
 
     # -- K7 at the LM's prefill: causal, GQA 4, dh 64 ------------------------------
-    from repro_torch.kernels.flash_attention.flash import KV_TILE, Q_TILE, flash_fwd, live_tile_pairs
+    from repro_torch.kernels.flash_attention.flash import BOUND_TILE, FWD_TILE, flash_fwd, live_tile_pairs
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     log("K7 flash_fwd at the LM prefill  q [1, 2048, 32, 64], k, v [1, 2048, 8, 64] bf16 "
@@ -1062,7 +1118,8 @@ def phase_kernels_lm(dev) -> dict:
     check("K7 LM prefill out", k7_err, TOL["attn_bf16"])
     check("K7 LM prefill lse", max_err(lse, lse_r), TOL["lse_bf16"])
     tiles = live_tile_pairs(2048, 2048, causal=True) * 32
-    flops = tiles * 4 * Q_TILE * KV_TILE * 64
+    run = live_tile_pairs(2048, 2048, causal=True, tile=FWD_TILE) * 32 * 4
+    flops = tiles * 4 * BOUND_TILE ** 2 * 64
     t_k = device_ms(lambda: flash_fwd(q, k, v, causal=True), 20)
     t_p = device_ms(lambda: attention_ref(q, k, v, causal=True), 3)
     # yardstick only, never on the port's path: the library's causal GQA attention
@@ -1073,9 +1130,11 @@ def phase_kernels_lm(dev) -> dict:
     bms, bby = bound(nbytes, flops, BF16_FLOPS)
     out["flash_fwd_lm_prefill"] = dict(max_abs_err=k7_err, ms=t_k, plain_ms=t_p, library_ms=t_l,
                                        bound_ms=bms, bound_by=bby, live_tile_pairs=tiles,
+                                       run_tile_pairs=run,
                                        tflops_per_s=flops / (t_k * 1e-3) / 1e12)
     log(f"  K7 LM prefill ms {t_k:.4f}  plain {t_p:.4f}  library(SDPA causal, GQA) {t_l:.4f}  "
-        f"bound {bms:.4f} ({bby}, {tiles} live 64x64 tiles)")
+        f"bound {bms:.4f} ({bby}, {tiles} live 64x64 tiles; the kernel's 128x128 tiles run "
+        f"{run} of them)")
     del qkv, q, k, v, o, o_r
 
     # -- K12 paged decode --------------------------------------------------------
@@ -1717,7 +1776,7 @@ def phase_kernels_ring(dev) -> dict:
     """Phase 9 (a): the merge kernels against the plain merge, K11 against
     its plain version and against the whole-window K7-K9; times."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.flash import KV_TILE, Q_TILE
+    from repro_torch.kernels.flash_attention.flash import BOUND_TILE
     from repro_torch.kernels.flash_attention.ref import NEG_INF
     from repro_torch.kernels.flash_attention.ring import (
         finalize_ref, merge_ref, ring_finalize, ring_merge,
@@ -1882,7 +1941,7 @@ def phase_kernels_ring(dev) -> dict:
     t_lf, t_lfb = cuda_ms(lib_fwd, 2), cuda_ms(lib_fwd_bwd, 1)
     del mask, lib
     tiles = ring_live_tiles(seg, RING_K, table) * hq
-    mm = 2 * Q_TILE * KV_TILE * dh  # flops of one 64 x 64 x dh product
+    mm = 2 * BOUND_TILE ** 2 * dh  # flops of one 64 x 64 x dh product
     live = int(table.sum())
     # each input read once, each output written once (the merged state is
     # the ring's own traffic): q k v and dy in, out, dq dk dv out, bf16.
@@ -1905,7 +1964,63 @@ def phase_kernels_ring(dev) -> dict:
     log(f"  K11 per layer: forward {t_f:.3f} ms (SDPA+mask {t_lf:.3f}, bound "
         f"{bms_f:.4f} {bby_f}); forward + backward {t_fb:.3f} ms (plain {t_pfb:.1f}, SDPA+mask "
         f"{t_lfb:.3f}, bound {bms:.4f} {bby}); {live} live hops, {tiles} live 64x64 tiles")
+    out.update(ring_hop_f32(q, k, v, dy, seg))
     return out
+
+
+def ring_hop_f32(q, k, v, dy, seg) -> dict:
+    """One backward hop of the ring alone: K8 and K9 in f32 (3xTF32
+    products) on q shard 1 against kv shard 0 of the SP window (hop 1 of
+    rank 1, no causal cut), with K7's f32 out and lse of the same hop;
+    against the plain backward, with times and bounds."""
+    from repro_torch.kernels.flash_attention.flash import (
+        BOUND_TILE, flash_bwd_dkv, flash_bwd_dq, flash_fwd, live_tile_pairs,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    hq, hkv, dh = q.shape[2], k.shape[2], q.shape[3]
+    qh = q.chunk(RING_K, dim=1)[1].float()
+    kh, vh = (t.chunk(RING_K, dim=1)[0].float() for t in (k, v))
+    do = dy.chunk(RING_K, dim=1)[1].float()
+    ids = (seg.chunk(RING_K, dim=1)[1].contiguous(), seg.chunk(RING_K, dim=1)[0].contiguous())
+    sl = qh.shape[1]
+    log(f"K8, K9 f32: one ring hop, q [1, {sl}, {hq}, {dh}] (shard 1) against k, v [1, {sl}, "
+        f"{hkv}, {dh}] (shard 0), f32, packed documents")
+    o32, lse = flash_fwd(qh, kh, vh, *ids)
+    dq, delta = flash_bwd_dq(qh, kh, vh, o32, do, lse, *ids)
+    dk, dv = flash_bwd_dkv(qh, kh, vh, do, lse, delta, *ids)
+    want = attention_bwd_ref(qh, kh, vh, do, lse, delta, *ids)
+    torch.cuda.synchronize()
+    errs = [check_l2(f"K8/K9 f32 hop {nm}", a_, b_, BWD_TOL["flash_f32"])
+            for nm, a_, b_ in zip(("dq", "dk", "dv"), (dq, dk, dv), want)]
+    del dq, dk, dv, want
+    t8 = cuda_ms(lambda: flash_bwd_dq(qh, kh, vh, o32, do, lse, *ids), 5)
+    t9 = cuda_ms(lambda: flash_bwd_dkv(qh, kh, vh, do, lse, delta, *ids), 5)
+    t_p = cuda_ms(lambda: attention_bwd_ref(qh, kh, vh, do, lse, delta, *ids), 1, warmup=0)
+    # yardstick only, never on the port's path: the library's f32 attention
+    # backward (dq, dk, dv together), kv heads repeated, the mask built beforehand
+    leaves = [t.transpose(1, 2).repeat_interleave(hq // t.shape[2], dim=1).requires_grad_()
+              for t in (qh, kh, vh)]
+    o_l = F.scaled_dot_product_attention(*leaves, attn_mask=(ids[0][0][:, None] == ids[1][0][None, :])[None, None])
+    t_l = cuda_ms(lambda: torch.autograd.grad(o_l, leaves, do.transpose(1, 2), retain_graph=True), 2)
+    del o_l, leaves
+    tiles = live_tile_pairs(sl, sl, *ids) * hq
+    mm = 2 * BOUND_TILE ** 2 * dh
+    rows_q, rows_kv, stat = qh.numel() * 4, kh.numel() * 4, hq * sl * 4
+    by8 = 2 * rows_q + 2 * rows_kv + rows_q + 2 * stat + rows_q  # q do, k v, out, lse delta, dq
+    by9 = 2 * rows_q + 2 * rows_kv + 2 * stat + 2 * rows_kv  # q do, k v, lse delta, dk dv
+    # f32 inputs: the least time is one pass of each product at the TF32 rate
+    b8, b9 = bound(by8, tiles * 3 * mm, TF32_FLOPS), bound(by9, tiles * 4 * mm, TF32_FLOPS)
+    shape = f"one ring hop, q [1, {sl}, {hq}, {dh}] x kv [1, {sl}, {hkv}, {dh}] f32, packed ids"
+    res = {}
+    for nm, t_k, (bms, bby), n in (("flash_bwd_dq_f32_hop", t8, b8, 3), ("flash_bwd_dkv_f32_hop", t9, b9, 4)):
+        res[nm] = dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p, bound_ms=bms, bound_by=bby,
+                       library_ms=t_l, shape=shape, live_tile_pairs=tiles,
+                       tflops_per_s=tiles * n * mm / (t_k * 1e-3) / 1e12)
+    log(f"  f32 hop: K8 ms {t8:.4f} (bound {b8[0]:.4f} {b8[1]}), K9 ms {t9:.4f} (bound "
+        f"{b9[0]:.4f} {b9[1]}); plain (dq, dk, dv) {t_p:.2f}, library (SDPA f32 backward, "
+        f"bool mask) {t_l:.4f}; {tiles} live 64x64 tiles")
+    return res
 
 
 def per_microbatch_dense(n_layers: int) -> dict[str, int]:
@@ -2111,6 +2226,9 @@ def main() -> int:
         f"beside it {t_host:.1f} s)")
     for name, rep in reports.items():
         for line in rep.splitlines():
+            if name == "flash_fwd" and ("Compiling entry" in line or "wgmma" in line
+                                        or "setmaxnreg" in line):
+                log(f"  {name}: {line.strip()}")  # each instantiation, and ptxas's wgmma notes
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
@@ -2139,6 +2257,8 @@ def main() -> int:
     record["model_lm"] = timed("7 model_lm", phase_model_lm, dev)
     record["train_ssm"] = timed("8 train_ssm", phase_train_ssm, K, dev)
     record["kernels"].update(timed("9a kernels_ring", phase_kernels_ring, dev))
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        record["kernels"][name]["f32_hop"] = record["kernels"].pop(f"{name}_f32_hop")
     record["train_dense"] = timed("9bc train_dense", phase_train_dense, K, dev)
 
     # launches: each main path's own count, reset to 0 just before that run

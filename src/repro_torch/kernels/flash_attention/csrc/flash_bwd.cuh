@@ -20,7 +20,8 @@
 //
 // Bound on the H100: tensor-core operations.  K8 forms three 64 x 64 x dh
 // products per live tile (q k^T, do v^T, ds k), K9 four (k q^T, v do^T,
-// p^T do, ds^T q), against 2 * dh bytes per row of each operand.
+// p^T do, ds^T q), against 2 * dh bytes per row of each operand.  In f32
+// (the ring's backward hops) each product runs three times in TF32.
 //
 // Design: no atomics and no cross-block reduction, as on the TPU.
 // K8: one block of 4 warps per (q tile of 64 rows, q head, batch), each
@@ -35,8 +36,9 @@
 // has the register-resident operand on the left and reuses the forward's
 // fragment code: scores() for the two score-shaped products, accumulate()
 // (the P V step of the forward) for the two accumulations.  In bf16, p and
-// ds are rounded to bf16 as the A operand of their products (the f32 path
-// keeps them exact).  Operand tiles stream in with cp.async, one buffer
+// ds are rounded to bf16 as the A operand of their products; in f32 they
+// stay f32 and every product is 3xTF32 mma.sync (flash_common.cuh), about
+// 1e-6 from exact f32.  Operand tiles stream in with cp.async, one buffer
 // each, the next tile's loads issued as soon as the current one's last
 // reader is done.  Not yet used: wgmma, TMA, double buffers.
 
@@ -82,7 +84,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) 
   T* Os = Qs + BQ * LD;  // do
   T* Ks = Os + BQ * LD;
   T* Vs = Ks + BK * LD;
-  float* Ps = reinterpret_cast<float*>(Vs + BK * LD);  // f32 path only
+  float* Ps = reinterpret_cast<float*>(Vs + BK * LD);  // f32 path: P / dS staging
   __shared__ int qseg_s[BQ];
   __shared__ float delta_s[BQ];
 
@@ -212,7 +214,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Params p)
   T* Vs = Ks + BK * LD;
   T* Qs = Vs + BK * LD;
   T* Os = Qs + BQ * LD;  // do
-  float* Ps = reinterpret_cast<float*>(Os + BQ * LD);  // f32 path only
+  float* Ps = reinterpret_cast<float*>(Os + BQ * LD);  // f32 path: P / dS staging
   __shared__ int kseg_s[BK];
   __shared__ int qseg_s[BQ];
   __shared__ float lse_s[BQ];

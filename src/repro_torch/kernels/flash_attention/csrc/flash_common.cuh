@@ -1,15 +1,23 @@
-// Device helpers shared by the flash-attention kernels (flash_fwd.cu: K7,
-// flash_bwd.cuh: K8 and K9).
+// Device helpers shared by the 64-row flash-attention kernels: the f32
+// forward (flash_fwd.cu: K7 on f32 inputs) and the backward (flash_bwd.cuh:
+// K8 and K9).
 //
 // Tiles are 64 rows of a [S, DH] matrix held in shared memory with a
-// 16-byte row pad (conflict-free ldmatrix).  A warp owns 16 rows of the
-// left-hand operand; its products land in the mma.sync m16n8k16
-// accumulator layout: a lane owns rows g = lane / 4 and g + 8, and in every
-// 8-column tile nt the columns nt * 8 + 2 * t + {0, 1}, t = lane % 4;
-// s[nt][0..1] belong to row g, s[nt][2..3] to row g + 8.  bf16 operands go
-// through mma.sync with fp32 accumulation; the f32 path keeps the same
-// fragment ownership but forms each product with SIMT FMAs, so its
-// products are exact fp32.
+// 16-byte row pad.  A warp owns 16 rows of the left-hand operand; its
+// products land in the mma.sync m16n8 accumulator layout: a lane owns rows
+// g = lane / 4 and g + 8, and in every 8-column tile nt the columns
+// nt * 8 + 2 * t + {0, 1}, t = lane % 4; s[nt][0..1] belong to row g,
+// s[nt][2..3] to row g + 8.  bf16 operands go through mma.sync m16n8k16
+// (ldmatrix fragments, fp32 accumulation).  f32 operands go through
+// mma.sync m16n8k8 in TF32 three times (3xTF32): each operand x splits
+// into hi = rna(x) and lo = rna(x - hi) (rna: to nearest, ties away, as
+// cvt.rna.tf32.f32), 11 significant bits each, and every 8-deep step
+// accumulates a_lo b_hi + a_hi b_lo, then a_hi b_hi; the dropped a_lo b_lo
+// and the tensor cores' own sums leave a tile's product about 1e-6 from
+// exact f32, where one TF32 pass (1e-3) would break the f32 reference's
+// gates.  A sweep adds each tile's product to its running sum in f32
+// (accumulate()).  The accumulator layout is the same as bf16's, so the
+// masks and the softmax do not change.
 
 #pragma once
 
@@ -23,7 +31,9 @@ constexpr int BQ = 64;  // q rows per tile
 constexpr int BK = 64;  // kv rows per tile
 constexpr int kWarps = 4;  // 16 rows each
 constexpr int kThreads = kWarps * 32;
-constexpr int PLD = 64 + 4;  // row stride of the f32 path's product staging
+// row stride of the f32 path's product staging: 72 = 8 mod 32 banks keeps
+// its float2 stores and A-fragment loads free of bank conflicts
+constexpr int PLD = 64 + 8;
 constexpr float NEG_INF = -2.0e38f;
 constexpr float LSE_FLOOR = 1e-37f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -109,6 +119,43 @@ __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uin
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from 0,
+// as cvt.rna.tf32.f32 rounds a finite x: half of the 13 dropped bits added
+// to the magnitude, then cleared: two integer operations, where the cvt
+// instruction made the f32 backward hop measurably slower.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// d += a * b for one m16n8k8 tile, TF32 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// an f32 fragment as TF32 hi and lo parts: x = hi + lo to about 22 bits
+template <int N>
+__device__ __forceinline__ void split_tf32(const float (&x)[N], uint32_t (&hi)[N], uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    hi[i] = tf32(x[i]);
+    lo[i] = tf32(x[i] - __uint_as_float(hi[i]));
+  }
+}
+
+// d += a * b for one m16n8k8 tile of f32 operands, split beforehand
+// (3xTF32): the two cross terms first, then hi * hi
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(d, a_lo, b_hi);
+  mma_tf32(d, a_hi, b_lo);
+  mma_tf32(d, a_hi, b_hi);
+}
+
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
@@ -142,17 +189,22 @@ __device__ __forceinline__ void scores(float (&s)[8][4], const T* Aw, const T* B
       }
     }
   } else {
-#pragma unroll 4
-    for (int kk = 0; kk < DH; ++kk) {
-      const float qa = Aw[g * LD + kk], qb = Aw[(g + 8) * LD + kk];
+    // m16n8k8 steps: A rows g, g + 8 and columns t, t + 4 of the step; B
+    // (column n of B^T is row n of B) rows nt * 8 + g, the same columns.
+    // With row_ld = DH + 4 floats both reads hit 32 distinct banks.
+#pragma unroll 2
+    for (int kk = 0; kk < DH / 8; ++kk) {
+      const float* a = Aw + kk * 8 + t;
+      const float af[4] = {a[g * LD], a[(g + 8) * LD], a[g * LD + 4], a[(g + 8) * LD + 4]};
+      uint32_t a_hi[4], a_lo[4];
+      split_tf32(af, a_hi, a_lo);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        const float k0 = Bs[(nt * 8 + 2 * t) * LD + kk];
-        const float k1 = Bs[(nt * 8 + 2 * t + 1) * LD + kk];
-        s[nt][0] = fmaf(qa, k0, s[nt][0]);
-        s[nt][1] = fmaf(qa, k1, s[nt][1]);
-        s[nt][2] = fmaf(qb, k0, s[nt][2]);
-        s[nt][3] = fmaf(qb, k1, s[nt][3]);
+        const float* bp = Bs + (nt * 8 + g) * LD + kk * 8 + t;
+        const float bf[2] = {bp[0], bp[4]};
+        uint32_t b_hi[2], b_lo[2];
+        split_tf32(bf, b_hi, b_lo);
+        mma_3xtf32(s[nt], a_hi, a_lo, b_hi, b_lo);
       }
     }
   }
@@ -184,27 +236,46 @@ __device__ __forceinline__ void accumulate(float (&acc)[DH / 8][4], const float 
       }
     }
   } else {
-    // stage the warp's P rows, then each lane reads full rows of it
+    // stage the warp's P rows (the accumulator layout), then read them back
+    // as m16n8k8 A fragments.  The 8-deep step's index k is a label: lane
+    // (g, t) takes k = t from column 2t of the step and k = t + 4 from
+    // column 2t + 1, in P and in C alike, so a float2 load gives a lane both
+    // of a row's A entries, and C's rows 2t, 2t + 1 land on 32 distinct
+    // banks (row_ld = 4 mod 32); P's float2 accesses are conflict-free with
+    // PLD = 8 mod 32.  The tile's 64-deep product goes into a zeroed
+    // partial, added to acc with one rounded f32 add: the tensor cores'
+    // own accumulation does not round to nearest, and over the thousands
+    // of tiles of a long sweep its error would build up in acc.
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
-      Pw[g * PLD + nt * 8 + 2 * t] = p[nt][0];
-      Pw[g * PLD + nt * 8 + 2 * t + 1] = p[nt][1];
-      Pw[(g + 8) * PLD + nt * 8 + 2 * t] = p[nt][2];
-      Pw[(g + 8) * PLD + nt * 8 + 2 * t + 1] = p[nt][3];
+      store2(Pw + g * PLD + nt * 8 + 2 * t, p[nt][0], p[nt][1]);
+      store2(Pw + (g + 8) * PLD + nt * 8 + 2 * t, p[nt][2], p[nt][3]);
     }
     __syncwarp();
-#pragma unroll 4
-    for (int j = 0; j < 64; ++j) {
-      const float pa = Pw[g * PLD + j], pb = Pw[(g + 8) * PLD + j];
+    constexpr int NC = DH / 8 < 8 ? DH / 8 : 8;  // 8-column blocks per partial
 #pragma unroll
-      for (int d = 0; d < DH / 8; ++d) {
-        const float v0 = Cs[j * LD + d * 8 + 2 * t];
-        const float v1 = Cs[j * LD + d * 8 + 2 * t + 1];
-        acc[d][0] = fmaf(pa, v0, acc[d][0]);
-        acc[d][1] = fmaf(pa, v1, acc[d][1]);
-        acc[d][2] = fmaf(pb, v0, acc[d][2]);
-        acc[d][3] = fmaf(pb, v1, acc[d][3]);
+    for (int d0 = 0; d0 < DH / 8; d0 += NC) {
+      float part[NC][4] = {};
+#pragma unroll 2
+      for (int kk = 0; kk < 8; ++kk) {
+        const float2 x = *reinterpret_cast<const float2*>(Pw + g * PLD + kk * 8 + 2 * t);
+        const float2 y = *reinterpret_cast<const float2*>(Pw + (g + 8) * PLD + kk * 8 + 2 * t);
+        const float af[4] = {x.x, y.x, x.y, y.y};
+        uint32_t a_hi[4], a_lo[4];
+        split_tf32(af, a_hi, a_lo);
+        const float* c = Cs + (kk * 8 + 2 * t) * LD + d0 * 8 + g;
+#pragma unroll
+        for (int d = 0; d < NC; ++d) {
+          const float bf[2] = {c[d * 8], c[LD + d * 8]};
+          uint32_t b_hi[2], b_lo[2];
+          split_tf32(bf, b_hi, b_lo);
+          mma_3xtf32(part[d], a_hi, a_lo, b_hi, b_lo);
+        }
       }
+#pragma unroll
+      for (int d = 0; d < NC; ++d)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[d0 + d][e] += part[d][e];
     }
     __syncwarp();
   }
@@ -219,8 +290,8 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// min and max of seg[i] over i in [0, 64) across a warp (lane owns i and
-// i + 32); every lane gets both.
+// min and max across a warp of each lane's x0 and x1 (seg[i] and
+// seg[i + 32] for i = lane: a 64-row tile's range); every lane gets both.
 __device__ __forceinline__ void warp_range(int x0, int x1, int& lo, int& hi) {
   lo = min(x0, x1);
   hi = max(x0, x1);

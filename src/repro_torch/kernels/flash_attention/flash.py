@@ -8,7 +8,8 @@ layout (strided views are fine as long as the last axis is contiguous), and
 counts each launch in its ``launches`` attribute.  The plain versions are
 ``ref.attention_ref`` and ``ref.attention_bwd_ref``.
 :func:`live_tile_pairs` counts the (q tile, kv tile) pairs the kernels'
-skip rule runs (the same pairs forward and backward), for the work bound.
+skip rule keeps, 64 x 64 for the work bound (``BOUND_TILE``) or at a
+kernel's own tile.
 """
 
 from __future__ import annotations
@@ -25,8 +26,11 @@ _STRIDES = ctypes.POINTER(_L)
 _DQ_ARGTYPES = [_P] * 10 + [_I] * 6 + [_STRIDES, ctypes.c_float, _I, _I, _P]
 _DKV_ARGTYPES = [_P] * 10 + [_I] * 6 + [_STRIDES, ctypes.c_float, _I, _I, _P]
 HEAD_DIMS = (32, 64, 128)
-Q_TILE = 64  # BQ of the source
-KV_TILE = 64  # BK of the source
+# The work bounds count 64 x 64 (q, kv) tile pairs, what the inputs need,
+# whatever tile a kernel runs (K8, K9 and K7 on f32 run 64 x 64 tiles,
+# flash_common.cuh; K7 on bf16 128 x 128, FWD_TILE).
+BOUND_TILE = 64
+FWD_TILE = 128  # BQ = BK of K7 on bf16 inputs (flash_fwd.cu, namespace wg)
 
 
 def _check(name, q, k, v, segs):
@@ -199,20 +203,20 @@ def _tile_ranges(ids, tile: int):
 
 
 def live_tile_pairs(sq: int, skv: int, q_segment_ids=None, kv_segment_ids=None,
-                    *, causal: bool = False, batch: int = 1) -> int:
-    """Number of (q tile, kv tile) pairs the kernel computes, summed over the
-    batch (multiply by the head count for a whole launch).  A pair runs
-    unless the causal triangle excludes it or its segment-id ranges are
-    disjoint."""
-    nq, nk = -(-sq // Q_TILE), -(-skv // KV_TILE)
+                    *, causal: bool = False, batch: int = 1, tile: int = BOUND_TILE) -> int:
+    """Number of (q tile, kv tile) pairs of ``tile`` rows each that the skip
+    rule keeps, summed over the batch (multiply by the head count for a
+    whole launch).  A pair runs unless the causal triangle excludes it or
+    its segment-id ranges are disjoint."""
+    nq, nk = -(-sq // tile), -(-skv // tile)
     live = torch.ones((1, nq, nk), dtype=torch.bool)
     if causal:
         qi = torch.arange(nq)[:, None]
         kj = torch.arange(nk)[None, :]
-        live = live & ((qi + 1) * Q_TILE - 1 >= kj * KV_TILE)[None]
+        live = live & ((qi + 1) * tile - 1 >= kj * tile)[None]
     if q_segment_ids is not None:
-        q_lo, q_hi = _tile_ranges(q_segment_ids.cpu(), Q_TILE)
-        k_lo, k_hi = _tile_ranges(kv_segment_ids.cpu(), KV_TILE)
+        q_lo, q_hi = _tile_ranges(q_segment_ids.cpu(), tile)
+        k_lo, k_hi = _tile_ranges(kv_segment_ids.cpu(), tile)
         live = live & (q_lo[:, :, None] <= k_hi[:, None, :]) & (k_lo[:, None, :] <= q_hi[:, :, None])
         return int(live.sum())
     return int(live.sum()) * batch

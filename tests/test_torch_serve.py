@@ -131,6 +131,10 @@ def test_profile_breakdown_families_and_idle_share(monkeypatch):
         == "K12 paged_decode"
     assert profile_serve.family("void gemv2T_kernel_val<int, int, __nv_bfloat16>") \
         == "matmul (cuBLAS)"
+    # K7's two kernels: the warp-specialised bf16 one and the f32 one
+    for k7 in ("void (anonymous namespace)::wg::flash_fwd_wg_kernel<float, 64>(Params)",
+               "void (anonymous namespace)::flash_fwd_f32_kernel<128>(Params)"):
+        assert profile_serve.family(k7) == "K7 flash_fwd"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_serve.main()
