@@ -9,8 +9,9 @@ Phases, any failure of which exits non-zero with no result line:
 1. card and toolchain: the card's name and power limit, the torch / CUDA
    versions; every kernel built from ``src/repro_torch/**/csrc/*.cu``
    (one nvcc per source, in parallel, beside the host's one-time set-up),
-   with the build seconds, each kernel's registers and spills (K7 by entry
-   function, with any ptxas notice of serialised wgmmas);
+   with the build seconds, each kernel's registers and spills (K7, K8 and
+   K9 by entry function, and the count of ptxas notices of serialised
+   wgmmas);
 2. each kernel against its plain PyTorch version on the card,
    with kernel, plain and library times from CUDA events: the forward
    kernels at the serving shapes of Wan-2.1 1.3B (x [4, 6240, 1536]; q/k/v
@@ -18,11 +19,15 @@ Phases, any failure of which exits non-zero with no result line:
    6240 x 512 under packed / padded segment layouts), K7's f32-output
    mode, and the backward kernels at the training shapes (x [10, 1637,
    1536] and [1, 7877, 1536]; q/k [10, 1637, 12, 128] and [1, 7877, 12,
-   128]; attention 7877 x 7877 and 7877 x 512, packed and padded), the
-   reductions K3 and K6 also bitwise against a second run; all of them at
-   small f32 shapes (dh 32/64/128, causal, GQA), and K7 on bf16 at small
-   shapes too (dh 32/64/128 x causal x GQA x three segment layouts, strided
-   views; its f32-out mode bitwise);
+   128]; attention 7877 x 7877 and 7877 x 512, packed and padded, self
+   and cross timed apart), the reductions K3 and K6 and the flash
+   backward K8, K9 also bitwise against a second run; all of them at small
+   f32 shapes (dh 32/64/128, causal, GQA), and K7, K8 and K9 on bf16 at
+   small shapes too (dh 32/64/128 x causal x GQA x three segment layouts,
+   strided views; K7's f32-out mode bitwise; K8/K9 with ragged Sq 200 x
+   Skv 150 and rows that see no key); K8 and K9 also at phase 9 (b)'s
+   attention ([2, 8192, 32, 64], Hkv 8, causal, packed windows), timed
+   beside SDPA's backward with the same mask;
 3. serving: Wan-2.1 1.3B at full width and depth (30 layers, random weights
    from a seed) serves 4 clips of 1-4 latent frames at 480x832 through
    ``DiffusionServeEngine``; every result finite, and every kernel's
@@ -313,6 +318,57 @@ def k7_small_bf16(dev, randn) -> None:
         f"(tol {TOL['lse_bf16']:.0e}), dead rows exact zeros, f32-out mode bitwise")
 
 
+def k89_small_bf16(dev, randn) -> None:
+    """K8 and K9 on bf16 inputs (the warp-specialised kernels) against the
+    plain backward at every head width, causal or not, GQA 1 or 4, under
+    three segment layouts (none; packed with a -1 tail; rows that see no
+    key), ragged Sq 200 x Skv 150, q, k and v strided views of fused
+    projections: dq, dk, dv within the bf16 gate, and dq exact zeros on
+    rows that see no key."""
+    from repro_torch.kernels.flash_attention.flash import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_delta_ref
+
+    sq, skv = 200, 150
+    kv_ids = segs([[(0, 50), (1, 70), (-1, 30)], [(5, 100), (9, 50)]], dev)
+    layouts = {
+        "none": (None, None),
+        "packed": (segs([[(0, 70), (1, 100), (-1, 30)], [(5, 200)]], dev), kv_ids),
+        "dead rows": (segs([[(0, 60), (7, 20), (1, 90), (-1, 30)], [(5, 100), (8, 30), (9, 70)]], dev),
+                      kv_ids),
+    }
+    n, worst, n_dead = 0, 0.0, 0
+    for dhs in (32, 64, 128):
+        for causal in (False, True):
+            for hq, hkv in ((4, 4), (4, 1)):
+                qkv = randn(2, sq, (hq + 2 * hkv) * dhs, dtype=torch.bfloat16)
+                qs_ = qkv[..., : hq * dhs].reshape(2, sq, hq, dhs)
+                kv = randn(2, skv, 2 * hkv * dhs, dtype=torch.bfloat16)
+                ks_ = kv[..., : hkv * dhs].reshape(2, skv, hkv, dhs)
+                vs_ = kv[..., hkv * dhs :].reshape(2, skv, hkv, dhs)
+                do_ = randn(2, sq, hq, dhs, dtype=torch.bfloat16)
+                for lay, ids in layouts.items():
+                    o_, l_ = flash_fwd(qs_, ks_, vs_, *ids, causal=causal, out_dtype=torch.float32)
+                    dq_, de_ = flash_bwd_dq(qs_, ks_, vs_, o_, do_, l_, *ids, causal=causal)
+                    dk_, dv_ = flash_bwd_dkv(qs_, ks_, vs_, do_, l_, de_, *ids, causal=causal)
+                    want = attention_bwd_ref(qs_, ks_, vs_, do_, l_, attention_delta_ref(do_, o_),
+                                             *ids, causal=causal)
+                    torch.cuda.synchronize()
+                    tag = f"dh={dhs} causal={causal} gqa={hq // hkv} segs={lay}"
+                    errs = [rel_l2(a_, b_) for a_, b_ in zip((dq_, dk_, dv_), want)]
+                    if not max(errs) <= BWD_TOL["flash_bf16"]:
+                        for gn, a_, b_ in zip(("dq", "dk", "dv"), (dq_, dk_, dv_), want):
+                            check_l2(f"K8/K9 bf16 {gn} {tag}", a_, b_, BWD_TOL["flash_bf16"])
+                    dead = (l_ < -1e38).transpose(1, 2)
+                    if lay == "dead rows" and not dead.any():
+                        raise AssertionError(f"K8 bf16 {tag}: the layout has no dead row")
+                    if torch.count_nonzero(dq_[dead]):
+                        raise AssertionError(f"K8 bf16 {tag}: a row that sees no key has a nonzero dq")
+                    n, worst, n_dead = n + 1, max(worst, *errs), n_dead + int(dead.sum())
+    log(f"  K8/K9 bf16 small shapes: {n} cases (dh 32/64/128 x causal x GQA 1/4 x 3 segment "
+        f"layouts, Sq {sq} x Skv {skv}, strided views): worst rel-L2 {worst:.3e} (tol "
+        f"{BWD_TOL['flash_bf16']:.0e}); {n_dead} (row, head) pairs see no key, dq exact zeros")
+
+
 def phase_kernels(dev) -> dict:
     """Phase 2: every kernel against its plain version; times."""
     from repro_torch.kernels.flash_attention.flash import (
@@ -517,11 +573,9 @@ def phase_kernels_bwd(dev) -> dict:
     """Phase 2, backward: K2, K3, K5, K6, K8 and K9 against their plain
     versions at the training shapes and small f32 shapes; times."""
     from repro_torch.kernels.flash_attention.flash import (
-        BOUND_TILE, flash_bwd_dkv, flash_bwd_dq, flash_fwd, live_tile_pairs,
+        BOUND_TILE, BWD_TILES, flash_bwd_dkv, flash_bwd_dq, flash_fwd, live_tile_pairs,
     )
-    from repro_torch.kernels.flash_attention.ref import (
-        attention_bwd_ref, attention_delta_ref, attention_ref,
-    )
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_delta_ref
     from repro_torch.kernels.fused_adaln.adaln import adaln_bwd_dmod, adaln_bwd_dx, adaln_fwd
     from repro_torch.kernels.fused_adaln.ref import adaln_bwd_dmod_ref, adaln_bwd_dx_ref
     from repro_torch.kernels.fused_rmsnorm.ref import qk_rms_bwd_ref
@@ -683,8 +737,13 @@ def phase_kernels_bwd(dev) -> dict:
         if dead.any() and torch.count_nonzero(dq[dead]) != 0:
             raise AssertionError(f"K8 {nm}: a row that sees no key has a nonzero dq")
         log(f"  K8 {nm}: {int(dead.sum())} (row, head) pairs see no key, dq exact zeros")
+        again = (*flash_bwd_dq(*args[:3], o32, do, lse, *args[3:]),
+                 *flash_bwd_dkv(*args[:3], do, lse, delta, *args[3:]))
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(again, (dq, delta, dk, dv))):
+            raise AssertionError(f"K8/K9 {nm}: a second run is not bitwise the first")
+        log(f"  K8/K9 {nm}: dq, delta, dk, dv bitwise equal on a second run")
         res[nm] = (o32, lse, do, delta)
-        del dq, dk, dv, dq_r, dk_r, dv_r
+        del dq, dk, dv, dq_r, dk_r, dv_r, again
     for dhs in (32, 64, 128):
         for causal in (False, True):
             for hq, hkv in ((4, 4), (4, 2)):
@@ -702,9 +761,7 @@ def phase_kernels_bwd(dev) -> dict:
                     tag = f"dh={dhs} causal={causal} gqa={hq // hkv} segs={ids[0] is not None}"
                     for gn, a_, b_ in zip(("dq", "dk", "dv"), (dq_, dk_, dv_), want):
                         check_l2(f"K8/K9 f32 {gn} {tag}", a_, b_, BWD_TOL["flash_f32"])
-
-    def pair(fn):
-        return lambda: [fn(nm) for nm in cases]
+    k89_small_bf16(dev, randn)
 
     def k8(nm):
         o32, lse, do, _ = res[nm]
@@ -718,19 +775,29 @@ def phase_kernels_bwd(dev) -> dict:
         o32, lse, do, delta = res[nm]
         return attention_bwd_ref(*cases[nm][:3], do, lse, delta, *cases[nm][3:])
 
-    t_k8, t_k9 = cuda_ms(pair(k8), 5), cuda_ms(pair(k9), 5)
-    t_p = cuda_ms(pair(plain), 2)
+    # self and cross apart: cross-attention's kv side is 512 rows, four
+    # 128-row K9 items a head
+    t8 = {nm: cuda_ms(lambda nm=nm: k8(nm), 5) for nm in cases}
+    t9 = {nm: cuda_ms(lambda nm=nm: k9(nm), 5) for nm in cases}
+    t_k8, t_k9 = sum(t8.values()), sum(t9.values())
+    t_p = cuda_ms(lambda: [plain(nm) for nm in cases], 2)
     # yardstick only, never on the port's path: the library's attention
     # backward (dq, dk, dv together) with the segment mask built beforehand
-    lib = {}
+    t_l = {}
     for nm, (qq, kk, vv, s1, s2) in cases.items():
         leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (qq, kk, vv)]
         o = F.scaled_dot_product_attention(*leaves, attn_mask=(s1[:, :, None] == s2[:, None, :])[:, None])
-        lib[nm] = (o, leaves, res[nm][2].transpose(1, 2))
-    t_l = cuda_ms(lambda: [torch.autograd.grad(o, lv, gg, retain_graph=True)
-                           for o, lv, gg in lib.values()], 3)
-    del lib
-    tiles = (live_tile_pairs(s, s, seg, seg) + live_tile_pairs(s, TEXT_LEN, seg, tseg)) * h
+        gg = res[nm][2].transpose(1, 2)
+        t_l[nm] = cuda_ms(lambda o=o, lv=leaves, gg=gg: torch.autograd.grad(o, lv, gg, retain_graph=True), 3)
+        del o, leaves
+    live = {"self": live_tile_pairs(s, s, seg, seg) * h,
+            "cross": live_tile_pairs(s, TEXT_LEN, seg, tseg) * h}
+    tiles = sum(live.values())
+    # the work each kernel runs: its own tiles (K8 128 q x 64 kv, K9 64 q x
+    # 128 kv), in 64 x 64 equivalents
+    run = {w: 2 * h * (live_tile_pairs(s, s, seg, seg, q_tile=qt, kv_tile=kt)
+                       + live_tile_pairs(s, TEXT_LEN, seg, tseg, q_tile=qt, kv_tile=kt))
+           for w, (qt, kt) in BWD_TILES.items()}
     mm = 2 * BOUND_TILE ** 2 * dh  # flops of one 64 x 64 x dh product
     rows_q = 2 * b * s * h * dh * 2  # q and qx, bf16
     rows_kv = 2 * (b * s + b * TEXT_LEN) * h * dh * 2  # k, v and kx, vx
@@ -741,22 +808,93 @@ def phase_kernels_bwd(dev) -> dict:
     bms9, bby9 = bound(by9, tiles * 4 * mm, BF16_FLOPS)
     src = "src/repro_torch/kernels/flash_attention/csrc/flash_bwd_{}.cu"
     shape = f"self {s}x{s} + cross {s}x{TEXT_LEN}, B={b}, H={h}, dh={dh}, bf16"
+    lm = k89_lm_row(dev, g)
     out["flash_bwd_dq"] = dict(
         route="cuda", source=src.format("dq"),
         replaces="src/repro/kernels/flash_attention/flash.py:279",
         max_abs_err=k8_err, ms=t_k8, plain_ms=t_p, bound_ms=bms8, bound_by=bby8,
-        library_ms=t_l, shape=shape, live_tile_pairs=tiles,
-        tflops_per_s=tiles * 3 * mm / (t_k8 * 1e-3) / 1e12)
+        library_ms=sum(t_l.values()), shape=shape, live_tile_pairs=tiles, run_tile_pairs=run["dq"],
+        self_ms=t8["self"], cross_ms=t8["cross"], live_by_part=live,
+        library_by_part=t_l, tflops_per_s=tiles * 3 * mm / (t_k8 * 1e-3) / 1e12, lm=lm["dq"])
     out["flash_bwd_dkv"] = dict(
         route="cuda", source=src.format("dkv"),
         replaces="src/repro/kernels/flash_attention/flash.py:375",
         max_abs_err=k9_err, ms=t_k9, plain_ms=t_p, bound_ms=bms9, bound_by=bby9,
-        library_ms=t_l, shape=shape, live_tile_pairs=tiles,
-        tflops_per_s=tiles * 4 * mm / (t_k9 * 1e-3) / 1e12)
-    log(f"  K8 ms {t_k8:.4f}  K9 ms {t_k9:.4f} (self + cross)  plain (dq, dk, dv) {t_p:.4f}  "
-        f"library (SDPA backward, bool mask) {t_l:.4f}  bound K8 {bms8:.4f} ({bby8}) "
-        f"K9 {bms9:.4f} ({bby9}), {tiles} live 64x64 tiles")
+        library_ms=sum(t_l.values()), shape=shape, live_tile_pairs=tiles, run_tile_pairs=run["dkv"],
+        self_ms=t9["self"], cross_ms=t9["cross"], live_by_part=live,
+        library_by_part=t_l, tflops_per_s=tiles * 4 * mm / (t_k9 * 1e-3) / 1e12, lm=lm["dkv"])
+    log(f"  K8 ms {t_k8:.4f} (self {t8['self']:.4f} + cross {t8['cross']:.4f})  K9 ms {t_k9:.4f} "
+        f"(self {t9['self']:.4f} + cross {t9['cross']:.4f})  plain (dq, dk, dv) {t_p:.4f}  library "
+        f"(SDPA backward, bool mask) {sum(t_l.values()):.4f} (self {t_l['self']:.4f} + cross "
+        f"{t_l['cross']:.4f})  bound K8 {bms8:.4f} ({bby8}, {bms8 / t_k8:.1%}) K9 {bms9:.4f} "
+        f"({bby9}, {bms9 / t_k9:.1%}); {tiles} live 64x64 tiles (self {live['self']}, cross "
+        f"{live['cross']}); the kernels' tiles run K8 {run['dq']}, K9 {run['dkv']} of them")
     return out
+
+
+def k89_lm_row(dev, g) -> dict:
+    """K8 and K9 at phase 9 (b)'s attention: Llama-3.2-1B (Hq 32, Hkv 8, dh
+    64), two packed 8192-token windows (lm_length_corpus documents and a -1
+    tail each), causal, bf16, q, k and v views of the fused projection;
+    against the plain backward (rel-L2 2e-2), timed beside SDPA's backward
+    with the same causal segment mask; bounds and tile counts."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention.flash import (
+        BOUND_TILE, BWD_TILES, flash_bwd_dkv, flash_bwd_dq, flash_fwd, live_tile_pairs,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_delta_ref
+    from repro_torch.launch.profile_train import packed_microbatches
+
+    b, s = DENSE_WINDOWS, DENSE_WINDOW
+    hq, hkv, dh = LLAMA_ATTN["hq"], LLAMA_ATTN["hkv"], LLAMA_ATTN["dh"]
+    seg = torch.from_numpy(packed_microbatches(get_config("llama3.2-1b"), s, b, 1)[0]["segment_ids"])
+    seg = seg.to(dev, torch.int32).contiguous()
+    qkv = (torch.randn((b, s, (hq + 2 * hkv) * dh), generator=g, device=dev)).to(torch.bfloat16)
+    q = qkv[..., : hq * dh].reshape(b, s, hq, dh)
+    k = qkv[..., hq * dh : (hq + hkv) * dh].reshape(b, s, hkv, dh)
+    v = qkv[..., (hq + hkv) * dh :].reshape(b, s, hkv, dh)
+    do = torch.randn((b, s, hq, dh), generator=g, device=dev).to(torch.bfloat16)
+    log(f"K8, K9 at the packed dense-LM shape: q [{b}, {s}, {hq}, {dh}], k, v Hkv {hkv}, causal, "
+        f"bf16, packed windows with a -1 tail")
+    ids = (seg, seg)
+    o32, lse = flash_fwd(q, k, v, *ids, causal=True, out_dtype=torch.float32)
+    dq, delta = flash_bwd_dq(q, k, v, o32, do, lse, *ids, causal=True)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, *ids, causal=True)
+    want = attention_bwd_ref(q, k, v, do, lse, attention_delta_ref(do, o32), *ids, causal=True)
+    torch.cuda.synchronize()
+    errs = [check_l2(f"K8/K9 LM {nm}", a_, b_, BWD_TOL["flash_bf16"])
+            for nm, a_, b_ in zip(("dq", "dk", "dv"), (dq, dk, dv), want)]
+    del dq, dk, dv, want
+    t8 = cuda_ms(lambda: flash_bwd_dq(q, k, v, o32, do, lse, *ids, causal=True), 5)
+    t9 = cuda_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, *ids, causal=True), 5)
+    t_p = cuda_ms(lambda: attention_bwd_ref(q, k, v, do, lse, delta, *ids, causal=True), 1)
+    # yardstick only, never on the port's path: the library's attention
+    # backward, kv heads repeated, the causal segment mask built beforehand
+    mask = (seg[:, :, None] == seg[:, None, :]) & torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    leaves = [t.detach().transpose(1, 2).repeat_interleave(hq // t.shape[2], dim=1).requires_grad_()
+              for t in (q, k, v)]
+    o_l = F.scaled_dot_product_attention(*leaves, attn_mask=mask[:, None])
+    t_l = cuda_ms(lambda: torch.autograd.grad(o_l, leaves, do.transpose(1, 2), retain_graph=True), 3)
+    del o_l, leaves, mask
+    tiles = live_tile_pairs(s, s, *ids, causal=True) * hq
+    mm = 2 * BOUND_TILE ** 2 * dh
+    rows_q, rows_kv, stats = q.numel() * 2, k.numel() * 2, b * hq * s * 4
+    by8 = 2 * rows_q + 2 * rows_kv + rows_q * 2 + 2 * stats + rows_q  # q do, k v, out32, lse delta, dq
+    by9 = 2 * rows_q + 2 * rows_kv + 2 * stats + 2 * rows_kv  # q do, k v, lse delta, dk dv
+    shape = f"q [{b}, {s}, {hq}, {dh}], Hkv {hkv}, causal, packed windows, bf16"
+    row = {}
+    for w, t_k, n_mm, by in (("dq", t8, 3, by8), ("dkv", t9, 4, by9)):
+        qt, kt = BWD_TILES[w]
+        bms, bby = bound(by, tiles * n_mm * mm, BF16_FLOPS)
+        run = live_tile_pairs(s, s, *ids, causal=True, q_tile=qt, kv_tile=kt) * hq * qt * kt // BOUND_TILE ** 2
+        row[w] = dict(ms=t_k, plain_ms=t_p, bound_ms=bms, bound_by=bby, library_ms=t_l,
+                      max_abs_err=max(errs), shape=shape, live_tile_pairs=tiles, run_tile_pairs=run,
+                      tflops_per_s=tiles * n_mm * mm / (t_k * 1e-3) / 1e12)
+        log(f"  K{8 if w == 'dq' else 9} LM ms {t_k:.4f}  bound {bms:.4f} ({bby}, {bms / t_k:.1%})  "
+            f"{tiles} live 64x64 tiles, its tiles run {run}")
+    log(f"  plain (dq, dk, dv) {t_p:.4f}  library (SDPA backward, causal segment mask, kv heads "
+        f"repeated) {t_l:.4f}")
+    return row
 
 
 def phase_serve(K, dev) -> dict:
@@ -2224,13 +2362,17 @@ def main() -> int:
     pool.shutdown()
     log(f"built {len(reports)} kernels in {time.perf_counter() - t0:.1f} s (the host's set-up "
         f"beside it {t_host:.1f} s)")
+    notices = 0
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if name == "flash_fwd" and ("Compiling entry" in line or "wgmma" in line
-                                        or "setmaxnreg" in line):
-                log(f"  {name}: {line.strip()}")  # each instantiation, and ptxas's wgmma notes
+            # each flash instantiation (K7, K8, K9), and ptxas's wgmma notes
+            if name.startswith(("flash_fwd", "flash_bwd")) and (
+                    "Compiling entry" in line or "wgmma" in line or "setmaxnreg" in line):
+                log(f"  {name}: {line.strip()}")
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+            notices += "instructions are serialized" in line
+    log(f"  ptxas notices of serialised wgmmas (C7511, C7514, C7520, ...): {notices}")
 
     record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     record["phase_s"] = {"build": time.perf_counter() - t0}

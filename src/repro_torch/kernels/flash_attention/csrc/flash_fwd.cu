@@ -79,7 +79,7 @@ struct Params {
 };
 
 template <int DH>
-constexpr int smem_bytes() { return 3 * tile_bytes<float, DH>() + staging_bytes<float>(); }
+constexpr int smem_bytes() { return 3 * tile_bytes<float, DH>() + kStagingBytes; }
 
 template <int DH>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p) {
@@ -283,16 +283,6 @@ struct Params {
   int causal;
 };
 
-// ids of rows [r0, r0 + 128), four a lane (row r0 + lane + 32 m); rows
-// past S repeat the last id, so a range covers real rows only
-__device__ __forceinline__ void fetch_ids(int (&x)[4], const int* seg, int r0, int S) {
-#pragma unroll
-  for (int m = 0; m < 4; ++m) x[m] = seg[min(r0 + static_cast<int>(threadIdx.x % 32) + 32 * m, S - 1)];
-}
-__device__ __forceinline__ void id_range(const int (&x)[4], int& lo, int& hi) {
-  warp_range(min(min(x[0], x[1]), min(x[2], x[3])), max(max(x[0], x[1]), max(x[2], x[3])), lo, hi);
-}
-
 template <int DH>
 struct Smem {
   using C = Cfg<DH>;
@@ -313,34 +303,15 @@ struct Smem {
   __device__ int* ids(int s) const { return reinterpret_cast<int*>(base + C::kIdsOff) + BK * s; }
 };
 
-// A ring position: stage index and phase parity
-template <int N>
-struct Ring {
-  int i = 0;
-  uint32_t phase = 0;
-  __device__ void advance() {
-    if (++i == N) {
-      i = 0;
-      phase ^= 1;
-    }
-  }
-};
-
 // One work item: a q tile of one head of one batch entry.  Items are
-// numbered heaviest first: heads and batch fastest, q tiles from the last
-// down (under the causal mask the last tiles see the most keys).  Block b
-// of G takes, in round r, item r G + b for even r and r G + G - 1 - b for
-// odd r: a snake over the sorted items keeps the blocks' sums of work level.
+// numbered heaviest first (dealt by item_index): heads and batch fastest, q
+// tiles from the last down (under the causal mask the last tiles see the
+// most keys).
 struct Item {
   int q0, h, hk, b, n_tiles;
   const int* qseg;  // the batch entry's ids, or null
   const int* kseg;
 };
-
-__device__ __forceinline__ int item_index(int round) {
-  const int g = static_cast<int>(gridDim.x), b = static_cast<int>(blockIdx.x);
-  return round * g + (round % 2 ? g - 1 - b : b);
-}
 
 __device__ __forceinline__ Item item(const Params& p, int n) {
   const int n_q = (p.Sq + BQ - 1) / BQ, hb = p.Hq * p.B;
@@ -490,13 +461,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[DH / 2], uint32_t (&pf)[BK /
   wgmma_commit();
 }
 
-// 2^x on the special-function unit
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The rows' running max (raw scores) and sum, two rows a lane
 struct RowState {
   float m_a, m_b, l_a, l_b;
@@ -562,24 +526,6 @@ __device__ __forceinline__ void softmax(float (&s)[BK / 2], RowState& r, float& 
     }
   }
   softmax_tile(s, r, corr_a, corr_b, scale2);
-}
-
-// P (the accumulator layout of S) as the bf16 A fragments of P V: the
-// layout of two adjacent 8-column blocks is that of one 16-deep step
-__device__ __forceinline__ void to_bf16(uint32_t (&pf)[BK / 16][4], const float (&s)[BK / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    pf[kk][0] = pack_f32(s[8 * kk + 0], s[8 * kk + 1]);
-    pf[kk][1] = pack_f32(s[8 * kk + 2], s[8 * kk + 3]);
-    pf[kk][2] = pack_f32(s[8 * kk + 4], s[8 * kk + 5]);
-    pf[kk][3] = pack_f32(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
-
-// A warp's release of a stage to the producer, once its lanes are done
-__device__ __forceinline__ void release(uint64_t* bar) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
 }
 
 // A consumer warpgroup: 64 q rows of each of the block's items, over every

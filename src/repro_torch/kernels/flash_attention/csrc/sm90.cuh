@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the forward kernel (flash_fwd.cu):
-// mbarriers, TMA tile loads, wgmma and its shared-memory descriptors,
-// register reallocation between warpgroups, and the host-side tensor map.
-// Inline PTX throughout (no CUTLASS headers, so nvcc builds in seconds).
+// Hopper (sm_90a) building blocks of the warp-specialised flash kernels
+// (flash_fwd.cu: K7; flash_bwd.cuh: K8 and K9): mbarriers and their rings,
+// TMA tile loads, wgmma and its shared-memory descriptors, register
+// reallocation between warpgroups, the persistent blocks' work dealing, and
+// the host-side tensor map.  Inline PTX throughout (no CUTLASS headers, so
+// nvcc builds in seconds).
 
 #pragma once
 
@@ -39,6 +41,42 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
       "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
       "@P1 bra DONE;\nbra WAIT;\nDONE:\n}\n"
       :: "r"(smem_u32(bar)), "r"(phase) : "memory");
+}
+
+// A ring position: stage index and phase parity
+template <int N>
+struct Ring {
+  int i = 0;
+  uint32_t phase = 0;
+  __device__ void advance() {
+    if (++i == N) {
+      i = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// A warp's release of a stage to the producer, once its lanes are done
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+}
+
+// -- persistent blocks ----------------------------------------------------------
+
+// The item a block takes in round `round`, items numbered heaviest first:
+// block b of G takes r G + b for even r and r G + G - 1 - b for odd r, a
+// snake over the sorted items that keeps the blocks' sums of work level.
+__device__ __forceinline__ int item_index(int round) {
+  const int g = static_cast<int>(gridDim.x), b = static_cast<int>(blockIdx.x);
+  return round * g + (round % 2 ? g - 1 - b : b);
+}
+
+// 2^x on the special-function unit
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // -- TMA ------------------------------------------------------------------------
@@ -128,6 +166,23 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
       "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
       "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A B^T for one k16 step: A [64, 16] and B [64, 16], both K-major
+// in shared memory (descriptors da, db); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -41,8 +41,8 @@ from repro_torch.train.steps import make_paged_prefill_step
 
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("K7 flash_fwd", ("flash_fwd_",)),  # flash_fwd_wg_kernel (bf16), flash_fwd_f32_kernel
-    ("K8 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("K9 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K8 flash_bwd_dq", ("flash_bwd_dq_",)),  # flash_bwd_dq_wg_kernel (bf16), flash_bwd_dq_kernel (f32)
+    ("K9 flash_bwd_dkv", ("flash_bwd_dkv_",)),  # flash_bwd_dkv_wg_kernel, flash_bwd_dkv_kernel
     ("K11 ring_merge", ("merge_kernel",)),
     ("K11 ring_finalize", ("finalize_kernel",)),
     ("K1 adaln_fwd", ("adaln_fwd_kernel",)),
