@@ -9,15 +9,17 @@ Phases, any failure of which exits non-zero with no result line:
 1. card and toolchain: the card's name and power limit, the torch / CUDA
    versions; every kernel built from ``src/repro_torch/**/csrc/*.cu``
    (one nvcc per source, in parallel, beside the host's one-time set-up),
-   with the build seconds, each kernel's registers and spills (K7, K8 and
-   K9 by entry function, and the count of ptxas notices of serialised
-   wgmmas);
+   with the build seconds, each kernel's registers and spills (K1, K5/K6,
+   K7, K8 and K9 by entry function, and the count of ptxas notices of
+   serialised wgmmas);
 2. each kernel against its plain PyTorch version on the card,
-   with kernel, plain and library times from CUDA events: the forward
+   with kernel, plain and library times from CUDA events (K1, K5 and K6
+   as device times behind a sleeping kernel): the forward
    kernels at the serving shapes of Wan-2.1 1.3B (x [4, 6240, 1536]; q/k/v
    [4, 6240, 12, 128]; self-attention 6240 x 6240 and cross-attention
    6240 x 512 under packed / padded segment layouts), K7's f32-output
-   mode, and the backward kernels at the training shapes (x [10, 1637,
+   mode, K1 also at the training shapes, and the backward kernels at the
+   training shapes (x [10, 1637,
    1536] and [1, 7877, 1536]; q/k [10, 1637, 12, 128] and [1, 7877, 12,
    128]; attention 7877 x 7877 and 7877 x 512, packed and padded, self
    and cross timed apart), the reductions K3 and K6 and the flash
@@ -127,6 +129,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import importlib
+import itertools
 import json
 import pathlib
 import subprocess
@@ -407,18 +410,40 @@ def phase_kernels(dev) -> dict:
         want = adaln_modulate_ref(xs, ms_[:, 1], ms_[:, 0])
         for nm, a_, b_ in zip(("y", "mu", "rstd"), got, want):
             check(f"K1 {nm} f32 {list(shape)}", max_err(a_, b_), TOL["norm_f32"])
-    t_k = cuda_ms(lambda: adaln_fwd(x, sc, sh), 20)
+    t_k = device_ms(lambda: adaln_fwd(x, sc, sh), 50)
     t_p = cuda_ms(lambda: adaln_modulate_ref(x, sc, sh), 5)
     nbytes = 2 * x.numel() * 2 + 2 * b * d * 4 + 2 * b * s * 4
     bms, bby = bound(nbytes, 8 * x.numel(), F32_FLOPS)
+    log(f"  K1 ms {t_k:.4f}  plain {t_p:.4f}  bound {bms:.4f} ({bby}, {bms / t_k:.1%})")
+    del x, y, yr, mu, mur, rstd, rr
+    # the training buckets' shapes, where a microbatch launches K1 4L+1 times
+    train = []
+    for bt, st_ in ((10, 1637), (1, 7877)):
+        log(f"K1 adaln_fwd  x [{bt}, {st_}, {d}] bf16")
+        xt = randn(bt, st_, d, dtype=torch.bfloat16, scale=2.0, shift=0.3)
+        mt = randn(bt, 6, d, scale=0.1)
+        got, want = adaln_fwd(xt, mt[:, 1], mt[:, 0]), adaln_modulate_ref(xt, mt[:, 1], mt[:, 0])
+        for nm, a_, b_, tol in zip(("y (bf16)", "mu", "rstd"), got, want,
+                                   (TOL["norm_bf16"], TOL["stat"], TOL["stat"])):
+            check(f"K1 {nm} [{bt}, {st_}]", max_err(a_, b_), tol)
+        k1_err = max(k1_err, max_err(got[0], want[0]))
+        # x [10, 1637] and [1, 7877] come near or under the 50 MB L2: cycle
+        # through copies of the inputs that together exceed it three times
+        nb = 2 * xt.numel() * 2 + 2 * bt * d * 4 + 2 * bt * st_ * 4
+        sets = [(xt, mt[:, 1], mt[:, 0])] + [(xt.clone(), mt[:, 1].clone(), mt[:, 0].clone())
+                                             for _ in range(-(-150_000_000 // nb) - 1)]
+        cyc = itertools.cycle(sets)
+        tt = device_ms(lambda: adaln_fwd(*next(cyc)), 50)
+        tb, _ = bound(nb, 8 * xt.numel(), F32_FLOPS)
+        train.append(dict(shape=[bt, st_, d], ms=tt, bound_ms=tb))
+        log(f"  K1 ms {tt:.4f}  bound {tb:.4f} (bytes, {tb / tt:.1%})")
+        del xt, got, want, sets, cyc
     out["adaln_fwd"] = dict(
         route="cuda", source="src/repro_torch/kernels/fused_adaln/csrc/adaln_fwd.cu",
         replaces="src/repro/kernels/fused_adaln/adaln.py:58",
         max_abs_err=k1_err, ms=t_k, plain_ms=t_p, bound_ms=bms, bound_by=bby,
-        library_ms=None, shape="x [4, 6240, 1536] bf16",
+        library_ms=None, shape="x [4, 6240, 1536] bf16", train=train,
     )
-    log(f"  K1 ms {t_k:.4f}  plain {t_p:.4f}  bound {bms:.4f} ({bby})")
-    del x, y, yr, mu, mur, rstd, rr
 
     # -- K4 joint q/k RMSNorm forward ------------------------------------
     log("K4 qk_rms_fwd  q, k [4, 6240, 12, 128] bf16 as views of qkv [4, 6240, 4608]")
@@ -675,8 +700,8 @@ def phase_kernels_bwd(dev) -> dict:
     b, s = train_shapes[0]
     dyq, dyk, q, k, wq, wk, rq, rk = rms_case(b, s, h, dh, torch.bfloat16)
     n = q.numel()
-    t_k5 = cuda_ms(lambda: qk_rms_bwd_dx(dyq, dyk, q, k, wq, wk, rq, rk), 20)
-    t_k6 = cuda_ms(lambda: qk_rms_bwd_dw(dyq, dyk, q, k, rq, rk), 20)
+    t_k5 = device_ms(lambda: qk_rms_bwd_dx(dyq, dyk, q, k, wq, wk, rq, rk), 50)
+    t_k6 = device_ms(lambda: qk_rms_bwd_dw(dyq, dyk, q, k, rq, rk), 50)
     t_p = cuda_ms(lambda: qk_rms_bwd_ref(dyq, dyk, q, k, wq, wk, rq, rk), 5)
     # yardstick only, never on the port's path: the library norm's backward,
     # once per tensor, for the input (K5) and for the weight (K6)
@@ -698,8 +723,8 @@ def phase_kernels_bwd(dev) -> dict:
         max_abs_err=k6_err, ms=t_k6, plain_ms=t_p, bound_ms=bms6, bound_by=bby6,
         library_ms=t_l6, shape=shape)
     log(f"  K5 ms {t_k5:.4f}  K6 ms {t_k6:.4f}  plain (dx and dw) {t_p:.4f}  library "
-        f"(F.rms_norm backward x2) dx {t_l5:.4f} dw {t_l6:.4f}  bound K5 {bms5:.4f} ({bby5}) "
-        f"K6 {bms6:.4f} ({bby6})")
+        f"(F.rms_norm backward x2) dx {t_l5:.4f} dw {t_l6:.4f}  bound K5 {bms5:.4f} ({bby5}, "
+        f"{bms5 / t_k5:.1%}) K6 {bms6:.4f} ({bby6}, {bms6 / t_k6:.1%})")
     del dyq, dyk, q, k
 
     # -- K8, K9 flash-attention backward ---------------------------------
@@ -2366,7 +2391,7 @@ def main() -> int:
     for name, rep in reports.items():
         for line in rep.splitlines():
             # each flash instantiation (K7, K8, K9), and ptxas's wgmma notes
-            if name.startswith(("flash_fwd", "flash_bwd")) and (
+            if name.startswith(("flash_fwd", "flash_bwd", "adaln_fwd", "rmsnorm_bwd")) and (
                     "Compiling entry" in line or "wgmma" in line or "setmaxnreg" in line):
                 log(f"  {name}: {line.strip()}")
             if "registers" in line or "spill" in line:

@@ -19,12 +19,14 @@ import torch
 from .. import _build
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 6 + [_I] * 3 + [_L] * 2 + [ctypes.c_float, _I, _P]
+_ARGTYPES = [_P] * 6 + [_I] * 5 + [_L] * 2 + [ctypes.c_float, _I, _P]
 _DX_ARGTYPES = [_P] * 6 + [_I] * 3 + [_L, _I, _P]
 _DMOD_ARGTYPES = [_P] * 8 + [_I] * 4 + [_P]
 _NAIVE_ARGTYPES = [_P] * 6 + [_I] * 4 + [_P]
-THREADS = 128  # one block per row, as in the sources
-MAX_CHUNKS = 8  # 16-byte chunks a thread holds
+MAX_ROW_CHUNKS = 1024  # 16-byte chunks of a row: K1's 4 warps or K2's 128 threads, 8 a lane
+FWD_WARPS = 8  # K1: warps a block (kThreads / 32 in adaln_fwd.cu)
+FWD_BLOCKS = 3 * 132  # K1's grid: three resident blocks on each of the H100's 132 SMs
+FWD_MIN_ROWS = 2 * FWD_WARPS  # K1: rows a block takes at least
 DMOD_ROW_CHUNK = 32  # rows per partial sum of K3 (kRowChunk in the source)
 
 
@@ -33,9 +35,19 @@ def _check_row(name, x):
         raise ValueError(f"{name} needs x contiguous [B, S, D] in bf16 or f32")
     d = x.shape[2]
     vec = 16 // x.element_size()
-    if d % vec or d // vec > THREADS * MAX_CHUNKS or x.data_ptr() % 16:
+    if d % vec or d // vec > MAX_ROW_CHUNKS or x.data_ptr() % 16:
         raise ValueError(f"{name}: D={d} must be a multiple of {vec} and at most "
-                         f"{THREADS * MAX_CHUNKS * vec}, with x 16-byte aligned")
+                         f"{MAX_ROW_CHUNKS * vec}, with x 16-byte aligned")
+
+
+def fwd_row_blocks(b: int, s: int) -> tuple[int, int]:
+    """K1's split of the rows: each block takes a run of ``rows`` rows of
+    one sample, ``per_sample`` runs a sample (the grid is ``(per_sample,
+    b)``), so that about ``FWD_BLOCKS`` blocks fill the card and no run
+    crosses into the next sample.  Returns ``(rows, per_sample)``."""
+    per_sample = max(1, min(-(-s // FWD_MIN_ROWS), FWD_BLOCKS // b))
+    rows = -(-s // per_sample)
+    return rows, -(-s // rows)
 
 
 def _check_bwd(name, dy, x, mu, rstd):
@@ -66,12 +78,13 @@ def adaln_fwd(x, scale, shift, eps: float = 1e-6):
     rstd = torch.empty((b, s), dtype=torch.float32, device=x.device)
     if b * s == 0:
         return y, mu, rstd
+    rows, per_sample = fwd_row_blocks(b, s)
     fn = _build.bind("adaln_fwd", "adaln_fwd", _ARGTYPES)
     with torch.cuda.device(x.device):
         code = fn(
             x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
             y.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
-            b * s, s, d, scale.stride(0), shift.stride(0), eps,
+            b, s, d, rows, per_sample, scale.stride(0), shift.stride(0), eps,
             int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream,
         )

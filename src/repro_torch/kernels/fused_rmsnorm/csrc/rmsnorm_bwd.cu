@@ -19,12 +19,19 @@
 // holding dh/32 consecutive elements (one vector load of dy, one of x, one
 // store of dx), the row mean a warp shuffle reduction.  x arrives as the
 // strided [B, S, H, dh] view of the fused qkv projection that K4 took (no
-// copy); dy and dx are contiguous; blockIdx.y picks the tensor.  K6: the
-// D-tile coalesced reduction of K3 on narrow rows.  A block of 256 threads
-// covers 256 / dh rows at a time with its threads across dh, marching down
-// a chunk of rows in fp32 registers; the row groups of the block are added
-// in a fixed order through shared memory, each block writes one partial
-// row, and a second kernel adds the partials of each tensor in chunk order.
+// copy); dy and dx are contiguous; blockIdx.y picks the tensor.  K6: a
+// block of 256 threads sums a chunk of rows of one tensor.  A row takes
+// dh / 8 lanes (bf16; dh / 4 in f32), one 16-byte vector each, so the block
+// has 16 lane groups at dh 128 in bf16 (more at dh 32 and 64); each group
+// walks its own contiguous run of rows, tokens outer and heads inner, so
+// x's strided address advances by adds (no division per row), and loads
+// four rows' vectors and their rstd (one float4) before it adds them into
+// f32 registers.  The groups' sums are added in group order through shared
+// memory into one partial row a block; a second kernel adds each tensor's
+// partials in a fixed order (eight interleaved groups, then the groups in
+// order).  The chunk is sized so that about 264 blocks a tensor fill the
+// 132 SMs (the wrapper's qk_dw_chunks); 132 or 528 were slower, and eight
+// rows in flight no faster than four (PERF.md).
 //
 // Row entries (rows of any D that is a multiple of 8 up to 8192).  K5: one
 // block of 256 threads per row, as K4 on rows: a thread holds its 16-byte
@@ -46,8 +53,8 @@ namespace {
 
 constexpr int kWarps = 8;  // K5: rows per block
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowChunk = 512;  // K6: rows per partial sum
-constexpr int kDwThreads = 256;
+constexpr int kDwThreads = 256;  // K6 q/k pass 1
+constexpr int kDwUnroll = 4;  // K6 q/k: rows a lane group loads before it adds them
 
 struct Side {  // one of the two tensors
   const void* dy;     // [rows, D] contiguous
@@ -114,43 +121,140 @@ qk_rms_bwd_dx_kernel(const Side q, const Side k, int B, int S) {
 // K6: dw — pass 1, partial sums over a chunk of rows
 // ---------------------------------------------------------------------------
 
-template <typename T>
+// The rows of a tensor, walked as tokens (b, s) outer and heads h inner:
+// row r = (b S + s) H + h, the order of dy and rstd.  Stepping to the next
+// row moves x's offset by its head stride, and by the token and batch
+// strides at the wraps: no division per row.
+struct RowWalk {
+  int h, s;
+  long long off;  // element offset of the row's x
+  __device__ RowWalk(int r, int S, int H, long long sb, long long ss, long long sh) {
+    const int bs = r / H, b = bs / S;
+    h = r - bs * H;
+    s = bs - b * S;
+    off = b * sb + s * ss + h * sh;
+  }
+  __device__ __forceinline__ void next(int S, int H, long long sb, long long ss, long long sh) {
+    off += sh;
+    if (++h == H) {
+      h = 0;
+      off += ss - H * sh;
+      if (++s == S) {
+        s = 0;
+        off += sb - S * ss;
+      }
+    }
+  }
+};
+
+// A block of 256 threads covers one chunk of `chunk` rows of one tensor
+// (blockIdx.y).  A row takes L = D / E lanes, one 16-byte vector each, so
+// the block holds G = 256 / L lane groups (16 at dh 128 in bf16); group g
+// sums the contiguous run of chunk / G rows at r0 + g chunk / G, in row
+// order, kDwUnroll rows at a time: their rstd in float4s, their dy and x
+// vectors all loaded before the first is added.  The groups' sums are
+// then added in group order through shared memory, and the block writes
+// one partial row.  chunk is a multiple of G kDwUnroll (qk_dw_chunks in the
+// wrapper), so every run starts on a float4 of rstd.
+template <typename T, int D>
 __global__ void __launch_bounds__(kDwThreads)
-qk_rms_bwd_dw_partial_kernel(const Side q, const Side k, int B, int S, int D, float* part) {
+qk_rms_bwd_dw_partial_kernel(const Side q, const Side k, int B, int S, int chunk, float* part) {
+  constexpr int E = 16 / sizeof(T);  // elements per 16-byte vector
+  constexpr int L = D / E;  // lanes per row
+  constexpr int G = kDwThreads / L;  // lane groups
   const bool is_k = blockIdx.y != 0;
   const int H = is_k ? k.H : q.H;
-  const int rows = B * S * H;
-  const int groups = kDwThreads / D;  // rows in flight
-  const int c = threadIdx.x % D, rg = threadIdx.x / D;
-  const T* x = static_cast<const T*>(is_k ? k.x : q.x);
-  const T* dy = static_cast<const T*>(is_k ? k.dy : q.dy);
-  const float* rstd = is_k ? k.rstd : q.rstd;
+  const T* __restrict__ x = static_cast<const T*>(is_k ? k.x : q.x);
+  const T* __restrict__ dy = static_cast<const T*>(is_k ? k.dy : q.dy);
+  const float* __restrict__ rstd = is_k ? k.rstd : q.rstd;
   const long long sb = is_k ? k.sb : q.sb, ss = is_k ? k.ss : q.ss, sh = is_k ? k.sh : q.sh;
+  const int rows = B * S * H;
+  const int lane = threadIdx.x % L, g = threadIdx.x / L;
+  const int run = chunk / G;
+  const long long first = static_cast<long long>(blockIdx.x) * chunk + static_cast<long long>(g) * run;
+  const int r0 = static_cast<int>(min(first, static_cast<long long>(rows)));
+  const int r1 = static_cast<int>(min(first + run, static_cast<long long>(rows)));
 
-  const int r0 = blockIdx.x * kRowChunk, r1 = min(r0 + kRowChunk, rows);
-  float acc = 0.f;
-  for (int row = r0 + rg; row < r1; row += groups) {
-    const float d = to_f32(dy[static_cast<long long>(row) * D + c]);
-    acc = fmaf(d, to_f32(x[x_offset(row, S, H, sb, ss, sh) + c]) * rstd[row], acc);
+  float acc[E];
+#pragma unroll
+  for (int u = 0; u < E; ++u) acc[u] = 0.f;
+  if (r0 < r1) {
+    RowWalk w(r0, S, H, sb, ss, sh);
+    int r = r0;
+    for (; r + kDwUnroll <= r1; r += kDwUnroll) {
+      float rr[kDwUnroll];
+#pragma unroll
+      for (int j = 0; j < kDwUnroll; j += 4) {
+        const float4 rv = *reinterpret_cast<const float4*>(rstd + r + j);
+        rr[j] = rv.x; rr[j + 1] = rv.y; rr[j + 2] = rv.z; rr[j + 3] = rv.w;
+      }
+      Pack<T, E> xv[kDwUnroll], dv[kDwUnroll];
+#pragma unroll
+      for (int j = 0; j < kDwUnroll; ++j) {
+        xv[j] = *reinterpret_cast<const Pack<T, E>*>(x + w.off + lane * E);
+        dv[j] = *reinterpret_cast<const Pack<T, E>*>(dy + static_cast<long long>(r + j) * D + lane * E);
+        w.next(S, H, sb, ss, sh);
+      }
+#pragma unroll
+      for (int j = 0; j < kDwUnroll; ++j) {
+#pragma unroll
+        for (int u = 0; u < E; ++u)
+          acc[u] = fmaf(to_f32(dv[j].v[u]), to_f32(xv[j].v[u]) * rr[j], acc[u]);
+      }
+    }
+    for (; r < r1; ++r) {  // the tensor's last rows
+      const float rr = rstd[r];
+      const Pack<T, E> xv = *reinterpret_cast<const Pack<T, E>*>(x + w.off + lane * E);
+      const Pack<T, E> dv = *reinterpret_cast<const Pack<T, E>*>(dy + static_cast<long long>(r) * D + lane * E);
+#pragma unroll
+      for (int u = 0; u < E; ++u) acc[u] = fmaf(to_f32(dv.v[u]), to_f32(xv.v[u]) * rr, acc[u]);
+      w.next(S, H, sb, ss, sh);
+    }
   }
-  __shared__ float red[kDwThreads];
-  red[threadIdx.x] = acc;
+  __shared__ float red[G][D];
+#pragma unroll
+  for (int u = 0; u < E; ++u) red[g][lane * E + u] = acc[u];
   __syncthreads();
-  if (rg == 0) {
+  if (threadIdx.x < D) {
     float t = 0.f;
-    for (int g = 0; g < groups; ++g) t += red[g * D + c];
-    part[(static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * D + c] = t;
+#pragma unroll
+    for (int i = 0; i < G; ++i) t += red[i][threadIdx.x];
+    part[(static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * D + threadIdx.x] = t;
   }
 }
 
-// pass 2: the partials of each tensor, added in chunk order
-__global__ void qk_rms_bwd_dw_reduce_kernel(const float* __restrict__ part, float* dwq,
-                                            float* dwk, int n_chunks, int D) {
-  const int c = threadIdx.x, side = blockIdx.x;
-  const float* p = part + static_cast<long long>(side) * n_chunks * D + c;
+// Pass 2 of K6 (rows and q/k): each column's partials in a fixed order.
+// Group k of kRedGroups takes chunks k, k + kRedGroups, ...; then the group
+// sums are added in order.  A block covers kRedCols columns.
+constexpr int kRedCols = 32;
+constexpr int kRedGroups = 8;
+
+__device__ __forceinline__ void dw_reduce(const float* __restrict__ part, float* __restrict__ dw,
+                                          int n_chunks, int D) {
+  __shared__ float red[kRedGroups][kRedCols];
+  const int col = threadIdx.x % kRedCols, grp = threadIdx.x / kRedCols;
+  const int c = blockIdx.x * kRedCols + col;
   float t = 0.f;
-  for (int i = 0; i < n_chunks; ++i) t += p[static_cast<long long>(i) * D];
-  (side ? dwk : dwq)[c] = t;
+  if (c < D) {
+#pragma unroll 4
+    for (int k = grp; k < n_chunks; k += kRedGroups) t += part[static_cast<long long>(k) * D + c];
+  }
+  red[grp][col] = t;
+  __syncthreads();
+  if (grp == 0 && c < D) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < kRedGroups; ++k) s += red[k][col];
+    dw[c] = s;
+  }
+}
+
+// q/k pass 2: blockIdx.y picks the tensor
+__global__ void __launch_bounds__(kRedCols * kRedGroups)
+qk_rms_bwd_dw_reduce_kernel(const float* __restrict__ part, float* dwq, float* dwk, int n_chunks,
+                            int D) {
+  const int side = blockIdx.y;
+  dw_reduce(part + static_cast<long long>(side) * n_chunks * D, side ? dwk : dwq, n_chunks, D);
 }
 
 template <typename T>
@@ -166,15 +270,29 @@ cudaError_t launch_dx(int D, Side q, Side k, int B, int S, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dw(int D, Side q, Side k, int B, int S, float* part, int n_chunks,
-                      cudaStream_t st) {
-  if (D != 32 && D != 64 && D != 128) return cudaErrorInvalidValue;
-  qk_rms_bwd_dw_partial_kernel<T><<<dim3(n_chunks, 2), kDwThreads, 0, st>>>(q, k, B, S, D, part);
+template <typename T, int D>
+cudaError_t launch_dw_d(Side q, Side k, int B, int S, float* part, int chunk, int n_chunks,
+                        cudaStream_t st) {
+  constexpr int G = kDwThreads / (D * static_cast<int>(sizeof(T)) / 16);
+  if (chunk % (G * kDwUnroll) != 0) return cudaErrorInvalidValue;
+  qk_rms_bwd_dw_partial_kernel<T, D><<<dim3(n_chunks, 2), kDwThreads, 0, st>>>(q, k, B, S, chunk,
+                                                                               part);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  qk_rms_bwd_dw_reduce_kernel<<<2, D, 0, st>>>(part, q.dw, k.dw, n_chunks, D);
+  qk_rms_bwd_dw_reduce_kernel<<<dim3((D + kRedCols - 1) / kRedCols, 2), kRedCols * kRedGroups, 0,
+                                st>>>(part, q.dw, k.dw, n_chunks, D);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dw(int D, Side q, Side k, int B, int S, float* part, int chunk, int n_chunks,
+                      cudaStream_t st) {
+  switch (D) {
+    case 32: return launch_dw_d<T, 32>(q, k, B, S, part, chunk, n_chunks, st);
+    case 64: return launch_dw_d<T, 64>(q, k, B, S, part, chunk, n_chunks, st);
+    case 128: return launch_dw_d<T, 128>(q, k, B, S, part, chunk, n_chunks, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 Side side(const void* dy, const void* x, const void* w, const void* rstd, void* dx, void* dw,
@@ -189,8 +307,6 @@ Side side(const void* dy, const void* x, const void* w, const void* rstd, void* 
 
 constexpr int kDwRows = 32;  // K6 rows: rows per partial sum (pass 1)
 constexpr int kDwCols = 128;  // K6 rows: 16-byte columns per block (pass 1)
-constexpr int kRedCols = 32;  // K6 rows: columns per block (pass 2)
-constexpr int kRedGroups = 8;  // K6 rows: groups of chunks per column (pass 2)
 
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
@@ -263,27 +379,11 @@ rms_bwd_dw_partial_kernel(const T* __restrict__ dy, const T* __restrict__ x,
     *reinterpret_cast<float4*>(dst + u) = make_float4(acc[u], acc[u + 1], acc[u + 2], acc[u + 3]);
 }
 
-// pass 2: each column's partials in a fixed order (group k takes chunks k,
-// k + 8, k + 16, ...; then the eight group sums in order)
+// K6 rows pass 2
 __global__ void __launch_bounds__(kRedCols * kRedGroups)
 rms_bwd_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw, int n_chunks,
                          int D) {
-  __shared__ float red[kRedGroups][kRedCols];
-  const int col = threadIdx.x % kRedCols, grp = threadIdx.x / kRedCols;
-  const int c = blockIdx.x * kRedCols + col;
-  float t = 0.f;
-  if (c < D) {
-#pragma unroll 4
-    for (int k = grp; k < n_chunks; k += kRedGroups) t += part[static_cast<long long>(k) * D + c];
-  }
-  red[grp][col] = t;
-  __syncthreads();
-  if (grp == 0 && c < D) {
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < kRedGroups; ++k) s += red[k][col];
-    dw[c] = s;
-  }
+  dw_reduce(part, dw, n_chunks, D);
 }
 
 template <typename T>
@@ -322,12 +422,14 @@ extern "C" int qk_rms_bwd_dx(const void* dyq, const void* dyk, const void* q, co
   return static_cast<int>(err);
 }
 
-// K6.  Arguments as K5 (no w, no dx); part: scratch of 2 * n_chunks * D
-// f32 with n_chunks = ceil(B * S * max(Hq, Hk) / 512); dwq, dwk: [D] f32.
-// Two launches (partials, then their fixed-order sum).
+// K6.  Arguments as K5 (no w, no dx); rq, rk 16-byte aligned; chunk: rows
+// per partial sum, a multiple of the lane groups times kDwUnroll; part:
+// scratch of 2 * n_chunks * D f32 with n_chunks = ceil(B * S * max(Hq, Hk)
+// / chunk); dwq, dwk: [D] f32.  Two launches (partials, then their
+// fixed-order sum).
 extern "C" int qk_rms_bwd_dw(const void* dyq, const void* dyk, const void* q, const void* k,
                              const void* rq, const void* rk, void* part, void* dwq, void* dwk,
-                             int n_chunks, int B, int S, int Hq, int Hk, int D,
+                             int chunk, int n_chunks, int B, int S, int Hq, int Hk, int D,
                              long long q_sb, long long q_ss, long long q_sh,
                              long long k_sb, long long k_ss, long long k_sh,
                              int is_bf16, void* stream) {
@@ -335,8 +437,8 @@ extern "C" int qk_rms_bwd_dw(const void* dyq, const void* dyk, const void* q, co
   const Side sk = side(dyk, k, nullptr, rk, nullptr, dwk, Hk, k_sb, k_ss, k_sh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pp = static_cast<float*>(part);
-  const cudaError_t err = is_bf16 ? launch_dw<__nv_bfloat16>(D, sq, sk, B, S, pp, n_chunks, st)
-                                  : launch_dw<float>(D, sq, sk, B, S, pp, n_chunks, st);
+  const cudaError_t err = is_bf16 ? launch_dw<__nv_bfloat16>(D, sq, sk, B, S, pp, chunk, n_chunks, st)
+                                  : launch_dw<float>(D, sq, sk, B, S, pp, chunk, n_chunks, st);
   return static_cast<int>(err);
 }
 

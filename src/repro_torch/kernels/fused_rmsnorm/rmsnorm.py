@@ -22,14 +22,31 @@ from .. import _build
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 8 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _I, _P]
 _DX_ARGTYPES = [_P] * 10 + [_I] * 5 + [_L] * 6 + [_I, _P]
-_DW_ARGTYPES = [_P] * 9 + [_I] * 6 + [_L] * 6 + [_I, _P]
+_DW_ARGTYPES = [_P] * 9 + [_I] * 7 + [_L] * 6 + [_I, _P]
 _ROW_ARGTYPES = [_P] * 4 + [_I] * 2 + [ctypes.c_float, _I, _P]
 _GATED_ARGTYPES = [_P] * 5 + [_I] * 2 + [_L] * 2 + [ctypes.c_float, _I, _P]
 _ROW_BWD_ARGTYPES = [_P] * 5 + [_I] * 3 + [_P]
 HEAD_DIMS = (32, 64, 128)
 MAX_ROW = 8192  # kMaxD of the source
-DW_ROW_CHUNK = 512  # rows per partial sum of the q/k K6 (kRowChunk in the source)
+DW_THREADS = 256  # q/k K6 pass 1: threads a block (kDwThreads in the source)
+DW_UNROLL = 4  # q/k K6 pass 1: rows a lane group loads at a time (kDwUnroll)
+DW_CHUNKS = 2 * 132  # q/k K6: target chunks a tensor, 4 blocks on each of the H100's 132 SMs
 ROW_DW_CHUNK = 32  # rows per partial sum of K6 on rows (kDwRows in the source)
+
+
+def qk_dw_chunks(b: int, s: int, h: int, dh: int, itemsize: int) -> tuple[int, int, int]:
+    """The q/k K6's split of the B*S*H rows of a tensor: ``(groups, chunk,
+    n_chunks)``.  A block of pass 1 sums one chunk of ``chunk`` rows, its
+    ``groups`` lane groups (one 16-byte vector a lane, dh / vector lanes a
+    row) each a contiguous run of ``chunk / groups`` rows in row order; the
+    chunk is a multiple of ``groups * DW_UNROLL`` and sized so that about
+    ``DW_CHUNKS`` chunks a tensor fill the card.  Both tensors take
+    ``n_chunks`` blocks, sized by the larger H."""
+    groups = DW_THREADS // (dh * itemsize // 16)
+    step = groups * DW_UNROLL
+    rows = b * s * h
+    chunk = max(1, -(-(-(-rows // DW_CHUNKS)) // step)) * step
+    return groups, chunk, -(-rows // chunk)
 
 
 def _check_inputs(name, q, k):
@@ -289,20 +306,26 @@ qk_rms_bwd_dx.launches = 0
 def qk_rms_bwd_dw(dyq, dyk, q, k, rq, rk):
     """K6: (dwq, dwk) [dh] f32 of the joint q/k RMSNorm on the card, in ONE
     launch: ``sum_rows dy * x_hat``, deterministic (partials per chunk of
-    rows, then a fixed-order sum; no atomics)."""
+    rows as :func:`qk_dw_chunks` splits them, then a fixed-order sum; no
+    atomics)."""
     _build.require_cuda("qk_rms_bwd_dw", dyq, dyk, q, k, rq, rk)
     b, s, hq, hk, d = _check_bwd("qk_rms_bwd_dw", dyq, dyk, q, k, rq, rk)
+    vec = 16 // q.element_size()
+    if not (_build.aligned(q, vec) and _build.aligned(k, vec)):
+        raise ValueError("qk_rms_bwd_dw needs each head row 16-byte aligned")
+    if rq.data_ptr() % 16 or rk.data_ptr() % 16:
+        raise ValueError("qk_rms_bwd_dw needs each rstd 16-byte aligned")
     dw = torch.empty((2, d), dtype=torch.float32, device=q.device)
     if b * s == 0:
         return dw[0].zero_(), dw[1].zero_()
-    n_chunks = -(-(b * s * max(hq, hk)) // DW_ROW_CHUNK)
+    _, chunk, n_chunks = qk_dw_chunks(b, s, max(hq, hk), d, q.element_size())
     part = torch.empty((2, n_chunks, d), dtype=torch.float32, device=q.device)
     fn = _build.bind("rmsnorm_bwd", "qk_rms_bwd_dw", _DW_ARGTYPES)
     with torch.cuda.device(q.device):
         code = fn(
             dyq.data_ptr(), dyk.data_ptr(), q.data_ptr(), k.data_ptr(),
             rq.data_ptr(), rk.data_ptr(), part.data_ptr(), dw[0].data_ptr(), dw[1].data_ptr(),
-            n_chunks, b, s, hq, hk, d, *q.stride()[:3], *k.stride()[:3],
+            chunk, n_chunks, b, s, hq, hk, d, *q.stride()[:3], *k.stride()[:3],
             int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(code, "qk_rms_bwd_dw")

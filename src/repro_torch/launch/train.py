@@ -41,7 +41,7 @@ EPILOG = (
     "--deterministic-refine/--refine-rounds/--sp-max-ranks/--elastic (multi-rank), "
     "--chaos/--preempt-flag (fault tolerance).  --workers and --mesh wait for the "
     "multi-GPU plan executor and --sp-max-ranks for the planner's split decision "
-    "(ROADMAP Queue 1 items 7 and 4); the sequence-parallel step itself is "
+    "(ROADMAP Queue 1 items 4 and 1); the sequence-parallel step itself is "
     "repro_torch.train.steps.make_sp_pool_grad_step."
 )
 
