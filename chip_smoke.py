@@ -102,14 +102,16 @@ Phase 2 also holds K4 on model rows (x [1, 2048, 2048] and [8, 1, 2048]
 bf16) and K12 (the decode wave of phase 6; 64 slots with kv_lens up to
 4096; dh 128 with 40 q heads over 8 kv heads) against their plain
 versions, with shuffled page tables, inactive slots, ragged last pages and
-scratch entries past each allocation; and the Mamba-2 kernels at phase 8's
+scratch entries past each allocation (K12 also bitwise against a second
+run); and the Mamba-2 kernels at phase 8's
 shapes: K13 on x, g [8192, 5120] bf16 with g the strided z slice of the
 in_proj output, K4 on rows of [8192, 2560] (norm1 and final_norm), K5
 and K6 on rows of [8192, 2560] and [8192, 5120] against the plain rstd (K6
 also bitwise against a second run), the gated norm's whole backward, and
-K10 against its plain version and K3 at K3's shape, timed back to back
-with K3 there and at the paper's Fig. 1 width (D 5120, B 1, S 8192 to
-32768); all of them at small f32 shapes.
+K10 against its plain version and K3 at K3's shape (and bitwise against a
+second run), timed back to back with K3 there and at the paper's Fig. 1
+width (D 5120, B 1, S 8192 to 32768), with its GB/s an SM; all of them at
+small f32 shapes.
 
 Each kernel's launch counts in the record are those of the six main
 paths, each reset to 0 just before its run and read just after: the
@@ -157,6 +159,9 @@ TOL = {
     # rel-L2 of K7's f32 output from bf16 inputs: p is rounded to bf16 as an
     # mma operand, which the plain version keeps in f32
     "attn_f32_out": 1e-2,
+    # rel-L2 of each slot of K12's bf16 output: p is rounded to bf16 as an
+    # mma operand, and the output to bf16 (about 2^-9 each)
+    "attn_bf16_slot": 1e-2,
 }
 # backward tolerances, relative to the reference's largest magnitude
 # (max |got - want| / max |want|) or its L2 norm (rel-L2):
@@ -1159,45 +1164,6 @@ LM_PAGE = 16  # tokens per page of the LM's paged KV pool
 LM_MAX_SEQ = 4096
 
 
-def paged_case(dev, g, rng, lens, hq, hkv, dh, ps, dtype, *, pages_max=None, spare=1):
-    """q [B, Hq, dh] and K/V pools of random pages for slots holding
-    ``lens`` tokens: each slot owns ceil(len / ps) pages taken from a
-    shuffled free list, its table entries past them point at the scratch
-    page (the last), and every slot of every page, scratch included, holds
-    finite random values."""
-    owned = [-(-n // ps) for n in lens]
-    pages_max = pages_max or max(owned) + 1
-    num_pages = sum(owned) + spare
-    order = rng.permutation(num_pages)
-    table = np.full((len(lens), pages_max), num_pages, np.int32)
-    nxt = 0
-    for bi, n in enumerate(owned):
-        table[bi, :n] = order[nxt : nxt + n]
-        nxt += n
-
-    def randn(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(dtype)
-
-    return (randn(len(lens), hq, dh), randn(num_pages + 1, ps, hkv, dh),
-            randn(num_pages + 1, ps, hkv, dh), torch.from_numpy(table).to(dev),
-            torch.tensor(lens, dtype=torch.int32, device=dev))
-
-
-def paged_work(args) -> tuple[int, int]:
-    """(bytes, flops) K12 must move and do for one launch on ``args``: the
-    live K and V pages (the kernel's page skip), q, out and the live table
-    entries; 4 flops per (q head, live token, dh element)."""
-    from repro_torch.kernels.flash_attention.paged import live_pages
-
-    q, kp, _, table, lens = args
-    b, hq, dh = q.shape
-    _, ps, hkv, _ = kp.shape
-    pages = live_pages(lens, ps, table.shape[1])
-    tokens = int(lens.clamp(0, table.shape[1] * ps).sum())
-    nbytes = pages * (hkv * 2 * ps * dh * kp.element_size() + 4) + 2 * q.numel() * q.element_size() + b * 4
-    return nbytes, 4 * tokens * hq * dh
-
-
 def phase_kernels_lm(dev) -> dict:
     """Phase 2, LM serving: K4 on model rows and K12 against their plain
     versions at the LM's shapes and small f32 shapes; times."""
@@ -1300,44 +1266,73 @@ def phase_kernels_lm(dev) -> dict:
         f"{run} of them)")
     del qkv, q, k, v, o, o_r
 
-    # -- K12 paged decode --------------------------------------------------------
-    pages_max = LM_MAX_SEQ // LM_PAGE
-    wave_lens = [int(n) for n in rng.integers(64, 2113, size=7)] + [0]
-    heavy_lens = [int(n) for n in rng.integers(1, 4097, size=64)]
-    heavy_lens[5] = heavy_lens[40] = 0
-    qwen_lens = [int(n) for n in rng.integers(1, 2049, size=16)]
-    qwen_lens[3] = 0
-    cases = {
-        # the decode wave of phase 6: 8 slots of llama3.2-1b, one inactive
-        "wave": (wave_lens, 32, 8, 64, LM_PAGE, pages_max, 4096 - sum(-(-n // 16) for n in wave_lens)),
-        "heavy": (heavy_lens, 32, 8, 64, LM_PAGE, pages_max, 64),
-        # Qwen2.5-14B's geometry at dh 128, pages of 32
-        "dh128": (qwen_lens, 40, 8, 128, 32, 2048 // 32 + 1, 8),
-    }
+    out["paged_decode"] = phase_paged(dev, g, rng)
+    return out
+
+
+def check_slots(name: str, got, want, tol: float) -> float:
+    """rel-L2 of each live slot b of [B, ...] outputs (want[b] not all
+    zero) <= tol; returns the worst.  A fault confined to a long context
+    (a chunk or a warp's tokens dropped, a chunk weighed wrong) moves that
+    slot's small outputs far more than the absolute gate sees."""
+    d = (got.float() - want.float()).flatten(1).norm(dim=1)
+    ref = want.float().flatten(1).norm(dim=1)
+    live = ref > 0
+    worst = float((d[live] / ref[live]).max()) if bool(live.any()) else 0.0
+    log(f"  {name:<28} worst slot rel-L2 {worst:.3e}  tol {tol:.1e}")
+    if not worst <= tol:
+        raise AssertionError(f"{name}: a slot's rel-L2 {worst} above tolerance {tol}")
+    return worst
+
+
+def phase_paged(dev, g, rng) -> dict:
+    """Phase 2, K12 against its plain version at the LM decode wave and two
+    more bf16 cases (``time_paged.CASES``) and small f32 shapes; inactive
+    slots exact zeros, a second run bitwise equal; times, bound and the
+    host's time a call."""
+    from repro_torch.kernels.flash_attention.paged import paged_decode
+    from repro_torch.kernels.flash_attention.ref import paged_attention_ref
+    from repro_torch.launch.time_paged import CASES, case_lens, paged_case, paged_work
+
+    lens_of = case_lens(rng)
+    wave_lens = lens_of["wave"]
+    # unowned pages besides the scratch page: the wave's pool holds 4097
+    # pages, as the LM engine's
+    spare = {"wave": LM_MAX_SEQ - sum(-(-n // LM_PAGE) for n in wave_lens), "heavy": 64,
+             "dh128": 8}
     log("K12 paged_decode  bf16: wave (8 slots, Hq 32, Hkv 8, dh 64, pages of 16, pool of 4097 "
         "pages), heavy (64 slots, kv_lens up to 4096), dh128 (16 slots, Hq 40, Hkv 8, pages "
         "of 32); shuffled tables, inactive slots, ragged last pages, scratch past each allocation")
     k12_err, args_of = 0.0, {}
-    for nm, (lens, hq, hkv, dh, ps, pmax, spare) in cases.items():
-        args = paged_case(dev, g, rng, lens, hq, hkv, dh, ps, torch.bfloat16,
-                          pages_max=pmax, spare=spare)
+    for nm, (hq, hkv, dh, ps, pmax) in CASES.items():
+        q, kp, vp, tables, kv_lens = paged_case(dev, g, rng, lens_of[nm], hq, hkv, dh, ps,
+                                                torch.bfloat16, pages_max=pmax, spare=spare[nm])
+        args = (q, kp, vp, tables[0], kv_lens)
         o, o_r = paged_decode(*args), paged_attention_ref(*args)
         torch.cuda.synchronize()
         err = max_err(o, o_r)
         k12_err = max(k12_err, err)
-        check(f"K12 {nm} out (pool {list(args[1].shape)})", err, TOL["attn_bf16"])
-        dead = args[4] == 0
+        check(f"K12 {nm} out (pool {list(kp.shape)})", err, TOL["attn_bf16"])
+        check_slots(f"K12 {nm} out", o, o_r, TOL["attn_bf16_slot"])
+        dead = kv_lens == 0
         if torch.count_nonzero(o[dead]) != 0:
             raise AssertionError(f"K12 {nm}: an inactive slot is not exact zeros")
+        # the chunks' merge reads its partials in a fixed order, whichever
+        # block arrives last
+        if not torch.equal(o, paged_decode(*args)):
+            raise AssertionError(f"K12 {nm} is not bitwise deterministic")
+        log(f"  K12 {nm}: a second run is bitwise equal")
         args_of[nm] = args
     for lens, hq, hkv, dh, ps in [((11, 0, 40), 8, 2, 64, 8), ((130, 64), 5, 1, 128, 64),
                                   ((1, 16, 17, 0), 4, 4, 64, 16), ((300, 7), 8, 8, 128, 24)]:
-        args = paged_case(dev, g, rng, list(lens), hq, hkv, dh, ps, torch.float32)
+        q, kp, vp, tables, kv_lens = paged_case(dev, g, rng, list(lens), hq, hkv, dh, ps,
+                                                torch.float32)
+        args = (q, kp, vp, tables[0], kv_lens)
         check(f"K12 f32 lens={lens} g={hq // hkv} dh={dh} ps={ps}",
               max_err(paged_decode(*args), paged_attention_ref(*args)), TOL["attn_f32"])
     times = {}
     for nm, args in args_of.items():
-        nbytes, flops = paged_work(args)
+        nbytes, flops = paged_work(*args)
         times[nm] = dict(ms=device_ms(lambda: paged_decode(*args), 50),
                          plain_ms=device_ms(lambda: paged_attention_ref(*args), 3),
                          bound=bound(nbytes, flops, F32_FLOPS), bytes=nbytes)
@@ -1348,7 +1343,7 @@ def phase_kernels_lm(dev) -> dict:
     host_us = enqueue_us(lambda: paged_decode(*wave))
     log(f"  host time per call of paged_decode at the wave: {host_us:.1f} us")
     t = times["wave"]
-    out["paged_decode"] = dict(
+    return dict(
         route="cuda", source="src/repro_torch/kernels/flash_attention/csrc/paged_decode.cu",
         replaces="src/repro/kernels/flash_attention/paged.py:102",
         max_abs_err=k12_err, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
@@ -1358,7 +1353,6 @@ def phase_kernels_lm(dev) -> dict:
                         bytes=t["bytes"]) for nm, t in times.items()},
         host_us_per_call=host_us,
     )
-    return out
 
 
 # -- the Mamba-2 training slice ------------------------------------------------
@@ -1523,6 +1517,9 @@ def phase_kernels_ssm(dev) -> dict:
         f"plain version and K3")
     args = adaln_case(b, s, d, torch.bfloat16)
     got = adaln_bwd_dmod_naive(*args)
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(got, adaln_bwd_dmod_naive(*args))):
+        raise AssertionError("K10 is not bitwise deterministic")
+    log("  K10: a second run is bitwise equal")
     k10_err = 0.0
     for nm, a_, b_, c_ in zip(("dscale", "dshift"), got, adaln_bwd_dmod_ref(*args),
                               adaln_bwd_dmod(*args)):
@@ -1533,13 +1530,16 @@ def phase_kernels_ssm(dev) -> dict:
         for nm, a_, b_ in zip(("dscale", "dshift"), adaln_bwd_dmod_naive(*argf),
                               adaln_bwd_dmod_ref(*argf)):
             check_rel(f"K10 {nm} f32 {list(shape)}", a_, b_, BWD_TOL["sum_f32"])
-    t_k = cuda_ms(lambda: adaln_bwd_dmod_naive(*args), 5)
+    t_k = device_ms(lambda: adaln_bwd_dmod_naive(*args), 20)
     t_3 = cuda_ms(lambda: adaln_bwd_dmod(*args), 20)
     t_p = cuda_ms(lambda: adaln_bwd_dmod_ref(*args), 5)
     nb = b * s * d
     bms, bby = bound(2 * nb * 2 + 2 * b * s * 4 + 2 * b * d * 4, 4 * nb, F32_FLOPS)
-    fig1 = [dict(shape=[b, s, d], naive_ms=t_k, k3_ms=t_3, bound_ms=bms)]
-    log(f"  K10 ms {t_k:.4f}  K3 ms {t_3:.4f}  plain {t_p:.4f}  bound {bms:.4f} ({bby})")
+    # one block a sample: the naive access's rate is one SM's
+    fig1 = [dict(shape=[b, s, d], naive_ms=t_k, k3_ms=t_3, bound_ms=bms,
+                 gb_s_per_sm=2 * nb * 2 / b / (t_k * 1e-3) / 1e9)]
+    log(f"  K10 ms {t_k:.4f} ({fig1[0]['gb_s_per_sm']:.1f} GB/s an SM)  K3 ms {t_3:.4f}  "
+        f"plain {t_p:.4f}  bound {bms:.4f} ({bby})")
     del args
     for s_ in (8192, 16384, 32768):  # the paper's Fig. 1 width, Wan-14B's D 5120
         argw = adaln_case(1, s_, 5120, torch.bfloat16)
@@ -1549,9 +1549,10 @@ def phase_kernels_ssm(dev) -> dict:
         tnb = cuda_ms(lambda: adaln_bwd_dmod_naive(*argw), 2)
         t3b = cuda_ms(lambda: adaln_bwd_dmod(*argw), 5)
         bw = bound(2 * nb_ * 2 + 2 * s_ * 4 + 2 * 5120 * 4, 4 * nb_, F32_FLOPS)[0]
-        fig1.append(dict(shape=[1, s_, 5120], naive_ms=[tna, tnb], k3_ms=[t3a, t3b], bound_ms=bw))
-        log(f"  Fig. 1 [1, {s_}, 5120]: K3 {t3a:.4f}, {t3b:.4f} ms; K10 {tna:.4f}, {tnb:.4f} ms; "
-            f"bound {bw:.4f} ms")
+        fig1.append(dict(shape=[1, s_, 5120], naive_ms=[tna, tnb], k3_ms=[t3a, t3b], bound_ms=bw,
+                         gb_s_per_sm=2 * nb_ * 2 / (min(tna, tnb) * 1e-3) / 1e9))
+        log(f"  Fig. 1 [1, {s_}, 5120]: K3 {t3a:.4f}, {t3b:.4f} ms; K10 {tna:.4f}, {tnb:.4f} ms "
+            f"({fig1[-1]['gb_s_per_sm']:.1f} GB/s an SM); bound {bw:.4f} ms")
         del argw
     out["adaln_bwd_dmod_naive"] = dict(
         route="cuda", source="src/repro_torch/kernels/fused_adaln/csrc/adaln_bwd.cu",

@@ -2,9 +2,10 @@
 
 Each ``csrc/*.cu`` under ``repro_torch/kernels`` is one shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds, not
-minutes); sources of one family may share a ``csrc/*.cuh`` header.
+minutes); sources of one family may share a ``csrc/*.cuh`` header, and
+every family the Hopper building blocks of ``kernels/csrc/*.cuh``.
 Libraries land in ``<repo>/build/repro_torch_kernels/`` named by a hash of
-their source, the headers beside it and the flags, are built at first use,
+their source, the headers beside it, the shared ones and the flags, are built at first use,
 and are reused while those are unchanged.  :func:`build_all` starts one ``nvcc`` per
 source, all together, and waits for them.
 
@@ -50,7 +51,9 @@ def _nvcc() -> str:
 
 def _target(src: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):  # the only headers of ours
+    # the only headers of ours: the family's and the shared ones
+    shared = sorted((KERNELS_DIR / "csrc").glob("*.cuh"))
+    for header in [*sorted(src.parent.glob("*.cuh")), *shared]:
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the warp-specialised flash kernels
-// (flash_fwd.cu: K7; flash_bwd.cuh: K8 and K9): mbarriers and their rings,
-// TMA tile loads, wgmma and its shared-memory descriptors, register
+// (flash_fwd.cu: K7; flash_bwd.cuh: K8 and K9) and of K10's ring
+// (adaln_bwd.cu): mbarriers and their rings, TMA tile and bulk loads,
+// wgmma and its shared-memory descriptors, register
 // reallocation between warpgroups, the persistent blocks' work dealing, and
 // the host-side tensor map.  Inline PTX throughout (no CUTLASS headers, so
 // nvcc builds in seconds).
@@ -41,6 +42,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
       "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
       "@P1 bra DONE;\nbra WAIT;\nDONE:\n}\n"
       :: "r"(smem_u32(bar)), "r"(phase) : "memory");
+}
+
+// one arrival on `bar` once this thread's cp.async copies so far have
+// landed (counted in the barrier's initial count)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(smem_u32(bar)) : "memory");
 }
 
 // A ring position: stage index and phase parity
@@ -91,6 +98,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory; completes `bytes` of the barrier's
+// transaction count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
 // -- warpgroups -----------------------------------------------------------------

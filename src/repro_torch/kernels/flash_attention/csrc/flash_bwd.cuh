@@ -86,7 +86,7 @@
 #pragma once
 
 #include "flash_common.cuh"
-#include "sm90.cuh"
+#include "../../csrc/sm90.cuh"
 
 namespace {
 

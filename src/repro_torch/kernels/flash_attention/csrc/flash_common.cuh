@@ -128,6 +128,29 @@ __device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t (&a_hi)[4],
   mma_tf32(d, a_hi, b_hi);
 }
 
+// d += a * b for one m16n8k16 tile, bf16 inputs, fp32 accumulators: a
+// lane's a holds rows g, g + 8 at columns 2t, 2t + 1 (a[0], a[1]) and
+// 2t + 8, 2t + 9 (a[2], a[3]); its b holds column g of B at rows 2t, 2t + 1
+// (b[0]) and 2t + 8, 2t + 9 (b[1]), two values a register, the lower
+// column or row in the low half
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8i to
+// 8i + 7 give the addresses of matrix i's eight 16-byte rows, and r[i] is
+// lane (g, t)'s pair (row 2t, column g), (row 2t + 1, column g) of matrix
+// i: the mma B fragment of a row-major [k, n] tile.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }

@@ -56,7 +56,7 @@
 // 3xTF32 products, the same masks and skip.
 
 #include "flash_common.cuh"
-#include "sm90.cuh"
+#include "../../csrc/sm90.cuh"
 
 namespace {
 

@@ -2,14 +2,17 @@
 (``csrc/paged_decode.cu``): one new query token per decode slot attends
 the slot's cached tokens in a shared paged KV pool.
 
-The wrapper takes CUDA tensors only and counts each launch in its
-``launches`` attribute.  The plain version is ``ref.paged_attention_ref``;
-:func:`live_pages` counts the pages the kernel's skip rule reads, for the
-bytes bound.
+The wrapper takes CUDA tensors only and counts each call in its
+``launches`` attribute.  The kernel splits each slot's page sweep into
+chunks fixed by :func:`split_plan` from shapes alone (the host never reads
+``kv_lens``) and merges the chunks' partials on the card.  The plain
+version is ``ref.paged_attention_ref``; :func:`live_pages` counts the pages
+the kernel's skip rule reads, for the bytes bound.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -17,9 +20,38 @@ import torch
 from .. import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _P]
+_ARGTYPES = [_P] * 8 + [_I] * 8 + [ctypes.c_float, _I, _P]
 HEAD_DIMS = (64, 128)
 MAX_PAGE = 64  # kMaxPage of the source
+MAX_GROUP = 16  # kMaxGroup: query heads a kv head, the mma's 16 rows
+CHUNK_TOKENS = 256  # kChunkTokens: four warps of 64 tokens a block
+
+# (device index, stream) -> (f32 partials, int32 counts): the kernel's
+# scratch, grown on demand and kept from call to call; the counts are zero
+# between calls (the kernel's merging block resets its own)
+_workspace: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def split_plan(pages_max: int, page_size: int) -> tuple[int, int]:
+    """The kernel's split of a slot's page sweep: ``(chunk_pages,
+    n_chunks)``, chunks of ``chunk_pages`` consecutive logical pages (at
+    most ``CHUNK_TOKENS`` tokens) and ``n_chunks = ceil(pages_max /
+    chunk_pages)`` of them for each (slot, kv head).  It depends on shapes
+    only, so the grid is fixed without reading ``kv_lens``; blocks whose
+    chunk starts past a slot's live pages exit at once."""
+    chunk_pages = max(1, CHUNK_TOKENS // page_size)
+    return chunk_pages, -(-pages_max // chunk_pages)
+
+
+def _scratch(device, stream: int, n_part: int, n_count: int):
+    key = (device.index, stream)
+    ws = _workspace.get(key)
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_count:
+        old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.empty(max(n_part, old[0]), dtype=torch.float32, device=device),
+              torch.zeros(max(n_count, old[1]), dtype=torch.int32, device=device))
+        _workspace[key] = ws
+    return ws
 
 
 def paged_decode(q, k_pages, v_pages, page_table, kv_lens, *, scale: float | None = None):
@@ -29,8 +61,9 @@ def paged_decode(q, k_pages, v_pages, page_table, kv_lens, *, scale: float | Non
     dh] (Hq % Hkv == 0; dh in {64, 128}; ps a multiple of 8 up to 64);
     page_table: contiguous [B, pages_max] int32, every entry a page of the
     pool (point unused entries at a scratch page); kv_lens: [B] int32.  bf16
-    or f32.  Returns ``out [B, Hq, dh]`` in q's dtype; a slot with
-    ``kv_len = 0`` gives exact zeros.
+    or f32; Hq / Hkv at most 16.  Returns ``out [B, Hq, dh]`` in q's dtype; a
+    slot with ``kv_len = 0`` gives exact zeros.  One launch; its scratch is
+    kept for the next call on the same stream.
     """
     _build.require_cuda("paged_decode", q, k_pages, v_pages, page_table, kv_lens)
     if q.dim() != 3 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
@@ -40,8 +73,9 @@ def paged_decode(q, k_pages, v_pages, page_table, kv_lens, *, scale: float | Non
     if dh_k != dh or dh not in HEAD_DIMS:
         raise ValueError(f"paged_decode: head_dim must be one of {HEAD_DIMS} in q and the pools, "
                          f"got {dh} and {dh_k}")
-    if hq % hkv:
-        raise ValueError(f"GQA needs Hq % Hkv == 0, got Hq={hq}, Hkv={hkv}")
+    if hq % hkv or hq // hkv > MAX_GROUP:
+        raise ValueError(f"paged_decode needs Hq a multiple of Hkv, at most {MAX_GROUP} times "
+                         f"it, got Hq={hq}, Hkv={hkv}")
     if ps % 8 or not 8 <= ps <= MAX_PAGE:
         raise ValueError(f"paged_decode takes a page size that is a multiple of 8 up to "
                          f"{MAX_PAGE}, got {ps}")
@@ -59,13 +93,20 @@ def paged_decode(q, k_pages, v_pages, page_table, kv_lens, *, scale: float | Non
     out = torch.empty_like(q)
     if b == 0:
         return out
+    pages_max = page_table.shape[1]
+    chunk_pages, n_chunks = split_plan(pages_max, ps)
     fn = _build.bind("paged_decode", "paged_decode", _ARGTYPES)
-    with torch.cuda.device(q.device):
+    # the decode wave is host-bound: enter q's device only when it is not
+    # the current one (the context costs a few microseconds a call)
+    on_q = q.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if on_q else torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        part, count = _scratch(q.device, stream, b * hq * n_chunks * (dh + 2), b * hkv)
         code = fn(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-            kv_lens.data_ptr(), out.data_ptr(), b, hq, hkv, dh, ps, page_table.shape[1],
-            scale, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            kv_lens.data_ptr(), out.data_ptr(), part.data_ptr(), count.data_ptr(),
+            b, hq, hkv, dh, ps, pages_max, chunk_pages, n_chunks,
+            scale, int(q.dtype == torch.bfloat16), stream,
         )
     _build.check(code, "paged_decode")
     paged_decode.launches += 1

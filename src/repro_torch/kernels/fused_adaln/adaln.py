@@ -22,12 +22,14 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P] * 6 + [_I] * 5 + [_L] * 2 + [ctypes.c_float, _I, _P]
 _DX_ARGTYPES = [_P] * 6 + [_I] * 3 + [_L, _I, _P]
 _DMOD_ARGTYPES = [_P] * 8 + [_I] * 4 + [_P]
-_NAIVE_ARGTYPES = [_P] * 6 + [_I] * 4 + [_P]
+_NAIVE_ARGTYPES = [_P] * 6 + [_I] * 7 + [_P]
 MAX_ROW_CHUNKS = 1024  # 16-byte chunks of a row: K1's 4 warps or K2's 128 threads, 8 a lane
 FWD_WARPS = 8  # K1: warps a block (kThreads / 32 in adaln_fwd.cu)
 FWD_BLOCKS = 3 * 132  # K1's grid: three resident blocks on each of the H100's 132 SMs
 FWD_MIN_ROWS = 2 * FWD_WARPS  # K1: rows a block takes at least
 DMOD_ROW_CHUNK = 32  # rows per partial sum of K3 (kRowChunk in the source)
+NAIVE_THREADS = 1024  # K10: most threads a block (kNaiveMaxThreads), a producer warp among them
+NAIVE_STAGE_BYTES = 100 * 1024  # K10: dy and x bytes a stage, at most (two stages)
 
 
 def _check_row(name, x):
@@ -48,6 +50,23 @@ def fwd_row_blocks(b: int, s: int) -> tuple[int, int]:
     per_sample = max(1, min(-(-s // FWD_MIN_ROWS), FWD_BLOCKS // b))
     rows = -(-s // per_sample)
     return rows, -(-s // rows)
+
+
+def naive_plan(d: int, itemsize: int) -> tuple[int, int, int]:
+    """K10's walk of one sample's [S, D] slab: ``(threads, groups,
+    rows)``.  The block's consumer threads own the ``cols = D * itemsize
+    / 16`` 16-byte columns of a row (two a thread past 992 columns) in
+    ``groups`` row groups, as many as fit beside the producer warp; a stage
+    holds ``rows`` consecutive rows of dy and of x (a multiple of
+    ``groups``: group g takes the rows ``s % groups == g``, in order), and
+    the ring two stages (kNaiveStages)."""
+    cols = d * itemsize // 16
+    consumers = NAIVE_THREADS - 32
+    per_group = -(-cols // (1 if cols <= consumers else 2))
+    groups = max(1, consumers // per_group)
+    pair = 2 * d * itemsize  # a row of dy and of x
+    rows = groups * max(1, NAIVE_STAGE_BYTES // (groups * pair))
+    return -(-groups * per_group // 32) * 32 + 32, groups, rows
 
 
 def _check_bwd(name, dy, x, mu, rstd):
@@ -158,8 +177,8 @@ def adaln_bwd_dmod_naive(dy, x, mu, rstd):
     """K10: (dscale, dshift) [B, D] f32, K3's sums with the paper's naive
     access (Fig. 1): one block per sample sweeps its whole [S, D] slab, no
     D-tiling across blocks and no split over S.  Arguments as
-    :func:`adaln_bwd_dmod`; deterministic (one thread per column, rows in
-    order)."""
+    :func:`adaln_bwd_dmod`; deterministic (row groups summed in order, then
+    added in group order: :func:`naive_plan`)."""
     _build.require_cuda("adaln_bwd_dmod_naive", dy, x, mu, rstd)
     _check_bwd("adaln_bwd_dmod_naive", dy, x, mu, rstd)
     b, s, d = x.shape
@@ -171,8 +190,8 @@ def adaln_bwd_dmod_naive(dy, x, mu, rstd):
     with torch.cuda.device(x.device):
         code = fn(
             dy.data_ptr(), x.data_ptr(), mu.data_ptr(), rstd.data_ptr(), dscale.data_ptr(),
-            dshift.data_ptr(), b, s, d, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            dshift.data_ptr(), b, s, d, *naive_plan(d, x.element_size()),
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(code, "adaln_bwd_dmod_naive")
     adaln_bwd_dmod_naive.launches += 1

@@ -52,7 +52,7 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("K4 qk_rms_fwd", ("qk_rms_fwd_kernel",)),
     ("K13 gated_rms_fwd", ("gated_rms_fwd_kernel",)),
     ("K4 rms_fwd (rows)", ("rms_fwd_kernel",)),
-    ("K12 paged_decode", ("paged_decode_kernel",)),
+    ("K12 paged_decode", ("paged_decode_",)),  # paged_decode_chunk_kernel (bf16, f32)
     ("K5 qk_rms_bwd_dx", ("qk_rms_bwd_dx_kernel",)),
     ("K6 qk_rms_bwd_dw", ("qk_rms_bwd_dw_",)),
     ("K5 rms_bwd_dx (rows)", ("rms_bwd_dx_kernel",)),

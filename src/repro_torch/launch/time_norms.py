@@ -1,6 +1,7 @@
-"""Time K1 (the fused AdaLN forward) and the q/k K6 (the joint RMSNorm
-weight gradient) on the card at the shapes of Wan-2.1 1.3B's paths, with
-their bounds: the quickest before / after reading of the two kernels.
+"""Time K1 (the fused AdaLN forward), the q/k K6 (the joint RMSNorm
+weight gradient) and K10 (the naive-access AdaLN reduction) on the card at
+the shapes of Wan-2.1 1.3B's paths and the paper's Fig. 1, with their
+bounds: the quickest before / after reading of the three kernels.
 
     python3 src/repro_torch/launch/time_norms.py [--src DIR] [--iters N]
 
@@ -15,13 +16,15 @@ Shapes: K1 on x [4, 6240, 1536] (a serving wave) and [10, 1637, 1536] and
 [1, 7877, 1536] (the training buckets), bf16, scale and shift strided rows
 of a [B, 6, 1536] f32 modulation; K6 on q [B, S, 12, 128] and k (strided
 views of a fused qkv projection) at the two training buckets, bf16, q and
-k in one call.  Each time is device time: the median of 5 runs of CUDA
+k in one call; K10 on dy, x [10, 1637, 1536] (K3's shape) and [1, S, 5120]
+for S 8192, 16384 and 32768 (the Fig. 1 width), bf16, with its GB/s an SM
+(one block a sample: B SMs work).  Each time is device time: the median of 5 runs of CUDA
 events around ``--iters`` calls enqueued behind a sleeping kernel (the
 host takes longer to enqueue a call than the device to run it), the
 calls cycling through copies of the inputs that together exceed the 50 MB
 L2 three times over.
 Bounds: each input read once and each output written once over 3.35 TB/s
-(both kernels are memory-bound).  Prints one JSON object with the card's
+(the kernels are memory-bound).  Prints one JSON object with the card's
 name and power limit.
 """
 
@@ -88,7 +91,7 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("time_norms: no CUDA device is visible")
     sys.path.insert(0, args.src)
-    from repro_torch.kernels.fused_adaln.adaln import adaln_fwd
+    from repro_torch.kernels.fused_adaln.adaln import adaln_bwd_dmod_naive, adaln_fwd
     from repro_torch.kernels.fused_rmsnorm.rmsnorm import qk_rms_bwd_dw, qk_rms_fwd
 
     dev = torch.device("cuda")
@@ -101,7 +104,8 @@ def main(argv=None) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    out = {"card": card, "src": args.src, "adaln_fwd": [], "qk_rms_bwd_dw": []}
+    out = {"card": card, "src": args.src, "adaln_fwd": [], "qk_rms_bwd_dw": [],
+           "adaln_bwd_dmod_naive": []}
     d, h, dh = 1536, 12, 128
     for b, s in ((4, 6240), (10, 1637), (1, 7877)):
         nbytes = 2 * b * s * d * 2 + 2 * b * d * 4 + 2 * b * s * 4
@@ -130,10 +134,25 @@ def main(argv=None) -> dict:
         ms = _ms(lambda: qk_rms_bwd_dw(*next(it)), args.iters)
         out["qk_rms_bwd_dw"].append(_row(ms, nbytes, shape=[b, s, h, dh], copies=len(sets)))
         del sets, it
-    for name in ("adaln_fwd", "qk_rms_bwd_dw"):
+    for b, s, d_ in ((10, 1637, 1536), (1, 8192, 5120), (1, 16384, 5120), (1, 32768, 5120)):
+        nbytes = 2 * b * s * d_ * 2 + 2 * b * s * 4 + 2 * b * d_ * 4
+        sets = []
+        for _ in range(_copies(nbytes)):
+            mod = randn(b, 6, d_, scale=0.1)
+            x = randn(b, s, d_, dtype=torch.bfloat16, scale=2.0, shift=0.3)
+            _, mu, rstd = adaln_fwd(x, mod[:, 1], mod[:, 0])
+            sets.append((randn(b, s, d_, dtype=torch.bfloat16), x, mu, rstd))
+        it = itertools.cycle(sets)
+        ms = _ms(lambda: adaln_bwd_dmod_naive(*next(it)), args.iters if b > 1 else 5)
+        out["adaln_bwd_dmod_naive"].append(_row(
+            ms, nbytes, shape=[b, s, d_], copies=len(sets),
+            gb_s_per_sm=2 * s * d_ * 2 / (ms * 1e-3) / 1e9))
+        del sets, it
+    for name in ("adaln_fwd", "qk_rms_bwd_dw", "adaln_bwd_dmod_naive"):
         for r in out[name]:
-            print(f"{name:<14} {str(r['shape']):<20} {r['ms']:.4f} ms  bound {r['bound_ms']:.4f} "
-                  f"({r['share']:.1%})  [{card}]", flush=True)
+            per_sm = f"  {r['gb_s_per_sm']:.1f} GB/s an SM" if "gb_s_per_sm" in r else ""
+            print(f"{name:<20} {str(r['shape']):<20} {r['ms']:.4f} ms  bound {r['bound_ms']:.4f} "
+                  f"({r['share']:.1%}){per_sm}  [{card}]", flush=True)
     print(json.dumps(out), flush=True)
     return out
 

@@ -19,6 +19,17 @@ RMSNorm weight gradient, ``rmsnorm_bwd.cu``).
   ``rms_bwd_dw_pallas`` in interpret mode, at dh 32, 64 and 128, in f32
   and bf16, with Hq != Hk and row counts that are not a multiple of the
   chunk.
+- ``naive_walk`` mirrors K10's block (the naive-access AdaLN reduction,
+  ``adaln_bwd.cu``), sized by the wrapper's ``naive_plan``: one block a
+  sample, stages of ``rows`` consecutive rows, group g of its consumer
+  threads taking the rows ``s % groups == g`` in order.  Every row of each
+  sample must be taken exactly once and no row of another sample, and the
+  block must fit the card (1024 threads with its producer warp, the two
+  stages in shared memory).  ``_k10_sum`` emulates its summation order in
+  numpy f32 (each group's rows in order, x_hat by one fused multiply-add,
+  then the groups in order) and must stay within the ``sum_f32`` gate of
+  the JAX package's ``adaln_bwd_dmod_naive_pallas`` in interpret mode, in
+  f32 and bf16.
 """
 
 import numpy as np
@@ -28,13 +39,16 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from repro.kernels.fused_adaln.adaln import adaln_bwd_dmod_naive_pallas  # noqa: E402
 from repro.kernels.fused_rmsnorm.rmsnorm import rms_bwd_dw_pallas  # noqa: E402
 from repro_torch.kernels.fused_adaln.adaln import (  # noqa: E402
     FWD_BLOCKS,
     FWD_WARPS,
     MAX_ROW_CHUNKS,
     fwd_row_blocks,
+    naive_plan,
 )
+from repro_torch.kernels.fused_adaln.ref import adaln_bwd_dmod_ref  # noqa: E402
 from repro_torch.kernels.fused_rmsnorm.ref import qk_rms_bwd_ref  # noqa: E402
 from repro_torch.kernels.fused_rmsnorm.rmsnorm import (  # noqa: E402
     DW_UNROLL,
@@ -199,3 +213,105 @@ def test_k6_qk_chunks_fill_the_card_at_the_training_shapes(b, s):
     assert groups == 16 and chunk % (groups * DW_UNROLL) == 0
     assert (n_chunks - 1) * chunk < b * s * 12 <= n_chunks * chunk
     assert 3 * 132 <= 2 * n_chunks <= 4 * 132
+
+
+# -- K10: the naive-access AdaLN reduction's in-block walk --------------------------
+
+SMEM_MAX = 232448  # a block's shared memory on the H100
+
+
+def naive_walk(s: int, d: int, itemsize: int) -> np.ndarray:
+    """The rows of one sample's [S, D] slab as K10's block takes them, one
+    row an entry: ``(stage, group, row)``.  Stage i holds rows ``[i * rows,
+    min((i + 1) * rows, S))`` and group g takes the stage's rows
+    ``i * rows + g, i * rows + g + groups, ...``."""
+    _, groups, rows = naive_plan(d, itemsize)
+    out = []
+    for i in range(-(-s // rows)):
+        nr = min(rows, s - i * rows)
+        for g in range(groups):
+            r = np.arange(g, nr, groups) + i * rows
+            out.append(np.stack([np.full_like(r, i), np.full_like(r, g), r], axis=1))
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("d, itemsize", [(1536, 2), (5120, 2), (8192, 2), (256, 4), (1536, 4),
+                                         (4096, 4), (8, 4)])
+@pytest.mark.parametrize("s", [1, 37, 301, 1637, 8192])
+def test_k10_walk_takes_every_row_of_its_sample_once(s, d, itemsize):
+    threads, groups, rows = naive_plan(d, itemsize)
+    stages = 2  # kNaiveStages
+    cols = d * itemsize // 16
+    per_group = cols if cols <= 992 else -(-cols // 2)  # two columns a thread past 992
+    assert threads == -(-groups * per_group // 32) * 32 + 32 <= 1024  # consumers and a producer warp
+    assert rows % groups == 0
+    # the two stages of dy and x and their mu, rstd, or the groups' sums
+    smem = max(stages * rows * (2 * d * itemsize + 8) + 16 * stages, 2 * groups * d * 4)
+    assert smem <= SMEM_MAX
+    stage, group, row = naive_walk(s, d, itemsize).T
+    np.testing.assert_array_equal(np.sort(row), np.arange(s))  # each row once, none past S
+    assert ((row // rows == stage) & (row % groups == group)).all()
+    for g in range(groups):  # a group's rows in order: the emulated summation order
+        assert (np.diff(row[group == g]) > 0).all()
+
+
+def test_k10_feeds_its_sm_at_the_paths_widths():
+    # K3's shape (D 1536) and the paper's Fig. 1 width (D 5120), bf16:
+    # about 100 KB a stage, the two filling most of the shared memory
+    for d in (1536, 5120):
+        threads, groups, rows = naive_plan(d, 2)
+        stage = rows * 2 * d * 2
+        assert 80 * 1024 <= stage <= 100 * 1024 and threads >= 640
+    assert naive_plan(1536, 2) == (992, 5, 15)
+
+
+def _k10_sum(dy, x, mu, rstd, itemsize):
+    """K10's (dscale, dshift) of one sample in its order, in numpy f32.
+    dy, x: [S, D] f32 (the values the kernel reads, of ``itemsize`` bytes
+    in the kernel's dtype); mu, rstd: [S]."""
+    s, d = x.shape
+    _, groups, _ = naive_plan(d, itemsize)
+    ash = np.zeros((groups, d), np.float32)
+    asc = np.zeros((groups, d), np.float32)
+    for r in range(s):  # group r % groups adds row r after its earlier rows
+        g = r % groups
+        rs = np.float32(rstd[r])
+        mr = np.float32(-mu[r] * rs)  # rounded once, as -mu * rs in f32
+        xh = _fma_f32(x[r], np.full(d, rs, np.float32), np.full(d, mr, np.float32))
+        ash[g] = (ash[g] + dy[r]).astype(np.float32)
+        asc[g] = _fma_f32(dy[r], xh, asc[g])
+    dshift, dscale = ash[0].copy(), asc[0].copy()
+    for g in range(1, groups):  # the groups in order
+        dshift = (dshift + ash[g]).astype(np.float32)
+        dscale = (dscale + asc[g]).astype(np.float32)
+    return dscale, dshift
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [256, 1536])
+def test_k10_order_within_gate_of_pallas(d, dtype):
+    b, s = 2, 301
+    rng = np.random.default_rng(d)
+    x = (rng.standard_normal((b, s, d)) * 2.0 + 0.3).astype(np.float32)
+    dy = rng.standard_normal((b, s, d)).astype(np.float32)
+    if dtype == "bf16":  # the values the kernel reads
+        x = torch.from_numpy(x).bfloat16().float().numpy()
+        dy = torch.from_numpy(dy).bfloat16().float().numpy()
+    mu = x.mean(-1, dtype=np.float32)
+    rstd = (1 / np.sqrt(x.var(-1, dtype=np.float32) + 1e-6)).astype(np.float32)
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    want = adaln_bwd_dmod_naive_pallas(jnp.asarray(dy, jdt), jnp.asarray(x, jdt), jnp.asarray(mu),
+                                       jnp.asarray(rstd), interpret=True)
+    itemsize = 4 if dtype == "f32" else 2
+    groups = naive_plan(d, itemsize)[1]
+    assert groups > 1 and s % naive_plan(d, itemsize)[2]  # groups to combine; a short last stage
+    for bi in range(b):
+        got = _k10_sum(dy[bi], x[bi], mu[bi], rstd[bi], itemsize)
+        for g_, w_ in zip(got, (np.asarray(want[0][bi]), np.asarray(want[1][bi]))):
+            err = np.abs(g_ - w_).max()
+            assert err <= SUM_F32_GATE * np.abs(w_).max(), (err, np.abs(w_).max())
+    # the plain version the wrapper takes on the CPU agrees with the emulated order too
+    plain = adaln_bwd_dmod_ref(*(torch.from_numpy(a) for a in (dy, x, mu, rstd)))
+    emu = _k10_sum(dy[0], x[0], mu[0], rstd[0], itemsize)
+    for p_, e_ in zip(plain, emu):
+        np.testing.assert_allclose(p_[0].numpy(), e_, atol=SUM_F32_GATE * np.abs(e_).max(), rtol=0)

@@ -127,8 +127,9 @@ def test_profile_breakdown_families_and_idle_share(monkeypatch):
         == "K4 rms_fwd (rows)"
     assert profile_serve.family("void qk_rms_fwd_kernel<__nv_bfloat16, 64>(Side, Side)") \
         == "K4 qk_rms_fwd"
-    assert profile_serve.family("void paged_decode_kernel<__nv_bfloat16, 64>(PagedParams)") \
-        == "K12 paged_decode"
+    for k12 in ("void (anonymous namespace)::paged_decode_chunk_kernel<__nv_bfloat16, 64>"
+                "(PagedParams)", "void paged_decode_chunk_kernel<float, 128>(PagedParams)"):
+        assert profile_serve.family(k12) == "K12 paged_decode"
     assert profile_serve.family("void gemv2T_kernel_val<int, int, __nv_bfloat16>") \
         == "matmul (cuBLAS)"
     # K7's two kernels: the warp-specialised bf16 one and the f32 one
