@@ -96,7 +96,30 @@ Phases, any failure of which exits non-zero with no result line:
    32768-token window (shards of 8192, a -1 tail): every launch count the
    live table's (``per_sp_step``), step ms and peak memory, and the loss
    within 1e-2 and every gradient's rel-L2 within 5e-2 of the unsplit
-   ``make_pool_grad_step`` on the same window.
+   ``make_pool_grad_step`` on the same window;
+10. planned training on emulated ranks: (a) the launcher's ``main`` with
+   ``--arch wan2.1-1.3b --adaptive --workers 4 --dispatch lpt --steps 2``
+   (30 layers; ``ShardedBucketedLoader``, its ``StepPlanner`` and 4 ranks
+   run serially on the card): every loss finite, every launch count the
+   microbatches of all ranks x the per-microbatch table, and each step's
+   records exactly the ranks and buckets of its ``StepPlan`` (less the
+   first microbatch of each batch signature); (b) Wan-2.1 1.3B at full
+   width and 10 of its 30 layers (bf16, seed 0) on 4 ranks over phase 5
+   (b)'s 480p buckets: a warm-up step (every rank runs every bucket) whose
+   CUDA-event records fit ``t = a + b·B·S^p`` (``fit_cost_model``; the
+   paper's p grid [1.6, 2.4], widened down to 1 when its slope is not
+   positive), then 4 steps each of independent per-rank draws and of the
+   planned LPT pool (``StepPlanner`` on the fit's ``load_of``) at 16384
+   tokens a rank: each rank's summed microbatch device time, their CV,
+   ``CV_step`` and the predicted compute CV by step, tokens a step and
+   the slowest rank (emulated ranks: summed serial device times on one
+   card, not a multi-card measurement); launch counts exact, records
+   matching the plans, losses and parameters finite (the CVs are findings,
+   not gates); (c) the closed loop: ``AdaptiveLoadScheduler`` seeded with
+   (b)'s fit, its ``make_planner`` behind ``ShardedBucketedLoader`` and
+   ``Trainer(scheduler=)`` for 4 steps (refit every 2 steps from 8
+   records): launch counts, records against the plans, the refit model and
+   every ``PlanUpdate``.
 
 Phase 2 also holds K4 on model rows (x [1, 2048, 2048] and [8, 1, 2048]
 bf16) and K12 (the decode wave of phase 6; 64 slots with kv_lens up to
@@ -113,12 +136,13 @@ second run), timed back to back with K3 there and at the paper's Fig. 1
 width (D 5120, B 1, S 8192 to 32768), with its GB/s an SM; all of them at
 small f32 shapes.
 
-Each kernel's launch counts in the record are those of the six main
+Each kernel's launch counts in the record are those of the seven main
 paths, each reset to 0 just before its run and read just after: the
 serving waves of phase 3, the training steps of phase 5 (b), the LM
 serving of phase 6 (b), the Mamba-2 training steps of phase 8 (b), the
-dense-LM training steps of phase 9 (b) and the SP step of phase 9 (c)
-(``launches_by_path``); ``launches`` is their sum.
+dense-LM training steps of phase 9 (b), the SP step of phase 9 (c) and the
+planned launcher of phase 10 (a) (``launches_by_path``); ``launches`` is
+their sum.
 
 Each phase's wall seconds go to the log and to the record (``phase_s``).
 Prints the kernels' JSON record on the line before the last and, as the
@@ -439,9 +463,10 @@ def phase_kernels(dev) -> dict:
                                              for _ in range(-(-150_000_000 // nb) - 1)]
         cyc = itertools.cycle(sets)
         tt = device_ms(lambda: adaln_fwd(*next(cyc)), 50)
+        tp = cuda_ms(lambda: adaln_modulate_ref(xt, mt[:, 1], mt[:, 0]), 5)
         tb, _ = bound(nb, 8 * xt.numel(), F32_FLOPS)
-        train.append(dict(shape=[bt, st_, d], ms=tt, bound_ms=tb))
-        log(f"  K1 ms {tt:.4f}  bound {tb:.4f} (bytes, {tb / tt:.1%})")
+        train.append(dict(shape=[bt, st_, d], ms=tt, plain_ms=tp, bound_ms=tb))
+        log(f"  K1 ms {tt:.4f}  plain {tp:.4f}  bound {tb:.4f} (bytes, {tb / tt:.1%})")
         del xt, got, want, sets, cyc
     out["adaln_fwd"] = dict(
         route="cuda", source="src/repro_torch/kernels/fused_adaln/csrc/adaln_fwd.cu",
@@ -2075,9 +2100,10 @@ def phase_kernels_ring(dev) -> dict:
     ids, dys = stack_shards(seg, RING_K), stack_shards(dy, RING_K)
     from repro_torch.kernels.flash_attention.ring import LocalRing, ring_attention
 
-    def fwd():
+    def fwd(plain=False):
         with torch.no_grad():
-            return ring_attention(*stacked, ids, ids, group=LocalRing(RING_K), causal=True)
+            return ring_attention(*stacked, ids, ids, group=LocalRing(RING_K), causal=True,
+                                  plain=plain)
 
     def fwd_bwd(plain=False):
         o_ = ring_attention(*stacked, ids, ids, group=LocalRing(RING_K), causal=True, plain=plain)
@@ -2087,6 +2113,7 @@ def phase_kernels_ring(dev) -> dict:
     # the plain ring takes 1.1 s a pass here: one pass, not warmed up (the
     # S 8192 comparison above ran its operations already)
     t_pfb = cuda_ms(lambda: fwd_bwd(True), 1, warmup=0)
+    t_pf = cuda_ms(lambda: fwd(True), 1, warmup=0)
     # yardstick only, never on the port's path: the library's attention on
     # the gathered window, kv heads repeated, the causal segment mask built
     # beforehand (forward and forward + backward)
@@ -2122,12 +2149,12 @@ def phase_kernels_ring(dev) -> dict:
         library_ms=t_lfb,
         shape=f"one layer's ring forward + backward, S {RING_S} over LocalRing({RING_K}), "
               f"Hq {hq}, Hkv {hkv}, dh {dh}, bf16 in, f32 backward hops",
-        forward=dict(ms=t_f, library_ms=t_lf, bound_ms=bms_f, bound_by=bby_f),
+        forward=dict(ms=t_f, plain_ms=t_pf, library_ms=t_lf, bound_ms=bms_f, bound_by=bby_f),
         live_table=table.astype(int).tolist(), live_hops=live, live_tile_pairs=tiles,
         tflops_per_s=tiles * 7 * mm / (t_fb * 1e-3) / 1e12)
-    log(f"  K11 per layer: forward {t_f:.3f} ms (SDPA+mask {t_lf:.3f}, bound "
-        f"{bms_f:.4f} {bby_f}); forward + backward {t_fb:.3f} ms (plain {t_pfb:.1f}, SDPA+mask "
-        f"{t_lfb:.3f}, bound {bms:.4f} {bby}); {live} live hops, {tiles} live 64x64 tiles")
+    log(f"  K11 per layer: forward {t_f:.3f} ms (plain {t_pf:.1f}, SDPA+mask {t_lf:.3f}, "
+        f"bound {bms_f:.4f} {bby_f}); forward + backward {t_fb:.3f} ms (plain {t_pfb:.1f}, "
+        f"SDPA+mask {t_lfb:.3f}, bound {bms:.4f} {bby}); {live} live hops, {tiles} live 64x64 tiles")
     out.update(ring_hop_f32(q, k, v, dy, seg))
     return out
 
@@ -2351,6 +2378,255 @@ def phase_train_dense(K, dev) -> dict:
     return out
 
 
+PLANNED_RANKS = 4  # phase 10: emulated data-parallel ranks
+PLANNED_TOKENS = 16384  # phase 10 (b): the token budget a rank, both regimes
+PLANNED_STEPS = 4  # phase 10 (b), (c): steps a regime
+
+
+def planned_records(records, plans, seen: set) -> list:
+    """The (step, rank, B, S) records a run of ``plans`` must give: every
+    planned microbatch in rank-major order, less the first of each batch
+    signature (``seen`` carries the signatures met before; an MMDiT
+    batch's signature is its (B, S))."""
+    want = []
+    for step, plan in enumerate(plans):
+        for w in range(plan.n_workers):
+            for b in plan.worker_microbatches(w):
+                key = (b.batch_size, b.seq_len)
+                if key in seen:
+                    want.append((step, w, b.batch_size, b.seq_len))
+                seen.add(key)
+    got = [(r.step, r.worker, r.batch_size, r.seq_len) for r in records]
+    if got != want:
+        raise AssertionError(f"records {got} do not name the planned ranks and buckets {want}")
+    return want
+
+
+def rank_times(records, step: int, n_ranks: int) -> list[float]:
+    """Each rank's summed microbatch device time (s) in ``step``."""
+    t = [0.0] * n_ranks
+    for r in records:
+        if r.step == step:
+            t[r.worker] += r.compute_time
+    return t
+
+
+def phase_train_planned(K, dev) -> dict:
+    """Phase 10: planned training of Wan-2.1 1.3B on emulated ranks."""
+    from repro_torch.configs.registry import get_config, get_optimizer
+    from repro_torch.core.balancer import step_metrics
+    from repro_torch.core.bucketing import BucketingPolicy
+    from repro_torch.core.cost_model import BenchSample, fit_cost_model
+    from repro_torch.core.dispatch import StepPlanner
+    from repro_torch.core.scheduler import AdaptiveLoadScheduler, SchedulerConfig
+    from repro_torch.core.simulator import CorpusSampler
+    from repro_torch.data.pipeline import ShardedBucketedLoader, on_side_stream
+    from repro_torch.data.synthetic import make_diffusion_batch, wan_mixed_corpus
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.engine import EmulatedEngine
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.steps import init_state
+
+    out = {}
+    cfg = get_config("wan2.1-1.3b")
+    n = PLANNED_RANKS
+
+    # (a) the launcher's entry point on 4 ranks, as a user runs it
+    log("(a) python -m repro_torch.launch.train --arch wan2.1-1.3b --adaptive --workers 4 "
+        "--dispatch lpt --steps 2")
+    K.reset_launch_counts()
+    hist = launch_train.main(["--arch", "wan2.1-1.3b", "--adaptive", "--workers", str(n),
+                              "--dispatch", "lpt", "--steps", "2"])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    if not np.isfinite(hist.losses).all():
+        raise AssertionError(f"planned launcher: a loss is not finite: {hist.losses}")
+    if len(hist.plans) != 2 or any(p.n_workers != n for p in hist.plans):
+        raise AssertionError(f"planned launcher: plans {hist.plans}")
+    check_counts(counts, sum(hist.microbatches), cfg.n_layers, "planned launcher")
+    want = planned_records(hist.records, hist.plans, set())
+    log(f"  {len(want)} records name exactly the planned ranks and buckets of "
+        f"{sum(hist.microbatches)} microbatches (the rest met their signature first)")
+    out["launcher"] = dict(
+        losses=hist.losses, step_s=hist.step_times, microbatches=hist.microbatches,
+        launches=counts, plans=[[[(b.batch_size, b.seq_len) for b in p.worker_microbatches(w)]
+                                 for w in range(n)] for p in hist.plans],
+        records=[dataclasses.asdict(r) for r in hist.records])
+    del hist
+    torch.cuda.empty_cache()
+
+    # (b) the paper's comparison: independent draws against the planned LPT
+    # pool, 4 emulated ranks at 16384 tokens a rank, 10 of the 30 layers
+    cfg = dataclasses.replace(cfg, n_layers=WAN_TRAIN_LAYERS)
+    shapes, weights = wan_mixed_corpus()
+    sel = [0, 2, 3]  # 480p image, 17 and 33 frames: S = 1637, 4757, 7877
+    buckets = BucketingPolicy(m_mem=16384, m_comp=6.4e7, p=2.0).make_buckets(
+        [shapes[i] for i in sel])
+    weights = [weights[i] for i in sel]
+    if [(b.seq_len, b.batch_size) for b in buckets] != [(1637, 10), (4757, 2), (7877, 1)]:
+        raise AssertionError(f"unexpected buckets {buckets}")
+    opt = OptimizerConfig(peak_lr=get_optimizer("wan2.1-1.3b").peak_lr, schedule="constant",
+                          warmup=0, total_steps=1 + 3 * PLANNED_STEPS)
+    state = init_state(cfg, opt, seed=0, device=dev)
+    engine = EmulatedEngine(cfg, opt)
+    trainer = Trainer(cfg, opt, engine=engine)
+    rng = np.random.default_rng(0)
+
+    def batch(b):
+        return make_diffusion_batch(int(rng.integers(2**31)), b.batch_size, b.seq_len, cfg, dev)
+
+    def items(shares_of_steps):
+        # drawn in the trainer's thread between steps, off every event pair
+        for shares in shares_of_steps:
+            yield [[(b, batch(b)) for b in share] for share in shares]
+
+    log(f"(b) {cfg.name} {cfg.n_layers} of 30 layers bf16, seed 0, {n} emulated ranks (run "
+        f"serially on this card), buckets (S, B) {[(b.seq_len, b.batch_size) for b in buckets]}")
+    K.reset_launch_counts()
+    micro = 0
+    # one warm-up step: every rank runs every bucket, rank 0 meets each first
+    warm = [list(buckets)] * n
+    state, h = trainer.run(state, items([warm]), 1, rng=1, log_every=0)
+    micro += sum(h.microbatches)
+    planned_records(h.records, [_fixed_plan(warm)], set())
+    samples = [BenchSample(r.batch_size, r.seq_len, r.compute_time) for r in h.records]
+    paper = fit_cost_model(samples)  # the paper's grid: p in [1.6, 2.4]
+    fit = paper
+    if paper.b <= 0:
+        # the dual-constraint buckets' time falls as B·S^p rises at every p
+        # of the grid: the grid widened down to p = 1 gives the planner and
+        # the scheduler a slope (a finding, recorded beside the paper's fit)
+        fit = fit_cost_model(samples, p_lo=1.0)
+        if fit.b <= 0:
+            raise AssertionError(f"no exponent in [1, 2.4] fits a positive slope: {fit}")
+    for name, m in (("the paper's grid", paper), ("the fit used", fit)):
+        log(f"  warm-up: t = a + b·B·S^p on {m.n_samples} CUDA-event records, {name}: a "
+            f"{m.a * 1e3:.3f} ms, b {m.b:.4e}, p {m.p:.2f}, R² {m.r2:.4f}")
+    out["fit_paper_grid"] = dataclasses.asdict(paper)
+    out["fit"] = dataclasses.asdict(fit)
+
+    sampler = CorpusSampler(buckets, weights)
+    ind_rng = np.random.default_rng(1)
+    independent = []
+    for _ in range(PLANNED_STEPS):  # each rank draws to its own token budget
+        shares = []
+        for _w in range(n):
+            share, acc = [], 0.0
+            while acc < PLANNED_TOKENS:
+                b = sampler.draw(ind_rng, 1)[0]
+                share.append(b)
+                acc += b.tokens
+            shares.append(share)
+        independent.append(_fixed_plan(shares))
+    planner = StepPlanner(buckets, weights, n_workers=n, budget=float(PLANNED_TOKENS),
+                          budget_of=lambda b: float(b.tokens), load_of=fit.load_of,
+                          strategy="lpt", seed=1)
+    planned = [planner.plan() for _ in range(PLANNED_STEPS)]
+    seen = {(b.batch_size, b.seq_len) for b in buckets}
+    regimes = {}
+    for name, plans in (("independent", independent), ("planned/lpt", planned)):
+        shares = [[p.worker_microbatches(w) for w in range(n)] for p in plans]
+        t0 = time.perf_counter()
+        state, h = trainer.run(state, items(shares), PLANNED_STEPS, rng=2, log_every=0)
+        wall = time.perf_counter() - t0
+        micro += sum(h.microbatches)
+        planned_records(h.records, plans, set(seen))
+        steps = []
+        for i, plan in enumerate(plans):
+            times = rank_times(h.records, i, n)
+            loads = [sum(fit.load_of(b) for b in plan.worker_microbatches(w)) for w in range(n)]
+            m = step_metrics(times, loads, plan.tokens)
+            t = np.asarray(times)
+            steps.append(dict(rank_s=times, cv=float(t.std() / t.mean()), cv_step=m.cv_step,
+                              predicted_cv=m.compute_cv, tokens=plan.tokens,
+                              slowest_s=m.step_time, step_s=h.step_times[i],
+                              loss=h.losses[i]))
+        summary = {key: float(np.mean([s[key] for s in steps])) for key in (
+            "cv", "cv_step", "predicted_cv", "tokens", "slowest_s", "step_s")}
+        regimes[name] = dict(summary, steps=steps, wall_s=wall)
+        if not np.isfinite(h.losses).all():
+            raise AssertionError(f"{name}: a loss is not finite: {h.losses}")
+        log(f"  {name}: rank-time CV {summary['cv']:.3f}, CV_step {summary['cv_step']:.3f}, "
+            f"predicted compute CV {summary['predicted_cv']:.3f}, {summary['tokens']:,.0f} "
+            f"tokens a step, slowest rank {summary['slowest_s'] * 1e3:.1f} ms (summed serial "
+            f"device times of emulated ranks, not a multi-card measurement)")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check_counts(counts, micro, cfg.n_layers, "planned comparison")
+    bad = [nm for nm, prm in state["model"].named_parameters() if not torch.isfinite(prm).all()]
+    if bad:
+        raise AssertionError(f"parameters not finite after the updates: {bad[:5]}")
+    out["comparison"] = dict(regimes=regimes, ranks=n, tokens_a_rank=PLANNED_TOKENS,
+                             steps=PLANNED_STEPS, launches=counts, microbatches=micro,
+                             emulated="ranks run serially on one card; rank times are summed "
+                                      "CUDA-event microbatch times")
+
+    # (c) the closed loop: the scheduler seeded with (b)'s fit, its planner
+    # behind the sharded loader, the trainer feeding it every step's records
+    sconf = SchedulerConfig(target_sync=fit.predict(buckets[0].batch_size, buckets[0].seq_len),
+                            m_mem=16384, refit_interval=2, min_samples=8, dispatch="lpt")
+    sched = AdaptiveLoadScheduler(sconf, [shapes[i] for i in sel], initial_model=fit,
+                                  n_workers=n)
+    planner = sched.make_planner(seed=0)
+    log(f"(c) closed loop: M_comp {sched.policy.m_comp:.4e} from the fit, buckets (S, B) "
+        f"{[(b.seq_len, b.batch_size) for b in sched.buckets]}")
+
+    def make_batch(rng_np, b):
+        return make_diffusion_batch(int(rng_np.integers(2**31)), b.batch_size, b.seq_len, cfg,
+                                    dev)
+
+    loader = ShardedBucketedLoader(sched.buckets, None, on_side_stream(make_batch, dev),
+                                   n_workers=n, planner=planner, seed=0)
+    K.reset_launch_counts()
+    try:
+        state, h = Trainer(cfg, opt, scheduler=sched, engine=engine).run(
+            state, iter(loader), PLANNED_STEPS, rng=3, log_every=0)
+        plans = loader.plans[:PLANNED_STEPS]
+    finally:
+        loader.close()
+        sched.close()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check_counts(counts, sum(h.microbatches), cfg.n_layers, "closed loop")
+    planned_records(h.records, plans, seen)
+    if not np.isfinite(h.losses).all():
+        raise AssertionError(f"closed loop: a loss is not finite: {h.losses}")
+    samples = sched.telemetry.bench_samples()
+    refit = fit_cost_model(samples) if len(samples) >= 3 else None
+    updates = [dict(step=u.step, reason=u.reason, m_comp=u.m_comp,
+                    buckets=[(b.seq_len, b.batch_size) for b in u.buckets]) for u in sched.updates]
+    for u in updates:
+        log(f"  PlanUpdate at step {u['step']}: {u['reason']}; M_comp {u['m_comp']:.4e}, "
+            f"buckets {u['buckets']}")
+    if refit is not None:
+        log(f"  refit on {refit.n_samples} records: a {refit.a * 1e3:.3f} ms, b "
+            f"{refit.b:.4e}, p {refit.p:.2f}, R² {refit.r2:.4f}; {len(updates)} plan updates; "
+            f"the scheduler's model p {sched.model.p:.2f}")
+    out["closed_loop"] = dict(
+        losses=h.losses, step_s=h.step_times, microbatches=h.microbatches, launches=counts,
+        updates=updates, refit=dataclasses.asdict(refit) if refit else None,
+        model=dataclasses.asdict(sched.model), records=len(h.records),
+        plans=[[[(b.batch_size, b.seq_len) for b in p.worker_microbatches(w)]
+                for w in range(n)] for p in plans])
+    del state, engine, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fixed_plan(shares):
+    """A ``StepPlan`` that deals ``shares`` (bucket lists, one a rank) as
+    they stand: the independent regime's and the warm-up's dispatch."""
+    from repro_torch.core.dispatch import StepPlan
+
+    pool, groups = [], []
+    for share in shares:
+        groups.append(tuple(range(len(pool), len(pool) + len(share))))
+        pool.extend(share)
+    return StepPlan(microbatches=tuple(pool), assignments=tuple(groups),
+                    loads=tuple(0.0 for _ in pool), strategy="independent")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2428,12 +2704,14 @@ def main() -> int:
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         record["kernels"][name]["f32_hop"] = record["kernels"].pop(f"{name}_f32_hop")
     record["train_dense"] = timed("9bc train_dense", phase_train_dense, K, dev)
+    record["train_planned"] = timed("10 train_planned", phase_train_planned, K, dev)
 
     # launches: each main path's own count, reset to 0 just before that run
     # and read just after (the serving waves of phase 3, the 4 training steps
     # of phase 5 (b), the LM serving of phase 6 (b), the 4 Mamba-2 training
-    # steps of phase 8 (b), the 4 dense-LM training steps of phase 9 (b) and
-    # the SP step of phase 9 (c)); "launches" is their sum
+    # steps of phase 8 (b), the 4 dense-LM training steps of phase 9 (b), the
+    # SP step of phase 9 (c) and the planned launcher of phase 10 (a));
+    # "launches" is their sum
     kernels = []
     for name, k in record["kernels"].items():
         by_path = {"serve": record["serve"]["launches"][name],
@@ -2441,7 +2719,8 @@ def main() -> int:
                    "serve_lm": record["serve_lm"]["serve"]["launches"][name],
                    "train_lm": record["train_ssm"]["train"]["launches"][name],
                    "train_dense": record["train_dense"]["train"]["launches"][name],
-                   "train_sp": record["train_dense"]["sp"]["launches"][name]}
+                   "train_sp": record["train_dense"]["sp"]["launches"][name],
+                   "train_planned": record["train_planned"]["launcher"]["launches"][name]}
         kernels.append({"name": name, **{key: k[key] for key in (
             "route", "source", "replaces")}, "launches": sum(by_path.values()),
             "launches_by_path": by_path,

@@ -31,12 +31,28 @@ by kernel family (the port's kernels, cuBLAS matrix products in bf16 and
 f32, elementwise/reduction, copies, other), the 12 kernels with the most
 device time, the device's busy time, and its idle share of the window
 from the first kernel's start to the last kernel's end.
+
+``--streams``: where the planned loader's draws run.  Wan-2.1 1.3B at 10
+of its 30 layers trains on 4 emulated ranks (``ShardedBucketedLoader``
+over ``chip_smoke.py`` phase 10 (b)'s 480p buckets, 16384 tokens a rank),
+once with ``make_batch`` on the default stream and once through
+``data.pipeline.on_side_stream``; two steps meet the batch signatures,
+two more are profiled.  From the trace (``build/streams_*.json``) it
+reports, for each way, the kernels by stream that the trainer's thread,
+the loader's thread (each known by a ``record_function`` range it opens)
+and the others (autograd's backward) launched, how many of the loader's
+ran on the
+engine's timed stream inside the profiled steps and their device ms, and
+the engine's mean microbatch ms by shape.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+from collections import Counter
 import json
+import pathlib
 import sys
 import types
 
@@ -44,16 +60,27 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config, get_optimizer
-from repro_torch.core.bucketing import Bucket, DataShape
+from repro_torch.core.bucketing import Bucket, BucketingPolicy, DataShape
 from repro_torch.data.packing import split_packed_batch
-from repro_torch.data.pipeline import materialize_packed_windows, to_device
-from repro_torch.data.synthetic import lm_length_corpus, make_diffusion_batch, make_lm_batch
+from repro_torch.data.pipeline import (
+    ShardedBucketedLoader,
+    materialize_packed_windows,
+    on_side_stream,
+    to_device,
+)
+from repro_torch.data.synthetic import (
+    lm_length_corpus,
+    make_diffusion_batch,
+    make_lm_batch,
+    wan_mixed_corpus,
+)
 from repro_torch.kernels.flash_attention.ring import LocalRing
 from repro_torch.launch.profile_serve import profile
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.train.engine import EmulatedEngine
+from repro_torch.train.loop import Trainer
 from repro_torch.train.steps import init_state, make_sp_pool_grad_step, sp_batch
 
 BUCKETS = (Bucket(DataShape(1, 480, 832, 77), 10), Bucket(DataShape(33, 480, 832, 77), 1))
@@ -202,13 +229,104 @@ def _main_dense() -> dict:
     return out
 
 
+TRAINER_RANGE, LOADER_RANGE = "streams.trainer", "streams.make_batch"
+
+
+def stream_report(trace: dict) -> dict:
+    """Kernels of a Chrome trace by the thread that launched them (the
+    runtime call with the kernel's correlation id; the trainer's and the
+    loader's threads are those of the ``TRAINER_RANGE`` and ``LOADER_RANGE``
+    annotations, autograd's backward thread and the rest are "other"):
+    their streams, and the loader's kernels on a stream of the trainer's
+    between its first and last kernel, with their device ms."""
+    events = trace["traceEvents"]
+    tids = {name: {e.get("tid") for e in events if e.get("name") == name}
+            for name in (TRAINER_RANGE, LOADER_RANGE)}
+    tid_of = {e["args"]["correlation"]: e.get("tid") for e in events
+              if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by = {"trainer": [], "loader": [], "other": []}
+    for k in kernels:
+        tid = tid_of.get(k["args"].get("correlation"))
+        by["trainer" if tid in tids[TRAINER_RANGE] else
+           "loader" if tid in tids[LOADER_RANGE] else "other"].append(k)
+    if not by["trainer"]:  # the trace names threads otherwise: say which it saw
+        return {"unresolved": {"ranges": {k: sorted(map(str, v)) for k, v in tids.items()},
+                               "launching": sorted(set(map(str, tid_of.values())))}}
+    timed = {k["args"]["stream"] for k in by["trainer"]}
+    lo = min(k["ts"] for k in by["trainer"])
+    hi = max(k["ts"] + k["dur"] for k in by["trainer"])
+    inside = [k for k in by["loader"] if k["args"]["stream"] in timed and lo <= k["ts"] <= hi]
+    return {"kernels_by_stream": {who: dict(Counter(k["args"]["stream"] for k in ks))
+                                  for who, ks in by.items()},
+            "loader_kernels_on_timed_stream_in_steps": len(inside),
+            "loader_ms_on_timed_stream_in_steps": sum(k["dur"] for k in inside) / 1e3}
+
+
+def _main_streams() -> dict:
+    cfg = dataclasses.replace(get_config("wan2.1-1.3b"), n_layers=10)
+    opt = OptimizerConfig(peak_lr=get_optimizer("wan2.1-1.3b").peak_lr, schedule="constant",
+                          warmup=0, total_steps=4)
+    shapes, weights = wan_mixed_corpus()
+    sel = [0, 2, 3]  # the 480p image, 17 and 33 frames: S = 1637, 4757, 7877
+    buckets = BucketingPolicy(m_mem=16384, m_comp=6.4e7, p=2.0).make_buckets(
+        [shapes[i] for i in sel])
+    out_dir = pathlib.Path("build")  # the traces run to hundreds of MB
+    out_dir.mkdir(exist_ok=True)
+    out = {"device": torch.cuda.get_device_name(0), "layers": cfg.n_layers, "ranks": 4}
+    for way in ("default", "side"):
+        state = init_state(cfg, opt, seed=0)
+        dev = state["model"].device
+
+        def make_batch(rng, b):
+            with torch.profiler.record_function(LOADER_RANGE):
+                return make_diffusion_batch(int(rng.integers(2**31)), b.batch_size, b.seq_len,
+                                            cfg, dev)
+
+        loader = ShardedBucketedLoader(
+            buckets, [weights[i] for i in sel],
+            on_side_stream(make_batch, dev) if way == "side" else make_batch,
+            n_workers=4, budget=16384.0, budget_of=lambda b: float(b.tokens),
+            load_of=lambda b: b.load(2.0), strategy="lpt", seed=0)
+        trace = out_dir / f"streams_{way}.json"
+        try:
+            trainer = Trainer(cfg, opt)
+            data = iter(loader)
+            state, _ = trainer.run(state, data, 2, rng=1, log_every=0)  # first signatures
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            # the loader's thread too, not only the one that starts the profile
+            every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+            with torch.profiler.profile(activities=acts, experimental_config=every_thread) as prof:
+                with torch.profiler.record_function(TRAINER_RANGE):
+                    state, hist = trainer.run(state, data, 2, rng=2, log_every=0)
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(str(trace))
+        finally:
+            loader.close()
+        rep = stream_report(json.loads(trace.read_text()))
+        ms: dict[str, list] = {}
+        for r in hist.records:
+            ms.setdefault(f"{r.batch_size}x{r.seq_len}", []).append(1e3 * r.compute_time)
+        rep["microbatch_ms"] = {k: float(np.mean(v)) for k, v in sorted(ms.items())}
+        out[way] = rep
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=()) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="wan2.1-1.3b",
                     choices=("wan2.1-1.3b", "mamba2-2.7b", "llama3.2-1b"))
+    ap.add_argument("--streams", action="store_true",
+                    help="where the planned loader's draws run (Wan-2.1, 4 ranks)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train measures the GPU; no CUDA device is visible")
+    if args.streams:
+        out = _main_streams()
+        print(json.dumps(out))
+        return out
     out = {"wan2.1-1.3b": _main_mmdit, "mamba2-2.7b": _main_ssm,
            "llama3.2-1b": _main_dense}[args.arch]()
     print(json.dumps(out))

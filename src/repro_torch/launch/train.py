@@ -1,22 +1,29 @@
 """Training launcher of the port (the mmdit and LM routes of
-``repro.launch.train``, single rank):
+``repro.launch.train`` on emulated ranks):
 
     PYTHONPATH=src python -m repro_torch.launch.train --adaptive --steps 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --adaptive --steps 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch wan2.1-1.3b \\
-        --adaptive --steps 2
+        --adaptive --workers 4 --dispatch lpt --steps 2
 
 runs on CUDA; ``--device cpu --smoke`` trains the smoke configuration on
 the plain PyTorch path.  ``--adaptive`` feeds dual-constraint buckets
-(``B = min(M_mem / S, M_comp / S^p)``) through ``BucketedLoader`` with the
-reference launcher's shapes, budgets and seeds; without it every step is
-one fixed ``--batch`` x ``--seq`` microbatch.  The mmdit trains on
-diffusion latents, the LMs (the dense ``tinyllama-1.1b``, the default as
-in the reference launcher, and ``llama3.2-1b``; the ssm ``mamba2-2.7b``)
-on unpacked synthetic token streams (``make_lm_batch``) of the same
-shapes.  Steps run through ``Trainer`` on
-``EmulatedEngine``.  It prints the final loss and tokens/s.
+(``B = min(M_mem / S, M_comp / S^p)``) with the reference launcher's
+shapes, budgets and seeds: through ``BucketedLoader`` at one rank, and with
+``--workers N > 1`` through ``ShardedBucketedLoader``, whose ``StepPlanner``
+draws one global pool a step and packs it across the N ranks by ``B·S^p``
+(``--dispatch``; ``--overlap`` refines knapsack plans on a background
+thread, ``--deterministic-refine`` in fixed rounds; ``--sp-max-ranks``
+lets it split packed windows).  The N ranks run serially on one device
+(``EmulatedEngine``: the pool-mean gradient, one AdamW update a step).
+Without ``--adaptive`` every step is one fixed ``--batch`` x ``--seq``
+microbatch.  The mmdit trains on diffusion latents, the LMs (the dense
+``tinyllama-1.1b``, the default as in the reference launcher, and
+``llama3.2-1b``; the ssm ``mamba2-2.7b``) on unpacked synthetic token
+streams (``make_lm_batch``) of the same shapes.  On the card the loader's
+thread draws batches on a side stream (``on_side_stream``), off the stream
+the engine times.  It prints the final loss and tokens/s.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ import numpy as np
 from repro_torch import resolve_device
 from repro_torch.configs.registry import ARCHS, get_config, get_optimizer, get_smoke_config
 from repro_torch.core.bucketing import BucketingPolicy, DataShape
-from repro_torch.data.pipeline import BucketedLoader
+from repro_torch.core.dispatch import DISPATCH_STRATEGIES
+from repro_torch.data.pipeline import BucketedLoader, ShardedBucketedLoader, on_side_stream
 from repro_torch.data.synthetic import make_diffusion_batch, make_lm_batch
 from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.train.loop import Trainer, TrainHistory
@@ -37,12 +45,11 @@ from repro_torch.train.steps import init_state
 EPILOG = (
     "Not yet in the port (each comes with its slice, and its flag is an error "
     "here): the final checkpoint save and --ckpt-dir/--resume/--keep/--ckpt-every/"
-    "--digest-log (checkpoint), --workers/--dispatch/--mesh/--overlap/"
-    "--deterministic-refine/--refine-rounds/--sp-max-ranks/--elastic (multi-rank), "
-    "--chaos/--preempt-flag (fault tolerance).  --workers and --mesh wait for the "
-    "multi-GPU plan executor and --sp-max-ranks for the planner's split decision "
-    "(ROADMAP Queue 1 items 4 and 1); the sequence-parallel step itself is "
-    "repro_torch.train.steps.make_sp_pool_grad_step."
+    "--digest-log and --chaos/--preempt-flag (checkpoints and fault tolerance, "
+    "ROADMAP Queue 1 item 3); --mesh and --elastic (one rank a GPU, the multi-GPU "
+    "plan executor, item 4).  --workers runs its ranks serially on one device; "
+    "a split window merges back whole there (the ring step itself is "
+    "repro_torch.train.steps.make_sp_pool_grad_step)."
 )
 
 
@@ -76,9 +83,43 @@ def main(argv=None) -> TrainHistory:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--adaptive", action="store_true",
                     help="bucketed AdaptiveLoad data (variable shapes)")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="DP ranks fed from one global step plan (run serially)")
+    ap.add_argument("--dispatch", default="lpt", choices=DISPATCH_STRATEGIES,
+                    help="step-level microbatch dispatch strategy (§4.5)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="overlapped execution: knapsack-swap plan refinement runs "
+                         "behind the previous step's compute (requires --dispatch "
+                         "knapsack)")
+    ap.add_argument("--deterministic-refine", action="store_true",
+                    help="fixed-round digest-seeded refinement: adoption is a pure "
+                         "function of the plan (requires --overlap)")
+    ap.add_argument("--refine-rounds", type=int, default=16,
+                    help="exchange rounds for --deterministic-refine")
+    ap.add_argument("--sp-max-ranks", type=int, default=1,
+                    help="sequence parallelism: let the planner split one long packed "
+                         "window across up to K contiguous ranks; 1 = never split.  "
+                         "Only packed variable-length microbatches are eligible")
     ap.add_argument("--device", default=None,
                     help="default: CUDA (raises without a GPU); 'cpu' runs the plain path")
     args = ap.parse_args(argv)
+    # the reference launcher's checks, where they apply
+    if args.workers > 1 and not args.adaptive:
+        ap.error("--workers > 1 requires --adaptive (the fixed-shape stream "
+                 "has no planner to shard)")
+    if args.overlap and args.dispatch != "knapsack":
+        ap.error("--overlap refines knapsack plans; pass --dispatch knapsack")
+    if args.overlap and not args.workers > 1:
+        ap.error("--overlap requires the planner-driven stream (--workers > 1)")
+    if args.deterministic_refine and not args.overlap:
+        ap.error("--deterministic-refine configures the overlapped refiner; "
+                 "pass --overlap (the synchronous knapsack pass is already "
+                 "deterministic)")
+    if args.sp_max_ranks < 1:
+        ap.error("--sp-max-ranks must be >= 1")
+    if args.sp_max_ranks > 1 and not args.workers > 1:
+        ap.error("--sp-max-ranks > 1 needs the planner-driven multi-rank "
+                 "stream (--workers N > 1)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     opt = get_optimizer(args.arch)
@@ -104,10 +145,27 @@ def main(argv=None) -> TrainHistory:
         shapes = [DataShape(1, 256, 256, 16), DataShape(9, 192, 192, 16),
                   DataShape(17, 192, 192, 16)]
         policy = BucketingPolicy(m_mem=args.batch * 1024, m_comp=2.0e7, p=2.0)
-        loader = BucketedLoader(
-            policy.make_buckets(shapes), None, make_batch,
-            budget=float(args.batch * args.seq), budget_of=lambda b: float(b.tokens),
-        )
+        buckets = policy.make_buckets(shapes)
+        if args.workers > 1:
+            # global step plan: one pool per step, packed across ranks by
+            # quadratic load, instead of independent per-rank draws
+            loader = ShardedBucketedLoader(
+                buckets, None, on_side_stream(make_batch, device),
+                n_workers=args.workers,
+                budget=float(args.batch * args.seq),
+                budget_of=lambda b: float(b.tokens),
+                load_of=lambda b: b.load(policy.p),
+                strategy=args.dispatch,
+                overlap=args.overlap,
+                deterministic_refine=args.deterministic_refine,
+                refine_rounds=args.refine_rounds,
+                sp_max_ranks=args.sp_max_ranks if args.sp_max_ranks > 1 else None,
+            )
+        else:
+            loader = BucketedLoader(
+                buckets, None, on_side_stream(make_batch, device),
+                budget=float(args.batch * args.seq), budget_of=lambda b: float(b.tokens),
+            )
     else:
         loader = _Fixed(make_batch, np.random.default_rng(0), args.batch, args.seq)
     try:
@@ -115,6 +173,9 @@ def main(argv=None) -> TrainHistory:
                                             log_every=10)
     finally:
         loader.close()
+    if isinstance(loader, ShardedBucketedLoader):
+        # the producer runs ahead by its prefetch depth: the consumed prefix
+        hist.plans = loader.plans[:len(hist.losses)]
     print(
         f"done: {args.steps} steps, final loss {hist.losses[-1]:.4f}, "
         f"throughput {hist.throughput:,.0f} tok/s, events={hist.events}"

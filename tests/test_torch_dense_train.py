@@ -180,6 +180,8 @@ def test_launch_train_dense_route_on_cpu(capsys):
                               "--steps", "2"])
     assert hist.tokens == [512, 512] and np.isfinite(hist.losses).all()
     assert "final loss" in capsys.readouterr().out
+    # the reference launcher's checks: --sp-max-ranks > 1 needs --workers > 1,
+    # and --workers > 1 needs --adaptive; --mesh is not a flag of the port yet
     for flag in (["--sp-max-ranks", "2"], ["--workers", "2"], ["--mesh", "2x2"]):
         with pytest.raises(SystemExit):
             launch_train.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", *flag])

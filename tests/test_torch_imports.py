@@ -31,6 +31,9 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.models.ssm, repro_torch.launch.train, repro_torch.launch.profile_train\n"
         "import repro_torch.data.packing, repro_torch.kernels.flash_attention.ring\n"
         "import repro_torch.configs.tinyllama_1_1b\n"
+        "import repro_torch.core, repro_torch.core.balancer, repro_torch.core.cost_model\n"
+        "import repro_torch.core.dispatch, repro_torch.core.scheduler\n"
+        "import repro_torch.core.simulator, repro_torch.core.telemetry\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

@@ -420,13 +420,24 @@ def test_train_step_updates_in_place():
 
 def test_trainer_takes_no_later_slice_arguments():
     cfg = jax_wan.smoke_config()
+    opt = adamw.OptimizerConfig()
     with pytest.raises(TypeError):
-        Trainer(cfg, adamw.OptimizerConfig(), ft=None)
-    trainer = Trainer(cfg, adamw.OptimizerConfig())
-    # resume and the closed-loop scheduler's hook come with their own slices
-    for later in ({"start_step": 3}, {"on_metrics": print}):
-        with pytest.raises(TypeError):
-            trainer.run(None, iter([]), 1, **later)
+        Trainer(cfg, opt, ft=None)
+    trainer = Trainer(cfg, opt)
+    # resume comes with the checkpoint slice
+    with pytest.raises(TypeError):
+        trainer.run(None, iter([]), 1, start_step=3)
+    # the closed loop's per-step hook is here: it sees every step's metrics
+    model = MMDiT(cfg, seed=2, device="cpu")
+    state = {"model": model, "opt": adamw.init_opt_state(dict(model.named_parameters()), opt),
+             "step": 0}
+    batch = {k: torch.from_numpy(v) for k, v in
+             _batches(cfg, np.random.default_rng(3), [[(1, 16)]])[0][0].items()}
+    item = [(bucketing.Bucket(bucketing.DataShape(1, 16, 16), 1), batch)]
+    seen = []
+    trainer.run(state, iter([item, item]), 2, log_every=0,
+                on_metrics=lambda i, m: seen.append((i, sorted(m), m["tokens"])))
+    assert seen == [(0, ["loss", "time", "tokens"], 1), (1, ["loss", "time", "tokens"], 1)]
 
 
 # -- launcher ------------------------------------------------------------------------
@@ -441,6 +452,8 @@ def test_launch_train_smoke_adaptive_on_cpu(capsys):
 
 
 def test_launch_train_refuses_flags_it_does_not_have():
+    # --workers > 1 needs --adaptive (the reference launcher's check: the
+    # fixed-shape stream has no planner to shard)
     with pytest.raises(SystemExit) as err:
         launch_train.main(["--smoke", "--device", "cpu", "--workers", "2"])
     assert err.value.code == 2
