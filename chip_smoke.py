@@ -120,6 +120,21 @@ Phases, any failure of which exits non-zero with no result line:
    ``Trainer(scheduler=)`` for 4 steps (refit every 2 steps from 8
    records): launch counts, records against the plans, the refit model and
    every ``PlanUpdate``.
+11. kill-and-resume on emulated ranks: Wan-2.1 1.3B at full width and 2
+   of its 30 layers (a checkpoint of about 1.2 GB; bf16, seed 0) on 4
+   ranks over phase 10 (b)'s buckets, planned LPT at 16384 tokens a rank,
+   through ``ShardedBucketedLoader(resume_state=)``, ``Trainer(ft=,
+   chaos=, run_state_of=)`` with ``ft.on_resize =
+   trainer.set_physical_ranks``, ``checkpoint.store.restore`` and
+   ``load_run_state``: (a) 6 uninterrupted steps; (b) the churn leg
+   ``kill@1:2,3;join@3:2;preempt@4``, which stops after 5 steps with the
+   handoff checkpoint on disk (its events must include the kill, the join
+   back to 4 ranks and the preemption); (c) a restore into a fresh state
+   on the card and the last step.  The plan digests of (b) + (c) must equal
+   (a)'s, and the final parameters and moments (a)'s bitwise (else the
+   differing tensors are named and rel-L2 <= 1e-5 holds); launch counts of
+   (b) + (c) exact; each checkpoint's save seconds, the handoff
+   checkpoint's bytes and the restore seconds.
 
 Phase 2 also holds K4 on model rows (x [1, 2048, 2048] and [8, 1, 2048]
 bf16) and K12 (the decode wave of phase 6; 64 slots with kv_lens up to
@@ -136,13 +151,13 @@ second run), timed back to back with K3 there and at the paper's Fig. 1
 width (D 5120, B 1, S 8192 to 32768), with its GB/s an SM; all of them at
 small f32 shapes.
 
-Each kernel's launch counts in the record are those of the seven main
+Each kernel's launch counts in the record are those of the eight main
 paths, each reset to 0 just before its run and read just after: the
 serving waves of phase 3, the training steps of phase 5 (b), the LM
 serving of phase 6 (b), the Mamba-2 training steps of phase 8 (b), the
-dense-LM training steps of phase 9 (b), the SP step of phase 9 (c) and the
-planned launcher of phase 10 (a) (``launches_by_path``); ``launches`` is
-their sum.
+dense-LM training steps of phase 9 (b), the SP step of phase 9 (c), the
+planned launcher of phase 10 (a) and the churn leg and resumed step of
+phase 11 (b), (c) (``launches_by_path``); ``launches`` is their sum.
 
 Each phase's wall seconds go to the log and to the record (``phase_s``).
 Prints the kernels' JSON record on the line before the last and, as the
@@ -2614,6 +2629,160 @@ def phase_train_planned(K, dev) -> dict:
     return out
 
 
+RESUME_LAYERS = 2  # phase 11: a checkpoint of ~1.2 GB (30 layers would write ~14 GB a save)
+RESUME_STEPS = 6  # phase 11 (a): the uninterrupted run
+RESUME_CHURN = "kill@1:2,3;join@3:2;preempt@4"  # phase 11 (b): stops after 5 steps
+
+
+def phase_train_resume(K, dev) -> dict:
+    """Phase 11: kill-and-resume and a churn cycle of Wan-2.1 training on
+    emulated ranks, through the checkpoint store and the fault-tolerance
+    runner."""
+    import shutil
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.registry import get_config, get_optimizer
+    from repro_torch.core.bucketing import BucketingPolicy
+    from repro_torch.data.pipeline import ShardedBucketedLoader, on_side_stream
+    from repro_torch.data.synthetic import make_diffusion_batch, wan_mixed_corpus
+    from repro_torch.distributed.chaos import ChaosSchedule
+    from repro_torch.distributed.fault_tolerance import (
+        CheckpointCadence,
+        FaultTolerantRunner,
+        HeartbeatMonitor,
+        PreemptionNotice,
+    )
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.loop import Trainer, deserialize_rng_key
+    from repro_torch.train.steps import init_state
+
+    n = PLANNED_RANKS
+    cfg = dataclasses.replace(get_config("wan2.1-1.3b"), n_layers=RESUME_LAYERS)
+    shapes, weights = wan_mixed_corpus()
+    sel = [0, 2, 3]  # phase 10 (b)'s buckets: S = 1637, 4757, 7877
+    buckets = BucketingPolicy(m_mem=16384, m_comp=6.4e7, p=2.0).make_buckets(
+        [shapes[i] for i in sel])
+    weights = [weights[i] for i in sel]
+    opt = OptimizerConfig(peak_lr=get_optimizer("wan2.1-1.3b").peak_lr, schedule="constant",
+                          warmup=0, total_steps=RESUME_STEPS)
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"  # gitignored; removed below
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def make_batch(rng_np, b):
+        return make_diffusion_batch(int(rng_np.integers(2**31)), b.batch_size, b.seq_len, cfg,
+                                    dev)
+
+    def loader_of(resume_state=None):
+        return ShardedBucketedLoader(
+            buckets, weights, on_side_stream(make_batch, dev), n_workers=n,
+            budget=float(PLANNED_TOKENS), budget_of=lambda b: float(b.tokens),
+            load_of=lambda b: b.load(2.0), strategy="lpt", seed=0, resume_state=resume_state)
+
+    def train(state, loader, steps, *, rng, start_step=0, **kw):
+        trainer = Trainer(cfg, opt, run_state_of=lambda held: {
+            "loader": loader.state_dict(rewind=held)}, **kw)
+        if trainer.ft is not None:
+            trainer.ft.on_resize = trainer.set_physical_ranks  # --elastic remap
+        try:
+            state, hist = trainer.run(state, iter(loader), steps, rng=rng,
+                                      start_step=start_step, log_every=0)
+            digests = [p.digest().hex() for p in loader.plans[:len(hist.losses)]]
+        finally:
+            loader.close()
+        return state, hist, digests
+
+    saves = []
+
+    class TimedRunner(FaultTolerantRunner):
+        """The runner, with each checkpoint's wall seconds recorded."""
+
+        def _save(self, state, step, run_state):
+            t = time.perf_counter()
+            super()._save(state, step, run_state)
+            saves.append((step, time.perf_counter() - t))
+
+    log(f"{cfg.name} {cfg.n_layers} of 30 layers {cfg.dtype}, seed 0, {n} emulated ranks on planned "
+        f"LPT, buckets (S, B) {[(b.seq_len, b.batch_size) for b in buckets]}, "
+        f"{PLANNED_TOKENS} tokens a rank")
+    try:
+        # (a) the uninterrupted run
+        state_a, hist_a, digests_a = train(init_state(cfg, opt, seed=0, device=dev),
+                                           loader_of(), RESUME_STEPS, rng=1)
+        log(f"(a) uninterrupted: {RESUME_STEPS} steps, {sum(hist_a.microbatches)} "
+            f"microbatches, losses {[round(x, 5) for x in hist_a.losses]}")
+
+        # (b) the churn leg: kill 2 ranks after step 1, 2 join after step 3,
+        # preempted after step 4 with the handoff checkpoint on disk
+        ft = TimedRunner(ckpt_dir=str(ckpt_dir),
+                         cadence=CheckpointCadence(1.0, 1.0, min_interval_steps=100),
+                         monitor=HeartbeatMonitor(n, timeout_s=1e9), keep=1,
+                         preemption=PreemptionNotice())
+        K.reset_launch_counts()
+        state_b, hist_b, digests_b = train(init_state(cfg, opt, seed=0, device=dev),
+                                           loader_of(), RESUME_STEPS, rng=1, ft=ft,
+                                           chaos=ChaosSchedule.from_spec(RESUME_CHURN))
+        del state_b
+        log(f"(b) {RESUME_CHURN}: {len(hist_b.losses)} steps, events {hist_b.events}")
+        for want in ("chaos:kill:2,3@1", "join@3:2->4", "preempt@4"):
+            if want not in hist_b.events:
+                raise AssertionError(f"churn leg: no {want!r} in {hist_b.events}")
+        if not hist_b.preempted or len(hist_b.losses) != 5:
+            raise AssertionError(f"churn leg: {len(hist_b.losses)} steps, preempted "
+                                 f"{hist_b.preempted}")
+        step_dir = ckpt_dir / f"step-{5:09d}"
+        ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+
+        # (c) restore into a fresh state on the card, train the last step
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run_state = store.load_run_state(ckpt_dir)
+        state_c = store.restore(ckpt_dir, init_state(cfg, opt, seed=1, device=dev))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        if not state_c["step"] == run_state["step"] == 5:
+            raise AssertionError(f"restored step {state_c['step']}, run state {run_state}")
+        state_c, hist_c, digests_c = train(
+            state_c, loader_of(run_state["loader"]), RESUME_STEPS - 5,
+            rng=deserialize_rng_key(run_state["trainer"]["rng"]), start_step=5)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    micro = sum(hist_b.microbatches) + sum(hist_c.microbatches)
+    check_counts(counts, micro, cfg.n_layers, "train_resume (b) + (c)")
+    if digests_b + digests_c != digests_a:
+        raise AssertionError("the resumed plan digests differ from the uninterrupted run's")
+    log(f"  plan digests of (b) + (c) equal (a)'s ({len(digests_a)} steps)")
+    pairs = [(f"params/{nm}", p.detach(), state_a["model"].get_parameter(nm).detach())
+             for nm, p in state_c["model"].named_parameters()]
+    pairs += [(f"opt/{k}/{nm}", t, state_a["opt"][k][nm])
+              for k in ("m", "v") for nm, t in state_c["opt"][k].items()]
+    differ = [name for name, got, want in pairs if not torch.equal(got, want)]
+    num = sum(float((got.double() - want.double()).square().sum()) for _, got, want in pairs)
+    den = sum(float(want.double().square().sum()) for _, _, want in pairs)
+    rel = (num / den) ** 0.5
+    if differ:
+        log(f"  NOT bitwise: {len(differ)} of {len(pairs)} tensors differ (first "
+            f"{differ[:5]}), rel-L2 {rel:.3e}")
+        if rel > 1e-5:
+            raise AssertionError(f"resumed state rel-L2 {rel:.3e} > 1e-5 (the oracle gate)")
+    else:
+        log(f"  parameters and moments of (c) equal (a)'s bitwise ({len(pairs)} tensors)")
+    if hist_b.losses + hist_c.losses != hist_a.losses:
+        log(f"  losses differ: {hist_b.losses + hist_c.losses} vs {hist_a.losses}")
+    for step, sec in saves:
+        log(f"  checkpoint at step {step}: {sec:.3f} s")
+    log(f"  handoff checkpoint: {ckpt_bytes:,} bytes ({ckpt_bytes / 2**30:.3f} GiB), restore "
+        f"{restore_s:.3f} s (manifest, read, copy to the card)")
+    del state_a, state_c
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, ranks=n, churn=RESUME_CHURN, events=hist_b.events,
+                losses=dict(a=hist_a.losses, b=hist_b.losses, c=hist_c.losses),
+                digests_equal=True, bitwise=not differ, differ=differ, rel_l2=rel,
+                ckpt_bytes=ckpt_bytes, save_s=saves, restore_s=restore_s,
+                microbatches=micro, launches=counts)
+
+
 def _fixed_plan(shares):
     """A ``StepPlan`` that deals ``shares`` (bucket lists, one a rank) as
     they stand: the independent regime's and the warm-up's dispatch."""
@@ -2705,13 +2874,14 @@ def main() -> int:
         record["kernels"][name]["f32_hop"] = record["kernels"].pop(f"{name}_f32_hop")
     record["train_dense"] = timed("9bc train_dense", phase_train_dense, K, dev)
     record["train_planned"] = timed("10 train_planned", phase_train_planned, K, dev)
+    record["train_resume"] = timed("11 train_resume", phase_train_resume, K, dev)
 
     # launches: each main path's own count, reset to 0 just before that run
     # and read just after (the serving waves of phase 3, the 4 training steps
     # of phase 5 (b), the LM serving of phase 6 (b), the 4 Mamba-2 training
     # steps of phase 8 (b), the 4 dense-LM training steps of phase 9 (b), the
-    # SP step of phase 9 (c) and the planned launcher of phase 10 (a));
-    # "launches" is their sum
+    # SP step of phase 9 (c), the planned launcher of phase 10 (a) and the
+    # churn leg and resumed step of phase 11 (b), (c)); "launches" is their sum
     kernels = []
     for name, k in record["kernels"].items():
         by_path = {"serve": record["serve"]["launches"][name],
@@ -2720,7 +2890,8 @@ def main() -> int:
                    "train_lm": record["train_ssm"]["train"]["launches"][name],
                    "train_dense": record["train_dense"]["train"]["launches"][name],
                    "train_sp": record["train_dense"]["sp"]["launches"][name],
-                   "train_planned": record["train_planned"]["launcher"]["launches"][name]}
+                   "train_planned": record["train_planned"]["launcher"]["launches"][name],
+                   "train_resume": record["train_resume"]["launches"][name]}
         kernels.append({"name": name, **{key: k[key] for key in (
             "route", "source", "replaces")}, "launches": sum(by_path.values()),
             "launches_by_path": by_path,

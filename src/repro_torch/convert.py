@@ -21,7 +21,9 @@ port's module (``MMDiT`` or ``Transformer``) ``load_state_dict``:
 ``from_jax_opt_state`` does the same for the AdamW moments (``{"m", "v"}``
 trees), and ``to_numpy`` goes back: the port's tensors by name -> the JAX
 tree of numpy arrays, with the per-layer entries stacked again, so a test
-compares parameter trees leaf by leaf.
+compares parameter trees leaf by leaf.  ``jax_keys`` names the JAX leaf
+(its ``/``-joined tree path, the checkpoint store's key) and the stacked
+index of each of the port's parameters, with no copy of their data.
 """
 
 from __future__ import annotations
@@ -34,11 +36,30 @@ from repro_torch import resolve_device
 from .models.config import ModelConfig, lm_layers
 
 
+#: bf16 as numpy holds it without ml_dtypes: the raw bits in a 2-byte void
+#: dtype, the kind ("V") ml_dtypes' bfloat16 has too
+BF16_BITS = np.dtype("V2")
+
+
 def _to_torch(a, device) -> torch.Tensor:
     a = np.array(a)  # a writable, contiguous copy
-    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: reinterpret the bits
+    if a.dtype.name == "bfloat16" or a.dtype == BF16_BITS:
+        # ml_dtypes' bfloat16 or to_numpy's kept bits: reinterpret the bits
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
+
+
+def to_numpy_leaf(t: torch.Tensor, *, keep_dtype: bool = False) -> np.ndarray:
+    """One tensor on the host.  bf16 widens to f32 (which holds every bf16
+    value exactly), or with ``keep_dtype`` comes back as its raw bits in
+    :data:`BF16_BITS`: numpy has no bf16, and a checkpoint must keep the
+    leaf's dtype."""
+    t = t.detach()
+    if t.dtype != torch.bfloat16:
+        return t.cpu().numpy()
+    if keep_dtype:
+        return t.cpu().view(torch.int16).numpy().view(BF16_BITS)
+    return t.float().cpu().numpy()
 
 
 def _flatten(tree, prefix=""):
@@ -86,51 +107,64 @@ def from_jax_opt_state(opt_np: dict, cfg: ModelConfig, *, device=None) -> dict:
     return {k: from_jax_params(opt_np[k], cfg, device=device) for k in ("m", "v")}
 
 
-def to_numpy(tensors: dict, cfg: ModelConfig) -> dict:
+def jax_keys(names, cfg: ModelConfig) -> dict[str, tuple[str, int | None]]:
+    """For each of the port's parameter names, the JAX tree path of its leaf
+    (``/``-joined, as ``repro.checkpoint.store`` keys leaves) and its index
+    on the leaf's stacked axis, ``None`` where the leaf is not stacked: the
+    MMDiT's ``blocks/*`` over its layers, the LM's ``blocks/s<i>/*`` over
+    its superblocks, its ``lead/<j>/*`` and ``tail/<j>/*`` one a layer."""
+    places = lm_layers(cfg) if cfg.family != "mmdit" else None
+    out = {}
+    for name in names:
+        if not name.startswith("blocks."):
+            out[name] = (name.replace(".", "/"), None)
+            continue
+        _, i, rest = name.split(".", 2)
+        rest = rest.replace(".", "/")
+        if places is None:
+            out[name] = (f"blocks/{rest}", int(i))
+            continue
+        where, j = places[int(i)]
+        if where in ("lead", "tail"):
+            out[name] = (f"{where}/{j}/{rest}", None)
+        else:
+            out[name] = (f"blocks/{where}/{rest}", j)
+    return out
+
+
+def _stack_len(cfg: ModelConfig) -> int:
+    """The length of every stacked axis: layers (MMDiT) or superblocks (LM)."""
+    return cfg.n_layers if cfg.family == "mmdit" else cfg.superblocks()[2]
+
+
+def to_numpy(tensors: dict, cfg: ModelConfig, *, keep_dtype: bool = False) -> dict:
     """Tensors by parameter name (a state dict, gradients, a moment) as the
     JAX tree of numpy arrays: per-layer ``blocks.<i>.*`` entries stacked on
     a leading ``n_layers`` axis (MMDiT), or placed in the LM's ``lead`` /
-    ``blocks.s<i>`` / ``tail`` layout.  bf16 comes back as f32 (numpy has
-    no bf16), which holds every bf16 value exactly."""
+    ``blocks.s<i>`` / ``tail`` layout (:func:`jax_keys`).  bf16 comes back
+    as f32, or with ``keep_dtype`` as its bits (:func:`to_numpy_leaf`)."""
+    parts: dict = {}
+    for name, (key, idx) in jax_keys(tensors, cfg).items():
+        parts.setdefault(key, {})[idx] = to_numpy_leaf(tensors[name], keep_dtype=keep_dtype)
     tree: dict = {}
-    stacked: dict = {}
-    for name, t in tensors.items():
-        a = t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
-        if name.startswith("blocks."):
-            _, i, rest = name.split(".", 2)
-            stacked.setdefault(rest, {})[int(i)] = a
-        else:
-            _insert(tree, name, a)
     if cfg.family != "mmdit":
-        return _lm_tree(tree, stacked, cfg)
-    for rest, by_layer in stacked.items():
-        if sorted(by_layer) != list(range(cfg.n_layers)):
-            raise ValueError(f"blocks.*.{rest}: layers {sorted(by_layer)} != {cfg.n_layers}")
-        _insert(tree, "blocks." + rest, np.stack([by_layer[i] for i in range(cfg.n_layers)]))
+        places = lm_layers(cfg)
+        tree["lead"] = [{} for where, _ in places if where == "lead"]
+        tree["tail"] = [{} for where, _ in places if where == "tail"]
+        tree["blocks"] = {}
+    n = _stack_len(cfg)
+    for key, by_index in parts.items():
+        if None in by_index:
+            _insert(tree, key, by_index[None])
+            continue
+        if sorted(by_index) != list(range(n)):
+            raise ValueError(f"{key}: stacked entries {sorted(by_index)} != {n}")
+        _insert(tree, key, np.stack([by_index[i] for i in range(n)]))
     return tree
 
 
-def _lm_tree(tree: dict, stacked: dict, cfg: ModelConfig) -> dict:
-    places = lm_layers(cfg)
-    tree["lead"] = [{} for where, _ in places if where == "lead"]
-    tree["tail"] = [{} for where, _ in places if where == "tail"]
-    tree["blocks"] = {}
-    for rest, by_layer in stacked.items():
-        if sorted(by_layer) != list(range(len(places))):
-            raise ValueError(f"blocks.*.{rest}: layers {sorted(by_layer)} != {len(places)}")
-        reps: dict = {}
-        for layer, (where, j) in enumerate(places):
-            if where in ("lead", "tail"):
-                _insert(tree[where][j], rest, by_layer[layer])
-            else:
-                reps.setdefault(where, []).append(by_layer[layer])
-        for where, leaves in reps.items():  # appended in superblock order
-            _insert(tree["blocks"], f"{where}.{rest}", np.stack(leaves))
-    return tree
-
-
-def _insert(tree: dict, name: str, leaf) -> None:
-    *path, last = name.split(".")
-    for key in path:
-        tree = tree.setdefault(key, {})
+def _insert(tree, key: str, leaf) -> None:
+    *path, last = key.split("/")
+    for k in path:
+        tree = tree[int(k)] if isinstance(tree, list) else tree.setdefault(k, {})
     tree[last] = leaf

@@ -24,31 +24,62 @@ microbatch.  The mmdit trains on diffusion latents, the LMs (the dense
 streams (``make_lm_batch``) of the same shapes.  On the card the loader's
 thread draws batches on a side stream (``on_side_stream``), off the stream
 the engine times.  It prints the final loss and tokens/s.
+
+**Checkpoints and resume.**  ``--steps`` is the TOTAL step count of the
+run.  With ``--ckpt-dir`` a ``FaultTolerantRunner`` saves on its cadence
+(``--ckpt-every``, newest ``--keep`` kept), on failures, joins and a
+graceful preemption (``--preempt-flag`` or SIGTERM), and once at the end;
+``--resume`` restores the latest checkpoint there, weights AND run state
+(trainer key, loader and planner streams, next step), and trains the
+remaining steps, so a killed-and-resumed run gives byte-identical plan
+digests (``--digest-log`` writes one hex digest a consumed plan) and the
+same parameters as the uninterrupted run.  ``--chaos`` injects faults
+(``repro_torch.distributed.chaos``) on ``--workers N > 1``; ``--elastic``
+says how a rank-count change lands (``remap``: the plan stream keeps its
+width, shares regroup onto the physical ranks; ``replan``: the loader is
+resized).  Checkpoints use the JAX package's format, so either launcher
+resumes the other's.  Without ``--ckpt-dir`` nothing is saved.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wan2.1-1.3b \\
+        --adaptive --workers 4 --steps 6 --ckpt-dir CKPT --digest-log D \\
+        --chaos 'kill@1:2,3;join@3:2;preempt@4'
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wan2.1-1.3b \\
+        --adaptive --workers 4 --steps 6 --ckpt-dir CKPT --digest-log D --resume
 """
 
 from __future__ import annotations
 
 import argparse
+import signal
 
 import numpy as np
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import store
 from repro_torch.configs.registry import ARCHS, get_config, get_optimizer, get_smoke_config
 from repro_torch.core.bucketing import BucketingPolicy, DataShape
 from repro_torch.core.dispatch import DISPATCH_STRATEGIES
 from repro_torch.data.pipeline import BucketedLoader, ShardedBucketedLoader, on_side_stream
 from repro_torch.data.synthetic import make_diffusion_batch, make_lm_batch
+from repro_torch.distributed.chaos import ChaosSchedule
+from repro_torch.distributed.fault_tolerance import (
+    CheckpointCadence,
+    FaultTolerantRunner,
+    HeartbeatMonitor,
+    PreemptionNotice,
+)
 from repro_torch.optim.adamw import OptimizerConfig
-from repro_torch.train.loop import Trainer, TrainHistory
+from repro_torch.train.loop import Trainer, TrainHistory, deserialize_rng_key
 from repro_torch.train.steps import init_state
 
 EPILOG = (
-    "Not yet in the port (each comes with its slice, and its flag is an error "
-    "here): the final checkpoint save and --ckpt-dir/--resume/--keep/--ckpt-every/"
-    "--digest-log and --chaos/--preempt-flag (checkpoints and fault tolerance, "
-    "ROADMAP Queue 1 item 3); --mesh and --elastic (one rank a GPU, the multi-GPU "
-    "plan executor, item 4).  --workers runs its ranks serially on one device; "
-    "a split window merges back whole there (the ring step itself is "
+    "Differences from repro.launch.train: checkpoints are written only with "
+    "--ckpt-dir (the reference defaults to /tmp/repro_ckpt and always saves at the "
+    "end), so --resume, --chaos and --preempt-flag need it; the SIGTERM handler "
+    "(graceful preemption) is installed for the duration of main only.  Not yet in "
+    "the port: --mesh (one rank a GPU, the multi-GPU plan executor, ROADMAP Queue 1 "
+    "item 3).  --workers runs its ranks serially on one device; a split window "
+    "merges back whole there (the ring step itself is "
     "repro_torch.train.steps.make_sp_pool_grad_step)."
 )
 
@@ -78,9 +109,23 @@ def main(argv=None) -> TrainHistory:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0], epilog=EPILOG)
     ap.add_argument("--arch", default="tinyllama-1.1b", choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true", help="reduced config")
-    ap.add_argument("--steps", type=int, default=30, help="optimizer steps")
+    ap.add_argument("--steps", type=int, default=30,
+                    help="TOTAL steps for the run (a resumed run trains steps..--steps "
+                         "from the checkpoint)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory; without it nothing is saved")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore weights + full run state (plan stream, keys) from the "
+                         "latest checkpoint under --ckpt-dir")
+    ap.add_argument("--keep", type=int, default=3,
+                    help="checkpoint retention: newest K survive")
+    ap.add_argument("--ckpt-every", type=int, default=10,
+                    help="min steps between periodic checkpoints")
+    ap.add_argument("--digest-log", default=None, metavar="PATH",
+                    help="write each consumed plan's sha256 digest (one hex line per "
+                         "step; appended on a resumed run)")
     ap.add_argument("--adaptive", action="store_true",
                     help="bucketed AdaptiveLoad data (variable shapes)")
     ap.add_argument("--workers", type=int, default=1,
@@ -100,6 +145,17 @@ def main(argv=None) -> TrainHistory:
                     help="sequence parallelism: let the planner split one long packed "
                          "window across up to K contiguous ranks; 1 = never split.  "
                          "Only packed variable-length microbatches are eligible")
+    ap.add_argument("--elastic", default="remap", choices=("remap", "replan"),
+                    help="how rank-count changes (failures, joins) land: 'remap' keeps "
+                         "the plan stream at its logical width and regroups shares onto "
+                         "the physical ranks (digest-stable under churn); 'replan' "
+                         "resizes the loader itself")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="deterministic fault injection, e.g. "
+                         "'kill@4:2,3;join@8:2;preempt@12' (repro_torch.distributed.chaos)")
+    ap.add_argument("--preempt-flag", default=None, metavar="PATH",
+                    help="poll this path each step; its appearance (or SIGTERM) triggers "
+                         "a graceful preemption: full run-state save, then clean exit")
     ap.add_argument("--device", default=None,
                     help="default: CUDA (raises without a GPU); 'cpu' runs the plain path")
     args = ap.parse_args(argv)
@@ -115,11 +171,21 @@ def main(argv=None) -> TrainHistory:
         ap.error("--deterministic-refine configures the overlapped refiner; "
                  "pass --overlap (the synchronous knapsack pass is already "
                  "deterministic)")
+    if args.resume and args.overlap and not args.deterministic_refine:
+        ap.error("--resume with --overlap needs --deterministic-refine: "
+                 "wall-clock adoption makes the plan stream unreplayable")
+    if args.chaos and not (args.adaptive and args.workers > 1):
+        ap.error("--chaos injects rank-level faults; pass --adaptive "
+                 "--workers N (N > 1)")
     if args.sp_max_ranks < 1:
         ap.error("--sp-max-ranks must be >= 1")
     if args.sp_max_ranks > 1 and not args.workers > 1:
         ap.error("--sp-max-ranks > 1 needs the planner-driven multi-rank "
                  "stream (--workers N > 1)")
+    for flag, value in (("--resume", args.resume), ("--chaos", args.chaos),
+                        ("--preempt-flag", args.preempt_flag)):
+        if value and args.ckpt_dir is None:
+            ap.error(f"{flag} needs --ckpt-dir (without it nothing is saved)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     opt = get_optimizer(args.arch)
@@ -129,6 +195,20 @@ def main(argv=None) -> TrainHistory:
     )
     device = resolve_device(args.device)
     state = init_state(cfg, opt, seed=0, device=device)
+    start = 0
+    run_state = None
+    if args.resume:
+        latest = store.latest_step(args.ckpt_dir)
+        if latest is not None:
+            state = store.restore(args.ckpt_dir, state)
+            run_state = store.load_run_state(args.ckpt_dir)
+            start = run_state["step"] if run_state is not None else latest
+            print(f"resumed from step {start}"
+                  + ("" if run_state else " (weights-only checkpoint: fresh run state)"))
+    n_run = args.steps - start
+    if n_run <= 0:
+        print(f"nothing to do: checkpoint already at step {start} >= --steps {args.steps}")
+        return TrainHistory()
 
     def make_batch(rng_np, bucket):
         # exactly one draw from the loader's generator per microbatch, as
@@ -160,6 +240,7 @@ def main(argv=None) -> TrainHistory:
                 deterministic_refine=args.deterministic_refine,
                 refine_rounds=args.refine_rounds,
                 sp_max_ranks=args.sp_max_ranks if args.sp_max_ranks > 1 else None,
+                resume_state=(run_state or {}).get("loader"),
             )
         else:
             loader = BucketedLoader(
@@ -168,19 +249,76 @@ def main(argv=None) -> TrainHistory:
             )
     else:
         loader = _Fixed(make_batch, np.random.default_rng(0), args.batch, args.seq)
+    sharded = isinstance(loader, ShardedBucketedLoader)
+
+    def run_state_of(held: int) -> dict:
+        return {"loader": loader.state_dict(rewind=held)} if sharded else {}
+
+    ft = None
+    installed = False
     try:
-        state, hist = Trainer(cfg, opt).run(state, iter(loader), args.steps, rng=1,
-                                            log_every=10)
+        if args.ckpt_dir is not None:
+            preemption = PreemptionNotice(flag_file=args.preempt_flag)
+            # put back in ``finally``: the caller's own SIGTERM handling
+            # (a test runner, a parent script) must survive this call
+            previous_sigterm = preemption.install_signal_handler()
+            installed = True
+            ft = FaultTolerantRunner(
+                ckpt_dir=args.ckpt_dir,
+                cadence=CheckpointCadence(ckpt_cost_s=0.5, mtbf_s=3600.0,
+                                          min_interval_steps=args.ckpt_every),
+                monitor=HeartbeatMonitor(n_workers=args.workers, timeout_s=1e9),
+                keep=args.keep,
+                preemption=preemption,
+            )
+        chaos = ChaosSchedule.from_spec(args.chaos) if args.chaos else None
+        trainer = Trainer(cfg, opt, ft=ft, run_state_of=run_state_of, chaos=chaos)
+        if ft is not None and args.elastic == "remap":
+            # the plan stream stays at logical width --workers; rank changes
+            # only regroup shares onto the surviving/grown physical fleet, so
+            # the consumed digest stream is byte-identical under churn
+            ft.on_resize = trainer.set_physical_ranks
+        elif ft is not None and sharded:
+            ft.on_resize = loader.resize
+        trainer_rng = (deserialize_rng_key(run_state["trainer"]["rng"])
+                       if run_state is not None else 1)
+        try:
+            state, hist = trainer.run(state, iter(loader), n_run, rng=trainer_rng,
+                                      start_step=start, log_every=10)
+        finally:
+            loader.close()
+        n_done = len(hist.losses)  # < n_run when a preemption broke the loop
+        if sharded:
+            # the producer runs ahead by its prefetch depth: the consumed prefix
+            hist.plans = loader.plans[:n_done]
+            if args.digest_log:
+                # appended only when the run resumed mid-stream: a --resume
+                # that found no checkpoint starts at step 0 and truncates
+                with open(args.digest_log, "a" if start > 0 else "w") as f:
+                    for p in hist.plans:
+                        f.write(p.digest().hex() + "\n")
+                print(f"plan digests for steps {start}..{start + n_done - 1} -> "
+                      f"{args.digest_log}")
+        if hist.preempted:
+            # the runner already saved weights + run state inside the grace
+            # window; a second save here would advance past the handoff point
+            print(f"preempted after step {start + n_done - 1}: run state saved, resume "
+                  f"with --resume to train the remaining {args.steps - start - n_done} steps")
+            return hist
+        print(
+            f"done: {n_run} steps ({start}..{args.steps - 1}), final loss "
+            f"{hist.losses[-1]:.4f}, throughput {hist.throughput:,.0f} tok/s, "
+            f"events={hist.events}"
+        )
+        if ft is not None:
+            store.save(state, args.steps, args.ckpt_dir, keep=args.keep,
+                       run_state=trainer.last_run_state)
+            print(f"checkpoint (weights + run state) at step {args.steps} -> {args.ckpt_dir}")
+        return hist
     finally:
-        loader.close()
-    if isinstance(loader, ShardedBucketedLoader):
-        # the producer runs ahead by its prefetch depth: the consumed prefix
-        hist.plans = loader.plans[:len(hist.losses)]
-    print(
-        f"done: {args.steps} steps, final loss {hist.losses[-1]:.4f}, "
-        f"throughput {hist.throughput:,.0f} tok/s, events={hist.events}"
-    )
-    return hist
+        if installed:  # None: a handler not set from Python, put back as the default
+            signal.signal(signal.SIGTERM,
+                          signal.SIG_DFL if previous_sigterm is None else previous_sigterm)
 
 
 if __name__ == "__main__":

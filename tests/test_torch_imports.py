@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package, no module of it (or ``chip_smoke.py``) imports them, and the port
+package (nor ``ml_dtypes``, JAX's bf16), no module of it (or
+``chip_smoke.py``) imports them, and the port
 reaches no library attention/normalisation kernel, no ``torch.compile`` and
 no backend setting from the environment."""
 
@@ -13,7 +14,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py"))
-IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)", re.M)
 # the library's norms in every spelling (functional calls, imports of the
 # functions, the modules); the port's own ``kernels.rms_norm`` is allowed
 LIBRARY_RE = re.compile(
@@ -34,8 +35,10 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.core, repro_torch.core.balancer, repro_torch.core.cost_model\n"
         "import repro_torch.core.dispatch, repro_torch.core.scheduler\n"
         "import repro_torch.core.simulator, repro_torch.core.telemetry\n"
+        "import repro_torch.checkpoint.store, repro_torch.distributed.chaos\n"
+        "import repro_torch.distributed.fault_tolerance, repro_torch.train.loop\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.')]\n"
+        " or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes']\n"
         "assert not bad, bad\n"
     )
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}

@@ -27,11 +27,17 @@ from repro.optim import adamw as jax_adamw  # noqa: E402
 from repro.optim import schedule as jax_schedule  # noqa: E402
 from repro.train.loop import Trainer as JaxTrainer  # noqa: E402
 from repro.train.steps import init_state as jax_init_state  # noqa: E402
+from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.convert import from_jax_opt_state, from_jax_params, to_numpy  # noqa: E402
 from repro_torch.core import bucketing  # noqa: E402
 from repro_torch.data.pipeline import BucketedLoader  # noqa: E402
 from repro_torch.data.synthetic import make_diffusion_batch, wan_mixed_corpus  # noqa: E402
+from repro_torch.distributed.fault_tolerance import (  # noqa: E402
+    CheckpointCadence,
+    FaultTolerantRunner,
+    HeartbeatMonitor,
+)
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.mmdit import MMDiT, decays, rectified_flow_loss  # noqa: E402
 from repro_torch.optim import adamw, schedule  # noqa: E402
@@ -418,26 +424,30 @@ def test_train_step_updates_in_place():
     assert not torch.equal(before, model.x_in.detach())
 
 
-def test_trainer_takes_no_later_slice_arguments():
+def test_trainer_takes_ft_and_start_step(tmp_path):
+    """``Trainer(ft=)`` saves on the runner's cadence and ``run(start_step=)``
+    numbers the steps from there; the closed loop's per-step hook sees
+    every step's metrics."""
     cfg = jax_wan.smoke_config()
     opt = adamw.OptimizerConfig()
-    with pytest.raises(TypeError):
-        Trainer(cfg, opt, ft=None)
-    trainer = Trainer(cfg, opt)
-    # resume comes with the checkpoint slice
-    with pytest.raises(TypeError):
-        trainer.run(None, iter([]), 1, start_step=3)
-    # the closed loop's per-step hook is here: it sees every step's metrics
+    ft = FaultTolerantRunner(ckpt_dir=str(tmp_path),
+                             cadence=CheckpointCadence(1e-9, 1e-9, min_interval_steps=1),
+                             monitor=HeartbeatMonitor(1, timeout_s=1e9))
+    trainer = Trainer(cfg, opt, ft=ft)
     model = MMDiT(cfg, seed=2, device="cpu")
     state = {"model": model, "opt": adamw.init_opt_state(dict(model.named_parameters()), opt),
-             "step": 0}
+             "step": 3}
     batch = {k: torch.from_numpy(v) for k, v in
              _batches(cfg, np.random.default_rng(3), [[(1, 16)]])[0][0].items()}
     item = [(bucketing.Bucket(bucketing.DataShape(1, 16, 16), 1), batch)]
     seen = []
-    trainer.run(state, iter([item, item]), 2, log_every=0,
-                on_metrics=lambda i, m: seen.append((i, sorted(m), m["tokens"])))
-    assert seen == [(0, ["loss", "time", "tokens"], 1), (1, ["loss", "time", "tokens"], 1)]
+    state, hist = trainer.run(state, iter([item, item]), 2, start_step=3, log_every=0,
+                              on_metrics=lambda i, m: seen.append((i, sorted(m), m["tokens"])))
+    assert seen == [(3, ["loss", "time", "tokens"], 1), (4, ["loss", "time", "tokens"], 1)]
+    # the restored checkpoint is step 3's save: the cadence counts from there
+    assert hist.events == ["compile@3", "ckpt@3", "ckpt@4"] and not hist.preempted
+    assert state["step"] == 5 and store.latest_step(tmp_path) == 5
+    assert store.load_run_state(tmp_path)["step"] == 5 == trainer.last_run_state["step"]
 
 
 # -- launcher ------------------------------------------------------------------------
