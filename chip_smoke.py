@@ -167,6 +167,7 @@ last line, ``{"ok": true, "device": {...}}``.  The full record also goes to
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import dataclasses
 import importlib
@@ -2783,6 +2784,441 @@ def phase_train_resume(K, dev) -> dict:
                 microbatches=micro, launches=counts)
 
 
+# -- phase 12: the Shape Benchmark and step plans across processes -------------
+
+SHAPE_LAYERS = 2  # phase 12 (a): Wan-2.1 1.3B at full width, 2 of its 30 layers
+SHAPE_S = (1637, 3677, 4757, 7877, 17237, 18077, 39677, 46877)  # wan_mixed_corpus's S
+SHAPE_MAX_BATCH, SHAPE_M_MEM = 16, 196_608
+MESH_WORLD, MESH_LAYERS, MESH_STEPS = 2, 2, 3  # phase 12 (c)
+MESH_WAIT_S = 300  # phase 12 (c): the longest the parent waits for a process
+DISPATCH_STEPS, DISPATCH_BLOCKS = 8, 3  # phase 12 (d): steps a run; blocks of 4 runs
+
+
+def phase_shape_bench(K, dev) -> dict:
+    """Phase 12 (a): the Shape Benchmark of Wan-2.1 1.3B on the card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.cost_model import fit_cost_model
+    from repro_torch.core.shape_bench import (
+        AnalyticDeviceModel,
+        ModelDims,
+        run_measured_benchmark,
+        sweep_grid,
+    )
+    from repro_torch.data.synthetic import make_diffusion_batch
+    from repro_torch.models.mmdit import MMDiT
+    from repro_torch.train.steps import make_pool_grad_step
+
+    cfg = dataclasses.replace(get_config("wan2.1-1.3b"), n_layers=SHAPE_LAYERS)
+    model = MMDiT(cfg, seed=0, device=dev)
+    grad_step = make_pool_grad_step(cfg)
+    cells = sweep_grid(SHAPE_S, max_batch=SHAPE_MAX_BATCH, m_mem=SHAPE_M_MEM)
+    warmup, iters = 1, 2
+    log(f"(a) run_measured_benchmark: {cfg.name} {cfg.n_layers} of 30 layers {cfg.dtype}, seed "
+        f"0, make_pool_grad_step; sweep_grid over S {list(SHAPE_S)}, max_batch "
+        f"{SHAPE_MAX_BATCH}, m_mem {SHAPE_M_MEM}: {len(cells)} cells, warmup {warmup}, iters "
+        f"{iters}")
+
+    def args_factory(b, s):
+        return (model, make_diffusion_batch(s * 7 + b, b, s, cfg, dev), 0, 0)
+
+    def step(*args):
+        grad_step(*args)
+
+    K.reset_launch_counts()
+    samples = run_measured_benchmark(step, args_factory, cells, warmup=warmup, iters=iters,
+                                     device=dev)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    calls = len(cells) * (warmup + iters)
+    check_counts(counts, calls, cfg.n_layers, "shape benchmark")
+    t = np.array([x.step_time for x in samples])
+    if not (np.isfinite(t).all() and (t > 0).all()):
+        raise AssertionError(f"a cell's time is not finite and positive: {t}")
+    paper = fit_cost_model(samples)
+    wide = fit_cost_model(samples, p_lo=1.0)
+    for name, m in (("paper's grid p in [1.6, 2.4]", paper), ("p_lo 1.0", wide)):
+        log(f"  fit_cost_model, {name}: a {m.a * 1e3:.3f} ms, b {m.b:.4e}, p {m.p:.2f}, "
+            f"R² {m.r2:.4f}")
+    # the H100 model's three free constants by least squares on the relative
+    # error (cells span 20 ms to 1.5 s): where compute exceeds memory,
+    # step_time = overhead + (M / peak) / efficiency + (A / peak) /
+    # attn_efficiency, linear in (overhead, 1/eff, 1/attn_eff)
+    dims = ModelDims(cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.head_dim)
+    base = AnalyticDeviceModel(dims)
+    rows = np.array([[1.0, base.matmul_flops(x.batch_size, x.seq_len) / base.peak_flops,
+                      base.attention_flops(x.batch_size, x.seq_len) / base.peak_flops]
+                     for x in samples])
+    (overhead, inv_eff, inv_attn), *_ = np.linalg.lstsq(rows / t[:, None], np.ones_like(t),
+                                                        rcond=None)
+    # for comparison: plain least squares on the absolute error, which the
+    # long cells' seconds dominate
+    plain_fit, *_ = np.linalg.lstsq(rows, t, rcond=None)
+    rel_p = np.abs(rows @ plain_fit - t) / t
+    log(f"  plain least squares (absolute error): overhead {plain_fit[0] * 1e3:.3f} ms, "
+        f"efficiency {1 / plain_fit[1]:.4f}, attn_efficiency {1 / plain_fit[2]:.4f}; relative "
+        f"error median {np.median(rel_p):.4f}, worst {rel_p.max():.4f}")
+    model_h100 = AnalyticDeviceModel(dims, overhead=float(overhead), efficiency=1 / inv_eff,
+                                     attn_efficiency=1 / inv_attn)
+    pred = np.array([model_h100.step_time(x.batch_size, x.seq_len) for x in samples])
+    defaults = AnalyticDeviceModel(dims)
+    pred_d = np.array([defaults.step_time(x.batch_size, x.seq_len) for x in samples])
+    rel = np.abs(pred - t) / t
+    rel_d = np.abs(pred_d - t) / t
+    memory_bound = [x for x in samples
+                    if model_h100.bytes_moved(x.batch_size, x.seq_len) / model_h100.hbm_bw
+                    >= model_h100.step_time(x.batch_size, x.seq_len) - model_h100.overhead]
+    for x, p_ in zip(samples, pred):
+        pf = paper.predict(x.batch_size, x.seq_len)
+        log(f"  B {x.batch_size:2d} x S {x.seq_len:5d}: {x.step_time * 1e3:9.3f} ms; H100 model "
+            f"{p_ * 1e3:9.3f} ms; a + b·B·S^p {pf * 1e3:9.3f} ms")
+    log(f"  H100 model fit: overhead {overhead * 1e3:.3f} ms, efficiency {1 / inv_eff:.4f}, "
+        f"attn_efficiency {1 / inv_attn:.4f}; relative error median {np.median(rel):.4f}, worst "
+        f"{rel.max():.4f} ({len(memory_bound)} cells memory-bound); with the module's defaults "
+        f"median {np.median(rel_d):.4f}, worst {rel_d.max():.4f}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, cells=[dict(batch=x.batch_size, seq=x.seq_len,
+                                                 ms=x.step_time * 1e3, model_ms=p_ * 1e3)
+                                            for x, p_ in zip(samples, pred)],
+                fit_paper_grid=dataclasses.asdict(paper), fit_p_lo_1=dataclasses.asdict(wide),
+                h100=dict(overhead_s=float(overhead), efficiency=float(1 / inv_eff),
+                          attn_efficiency=float(1 / inv_attn), median_rel=float(np.median(rel)),
+                          worst_rel=float(rel.max()), defaults_median_rel=float(np.median(rel_d)),
+                          plain_lstsq=[float(x) for x in plain_fit],
+                          plain_median_rel=float(np.median(rel_p)),
+                          plain_worst_rel=float(rel_p.max()),
+                          defaults_worst_rel=float(rel_d.max())),
+                calls=calls, launches=counts)
+
+
+def phase_mesh_nccl(K, dev) -> dict:
+    """Phase 12 (b): the launcher's --mesh route at world 1 over NCCL."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as launch_train
+
+    cfg = get_config("wan2.1-1.3b")
+    store = tempfile.mktemp(prefix="mesh_store_", dir=ROOT / "build")
+    # 4 steps: the launcher's one-microbatch steps over its 3 buckets meet a
+    # signature again at the latest in the fourth, so the records are tested
+    argv = ["--arch", "wan2.1-1.3b", "--adaptive", "--mesh", "--workers", "1", "--rank", "0",
+            "--backend", "nccl", "--dist-store", store, "--steps", "4"]
+    log(f"(b) python -m repro_torch.launch.train {' '.join(argv)}")
+    K.reset_launch_counts()
+    try:
+        hist = launch_train.main(argv)
+    finally:
+        pathlib.Path(store).unlink(missing_ok=True)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    if not np.isfinite(hist.losses).all():
+        raise AssertionError(f"mesh launcher: a loss is not finite: {hist.losses}")
+    check_counts(counts, sum(hist.microbatches), cfg.n_layers, "mesh launcher (nccl, world 1)")
+    want = planned_records(hist.records, hist.plans, set())
+    if not want:
+        raise AssertionError("mesh launcher: no step met a signature again: no record to check")
+    log(f"  {len(want)} records name exactly the planned buckets of {sum(hist.microbatches)} "
+        f"microbatches; losses {hist.losses}, step s {hist.step_times}")
+    return dict(losses=hist.losses, step_s=hist.step_times, microbatches=hist.microbatches,
+                launches=counts, records=len(want))
+
+
+def _mesh_setup(dev, world: int = MESH_WORLD):
+    """Phase 12 (c)'s configuration, loader, optimizer and initial state,
+    the same in each process and in the parent's replay (phase 12 (d):
+    the same at ``world`` 1)."""
+    from repro_torch.configs.registry import get_config, get_optimizer
+    from repro_torch.core.bucketing import BucketingPolicy
+    from repro_torch.data.pipeline import ShardedBucketedLoader
+    from repro_torch.data.synthetic import make_diffusion_batch, wan_mixed_corpus
+    from repro_torch.distributed.plan_exec import DeferredBatch
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.steps import init_state
+
+    cfg = dataclasses.replace(get_config("wan2.1-1.3b"), n_layers=MESH_LAYERS)
+    shapes, weights = wan_mixed_corpus()
+    sel = [0, 2, 3]  # phase 10 (b)'s buckets: S = 1637, 4757, 7877
+    buckets = BucketingPolicy(m_mem=16384, m_comp=6.4e7, p=2.0).make_buckets(
+        [shapes[i] for i in sel])
+    if [(b.seq_len, b.batch_size) for b in buckets] != [(1637, 10), (4757, 2), (7877, 1)]:
+        raise AssertionError(f"unexpected buckets {buckets}")
+    opt = OptimizerConfig(peak_lr=get_optimizer("wan2.1-1.3b").peak_lr, schedule="constant",
+                          warmup=0, total_steps=MESH_STEPS + 1)
+
+    def make_batch(rng_np, b):
+        return DeferredBatch(make_diffusion_batch,
+                             (int(rng_np.integers(2**31)), b.batch_size, b.seq_len, cfg))
+
+    loader = ShardedBucketedLoader(
+        buckets, [weights[i] for i in sel], make_batch, n_workers=world,
+        budget=float(PLANNED_TOKENS), budget_of=lambda b: float(b.tokens),
+        load_of=lambda b: b.load(2.0), strategy="lpt", seed=0, prefetch=0)
+    return cfg, opt, loader, init_state(cfg, opt, seed=0, device=dev)
+
+
+def phase_mesh_dispatch(dev) -> dict:
+    """Phase 12 (d): serial against async dispatch of ``Trainer(mesh=)`` at
+    world 1 over NCCL, in ``DISPATCH_BLOCKS`` blocks of serial, async,
+    async, serial (each block two pairs).  Each run starts from the same
+    state and plan stream, so the losses must agree bitwise; the host's
+    wall time a step (between the ends of consecutive steps, after the
+    last step that met a batch signature first) is compared pair by
+    pair."""
+    import tempfile
+
+    from repro_torch.launch.mesh import make_data_group
+    from repro_torch.train.loop import Trainer
+
+    order = ("serial", "async", "async", "serial") * DISPATCH_BLOCKS
+    log(f"(d) Trainer(mesh=) at world 1 over NCCL, measure_ranks 'serial' (a synchronisation "
+        f"after each microbatch, the next step fetched after this one) against 'async' (the "
+        f"next step fetched and staged while the device computes): Wan-2.1 1.3B at "
+        f"{MESH_LAYERS} layers, phase 10 (b)'s buckets, {PLANNED_TOKENS} tokens a step, "
+        f"{DISPATCH_STEPS} steps a run, {DISPATCH_BLOCKS} blocks of serial async async serial")
+    store = tempfile.mktemp(prefix="mesh_store_", dir=ROOT / "build")
+    grp = make_data_group(rank=0, world_size=1, store=store, backend="nccl", device=dev)
+    runs = []
+    try:
+        for mode in order:
+            cfg, opt, loader, state = _mesh_setup(dev, world=1)
+            trainer = Trainer(cfg, opt, mesh=grp, measure_ranks=mode)
+            torch.cuda.synchronize()
+            marks = [time.perf_counter()]
+            try:
+                state, hist = trainer.run(state, iter(loader), DISPATCH_STEPS, rng=1,
+                                          log_every=0,
+                                          on_metrics=lambda i, m: marks.append(
+                                              time.perf_counter()))
+            finally:
+                loader.close()
+            # steady state: the steps after the last that met a signature first
+            first = max(max(hist.compile_steps, default=-1) + 1, 1)
+            wall = np.diff(marks)[first:]
+            step = np.array(hist.step_times[first:])
+            runs.append(dict(mode=mode, losses=hist.losses, compile_steps=hist.compile_steps,
+                             wall_ms=(wall * 1e3).tolist(), step_ms=(step * 1e3).tolist(),
+                             median_wall_ms=float(np.median(wall) * 1e3)))
+            log(f"  {mode:6s}: host wall a step, median {np.median(wall) * 1e3:.3f} ms over "
+                f"{len(wall)} steps; the trainer's step time, median "
+                f"{np.median(step) * 1e3:.3f} ms; compile steps {hist.compile_steps}")
+            del state, trainer
+            torch.cuda.empty_cache()
+    finally:
+        grp.close()
+        pathlib.Path(store).unlink(missing_ok=True)
+    for r in runs:
+        if not np.isfinite(r["losses"]).all():
+            raise AssertionError(f"dispatch {r['mode']}: a loss is not finite: {r['losses']}")
+        if r["losses"] != runs[0]["losses"]:
+            raise AssertionError(f"dispatch {r['mode']}: losses {r['losses']} differ from "
+                                 f"serial's {runs[0]['losses']}")
+    by = {m: np.array([r["median_wall_ms"] for r in runs if r["mode"] == m])
+          for m in ("serial", "async")}
+    wins = int((by["async"] < by["serial"]).sum())  # pairs in block order
+    q1, q3 = np.percentile(by["serial"], [25, 75])
+    med = {m: float(np.median(v)) for m, v in by.items()}
+    log(f"  equal losses in all {len(runs)} runs; host wall a step, median of the runs' medians: "
+        f"serial {med['serial']:.3f} ms, async {med['async']:.3f} ms, async/serial "
+        f"{med['async'] / med['serial']:.4f}; async faster in {wins} of {len(by['async'])} "
+        f"pairs; serial runs' quartiles {q1:.3f}-{q3:.3f} ms")
+    return dict(layers=MESH_LAYERS, steps=DISPATCH_STEPS, runs=runs, wall_ms=med,
+                async_over_serial=med["async"] / med["serial"], async_wins=wins,
+                pairs=len(by["async"]), serial_quartiles_ms=[float(q1), float(q3)])
+
+
+def mesh_child(rank: int, store: str, out: str) -> int:
+    """One process of phase 12 (c): ``Trainer(mesh=)`` over gloo on the
+    card, then a step whose digest process 1 perturbs."""
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import kernels as K
+    from repro_torch.distributed.plan_exec import (
+        PlanAgreementError,
+        state_fingerprint,
+        worker_steps_digest,
+    )
+    from repro_torch.launch.mesh import make_data_group
+    from repro_torch.train.loop import Trainer
+
+    dev = torch.device("cuda")
+    grp = make_data_group(rank=rank, world_size=MESH_WORLD, store=store, backend="gloo",
+                          device=dev, timeout_s=MESH_WAIT_S)
+    res = {"rank": rank}
+    try:
+        cfg, opt, loader, state = _mesh_setup(dev)
+        sums = []
+        trainer = Trainer(cfg, opt, mesh=grp, measure_ranks="async")
+        K.reset_launch_counts()
+        try:
+            state, hist = trainer.run(state, iter(loader), MESH_STEPS, rng=1, log_every=0,
+                                      on_metrics=lambda i, m: sums.append(
+                                          state_fingerprint(state).tolist()))
+            extra = next(loader)
+            plans = loader.plans[:MESH_STEPS]
+        finally:
+            loader.close()
+        torch.cuda.synchronize()
+        res["launches"] = K.launch_counts()
+        res["losses"] = hist.losses
+        res["step_s"] = hist.step_times
+        res["records"] = [dataclasses.astuple(r) for r in hist.records]
+        res["digests"] = [p.digest().hex() for p in plans]
+        res["sums"] = sums
+        res["microbatches"] = [len(p.worker_microbatches(rank)) for p in plans]
+        # the rank times of the last step, from the engine
+        res["rank_s"] = trainer.engine.rank_times
+        ws = [list(share) for share in extra]
+        digest = bytes(32) if rank == 1 else worker_steps_digest(ws)
+        try:
+            trainer.engine.executor.execute(state, ws, step_key=99, step=MESH_STEPS,
+                                            digest=digest)
+            res["agreement"] = "no error"
+        except PlanAgreementError as e:
+            res["agreement"] = f"PlanAgreementError: {e}"
+        torch.save({"params": {n: p.detach() for n, p in state["model"].named_parameters()},
+                    "m": state["opt"]["m"], "v": state["opt"]["v"]}, out + ".pt")
+        pathlib.Path(out).write_text(json.dumps(res))
+    finally:
+        grp.close()
+    return 0
+
+
+def phase_mesh_gloo(K, dev) -> dict:
+    """Phase 12 (c): 2 processes on the one card over gloo, held bitwise
+    to a single-process replay of the same sums."""
+    from repro_torch.distributed.plan_exec import oracle_step, place_batch, rel_l2
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.train.loop import split_key
+    from repro_torch.train.steps import decay_rule, init_state, make_pool_grad_step
+
+    import shutil
+
+    work = ROOT / "build" / "chip_smoke_mesh"  # gitignored; removed below
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    log_dir = ROOT / "chiprun_out"
+    log_dir.mkdir(exist_ok=True)
+    log(f"(c) Trainer(mesh=) on {MESH_WORLD} processes over gloo on this one card: Wan-2.1 1.3B "
+        f"at full width and {MESH_LAYERS} of 30 layers, bf16, seed 0, phase 10 (b)'s buckets, "
+        f"LPT at {PLANNED_TOKENS} tokens a rank, {MESH_STEPS} steps")
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r in range(MESH_WORLD):
+            with open(log_dir / f"chip_smoke_mesh_rank{r}.log", "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(pathlib.Path(__file__).resolve()), "--mesh-rank",
+                     str(r), "--store", str(work / "store"), "--out", str(work / f"rank{r}.json")],
+                    cwd=ROOT, stdout=f, stderr=subprocess.STDOUT))
+        codes = [p.wait(timeout=MESH_WAIT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    spawn_s = time.perf_counter() - t0
+    if any(codes):
+        tails = [(log_dir / f"chip_smoke_mesh_rank{r}.log").read_text()[-3000:]
+                 for r in range(MESH_WORLD)]
+        raise AssertionError(f"a mesh process failed: exit codes {codes}\n" + "\n".join(tails))
+    res = [json.loads((work / f"rank{r}.json").read_text()) for r in range(MESH_WORLD)]
+    finals = [torch.load(work / f"rank{r}.json.pt", map_location=dev) for r in range(MESH_WORLD)]
+    log(f"  both processes exited 0 after {spawn_s:.1f} s (start-up, kernels loaded from the "
+        f"build, {MESH_STEPS} steps, the agreement step)")
+    for r in res:
+        if not r["agreement"].startswith("PlanAgreementError"):
+            raise AssertionError(f"process {r['rank']}: the perturbed digest gave {r['agreement']}")
+    log(f"  the perturbed digest of process 1: {res[0]['agreement'][:80]}... on both processes")
+    if res[0]["digests"] != res[1]["digests"]:
+        raise AssertionError("the processes' plan digests differ")
+    if res[0]["sums"] != res[1]["sums"]:
+        bad = [i for i, (a, b) in enumerate(zip(res[0]["sums"], res[1]["sums"])) if a != b]
+        raise AssertionError(f"parameters or moments differ between the processes after steps {bad}")
+    if res[0]["records"] != res[1]["records"]:
+        raise AssertionError("the processes hold different records")
+    if res[0]["losses"] != res[1]["losses"]:
+        raise AssertionError(f"losses differ: {res[0]['losses']} vs {res[1]['losses']}")
+    for r in res:
+        check_counts(r["launches"], sum(r["microbatches"]), MESH_LAYERS,
+                     f"process {r['rank']} ({sum(r['microbatches'])} microbatches of its shares)")
+    for name in ("params", "m", "v"):
+        for n, t in finals[0][name].items():
+            if not torch.equal(t, finals[1][name][n]):
+                raise AssertionError(f"final {name}/{n} differs between the processes")
+    log(f"  after every step both processes' parameters and moments agree (bit sums of "
+        f"{len(res[0]['sums'][0]) - 1} tensors and the step), the final states bitwise, the "
+        f"records and losses equal")
+
+    # the single-process replay: each rank's share summed in the
+    # parameters' dtype, lifted to f32, the two rank sums added, AdamW
+    cfg, opt, loader, state = _mesh_setup(dev)
+    _, _, loader_o, state_o = _mesh_setup(dev)
+    grad_step = make_pool_grad_step(cfg)
+    decay = decay_rule(cfg)
+    rng = 1
+    try:
+        for step in range(MESH_STEPS):
+            ws = next(loader)
+            ws_o = next(loader_o)
+            rng, sub = split_key(rng)
+            model = state["model"]
+            sums, index = [], 0
+            for share in ws:
+                acc = None
+                for _bucket, batch in share:
+                    _, grads = grad_step(model, place_batch(batch, dev), sub, index)
+                    index += 1
+                    if acc is None:
+                        acc = grads
+                    else:
+                        for n, g in grads.items():
+                            acc[n].add_(g)
+                sums.append(acc)
+            grads = {n: (sums[0][n].float() + sums[1][n].float()) / index for n in sums[0]}
+            adamw_update(dict(model.named_parameters()), grads, state["opt"], state["step"],
+                         opt, decay=decay)
+            state["step"] += 1
+            del sums, grads
+            state_o, _ = oracle_step(cfg, opt, state_o, ws_o, step_key=sub)
+    finally:
+        loader.close()
+        loader_o.close()
+    replay = {"params": dict(state["model"].named_parameters()), "m": state["opt"]["m"],
+              "v": state["opt"]["v"]}
+    differ = [f"{k}/{n}" for k in ("params", "m", "v") for n, t in replay[k].items()
+              if not torch.equal(t.detach(), finals[0][k][n])]
+    if differ:
+        rel = rel_l2({k: {n: finals[0][k][n] for n in replay[k]} for k in replay},
+                     {k: {n: t.detach() for n, t in replay[k].items()} for k in replay})
+        raise AssertionError(f"not bitwise the single-process replay: {len(differ)} tensors "
+                             f"differ (first {differ[:5]}), rel-L2 {rel:.3e}")
+    oracle = {"params": {n: p.detach() for n, p in state_o["model"].named_parameters()},
+              "m": state_o["opt"]["m"], "v": state_o["opt"]["v"]}
+    rel_o = {k: rel_l2({n: finals[0][k][n] for n in oracle[k]}, oracle[k]) for k in oracle}
+    log(f"  bitwise the single-process replay ({3 * len(replay['params'])} tensors); rel-L2 to "
+        f"oracle_step (the whole pool summed in bf16 in one order): params "
+        f"{rel_o['params']:.3e}, m {rel_o['m']:.3e}, v {rel_o['v']:.3e}")
+    for r in res:
+        log(f"  process {r['rank']}: microbatches {r['microbatches']}, step s "
+            f"{[round(x, 4) for x in r['step_s']]}, last step's rank times "
+            f"{[round(x, 4) for x in r['rank_s']]} (two processes contending for one card: "
+            f"not a balance measurement)")
+    flat_bytes = 4 * sum(-(-t.numel() // 64) * 64 for t in replay["params"].values())
+    log(f"  the all_reduce buffer: {flat_bytes:,} bytes of f32 a step")
+    shutil.rmtree(work, ignore_errors=True)
+    del state, state_o, finals
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]}
+    return dict(world=MESH_WORLD, layers=MESH_LAYERS, steps=MESH_STEPS, spawn_s=spawn_s,
+                losses=res[0]["losses"], digests=res[0]["digests"],
+                step_s=[r["step_s"] for r in res], rank_s=[r["rank_s"] for r in res],
+                microbatches=[r["microbatches"] for r in res], bitwise_replay=True,
+                rel_l2_oracle=rel_o, allreduce_bytes=flat_bytes, agreement=res[0]["agreement"],
+                launches=launches, launches_by_process=[r["launches"] for r in res])
+
+
 def _fixed_plan(shares):
     """A ``StepPlan`` that deals ``shares`` (bucket lists, one a rank) as
     they stand: the independent regime's and the warm-up's dispatch."""
@@ -2823,6 +3259,9 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     log(card)
+    gpus = subprocess.run(["nvidia-smi", "-L"], check=True, capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()
+    log(f"nvidia-smi -L: {len(gpus)} GPU(s) on this host: {gpus}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     torch.zeros(1, device=dev)
@@ -2845,7 +3284,7 @@ def main() -> int:
             notices += "instructions are serialized" in line
     log(f"  ptxas notices of serialised wgmmas (C7511, C7514, C7520, ...): {notices}")
 
-    record = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    record = {"card": card, "gpus": gpus, "torch": torch.__version__, "cuda": torch.version.cuda}
     record["phase_s"] = {"build": time.perf_counter() - t0}
 
     def timed(name, fn, *args):
@@ -2875,13 +3314,19 @@ def main() -> int:
     record["train_dense"] = timed("9bc train_dense", phase_train_dense, K, dev)
     record["train_planned"] = timed("10 train_planned", phase_train_planned, K, dev)
     record["train_resume"] = timed("11 train_resume", phase_train_resume, K, dev)
+    record["shape_bench"] = timed("12a shape_bench", phase_shape_bench, K, dev)
+    record["mesh_nccl"] = timed("12b mesh_nccl", phase_mesh_nccl, K, dev)
+    record["mesh_gloo"] = timed("12c mesh_gloo", phase_mesh_gloo, K, dev)
+    record["mesh_dispatch"] = timed("12d mesh_dispatch", phase_mesh_dispatch, dev)
 
     # launches: each main path's own count, reset to 0 just before that run
     # and read just after (the serving waves of phase 3, the 4 training steps
     # of phase 5 (b), the LM serving of phase 6 (b), the 4 Mamba-2 training
     # steps of phase 8 (b), the 4 dense-LM training steps of phase 9 (b), the
-    # SP step of phase 9 (c), the planned launcher of phase 10 (a) and the
-    # churn leg and resumed step of phase 11 (b), (c)); "launches" is their sum
+    # SP step of phase 9 (c), the planned launcher of phase 10 (a), the
+    # churn leg and resumed step of phase 11 (b), (c), the Shape Benchmark's
+    # calls of phase 12 (a), the NCCL launcher of phase 12 (b) and both
+    # processes of phase 12 (c)); "launches" is their sum
     kernels = []
     for name, k in record["kernels"].items():
         by_path = {"serve": record["serve"]["launches"][name],
@@ -2891,7 +3336,10 @@ def main() -> int:
                    "train_dense": record["train_dense"]["train"]["launches"][name],
                    "train_sp": record["train_dense"]["sp"]["launches"][name],
                    "train_planned": record["train_planned"]["launcher"]["launches"][name],
-                   "train_resume": record["train_resume"]["launches"][name]}
+                   "train_resume": record["train_resume"]["launches"][name],
+                   "shape_bench": record["shape_bench"]["launches"][name],
+                   "train_mesh_nccl": record["mesh_nccl"]["launches"][name],
+                   "train_mesh_gloo": record["mesh_gloo"]["launches"][name]}
         kernels.append({"name": name, **{key: k[key] for key in (
             "route", "source", "replaces")}, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
@@ -2910,4 +3358,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one process of phase 12 (c)
+        ap = argparse.ArgumentParser(description="one process of chip_smoke.py phase 12 (c)")
+        ap.add_argument("--mesh-rank", type=int, required=True)
+        ap.add_argument("--store", required=True)
+        ap.add_argument("--out", required=True)
+        a = ap.parse_args()
+        sys.exit(mesh_child(a.mesh_rank, a.store, a.out))
     sys.exit(main())

@@ -4,13 +4,14 @@ library, the framework-free numpy modules of ``repro.core`` copied.
 Layer map (paper section -> module):
   §3.2 Eq.2 dual-constraint batch sizing  -> bucketing
   §3.2 cost model a + b·B·S^p, p grid     -> cost_model
+  §3.2 Shape Benchmark / Throughput Sweep -> shape_bench (an H100 model)
   §4.3 CV metrics + LPT re-alignment      -> balancer
   §4.5 global step-level dispatch         -> dispatch
   Eq.1 T_sync = max_i T_i cluster model   -> simulator
   §3.2 closed loop (telemetry->replan)    -> scheduler, telemetry
 
-The reference's ``shape_bench`` (the Shape Benchmark over a TPU model) is
-not ported yet.
+``shape_bench`` models one NVIDIA H100 (its peak and memory rate are
+fields of ``AnalyticDeviceModel``), not the reference's device.
 """
 
 from .bucketing import (
@@ -36,6 +37,13 @@ from .balancer import (
     assign_random,
     makespan,
     step_metrics,
+)
+from .shape_bench import (
+    AnalyticDeviceModel,
+    ModelDims,
+    run_analytic_benchmark,
+    run_measured_benchmark,
+    sweep_grid,
 )
 from .dispatch import (
     DISPATCH_STRATEGIES,
@@ -79,6 +87,11 @@ __all__ = [
     "assign_random",
     "makespan",
     "step_metrics",
+    "AnalyticDeviceModel",
+    "ModelDims",
+    "run_analytic_benchmark",
+    "run_measured_benchmark",
+    "sweep_grid",
     "DISPATCH_STRATEGIES",
     "PlanRefiner",
     "RefineTicket",

@@ -313,6 +313,13 @@ class ShardedBucketedLoader:
     ``close()`` and ``resize()`` are mutually exclusive — a close during an
     in-flight resize can never observe a partially rebuilt fan-out.
 
+    **No lead** (``prefetch=0``).  The producer draws a plan only when a
+    consumer finds none pending (``next``, ``worker_iter``, ``state_dict``).
+    A replan or a resize then lands at a plan index fixed by the order of
+    the consumer's own calls, not by how far the thread ran ahead: what
+    processes that each draw the same plan stream need (``Trainer(mesh=)``
+    refuses a leading loader at world > 1).
+
     **Resumable stream.** The producer snapshots its replayable state
     (planner RNG + both loader RNG bit-generator states) *before* drawing
     each plan, keyed by the plan's emitted sequence number.
@@ -423,6 +430,9 @@ class ShardedBucketedLoader:
         # the producer's next plan (guarded by _cv)
         self._carry: WorkerStep = []
         self._prefetch = max(prefetch, 1)
+        # prefetch 0: draw a plan only when a consumer asks (guarded by _cv)
+        self._on_demand = prefetch == 0
+        self._wanted = False
         # close() vs resize() mutual exclusion: a close landing mid-resize
         # must see either the old fan-out or the fully rebuilt one, never a
         # partially redistributed set of queues.
@@ -457,6 +467,11 @@ class ShardedBucketedLoader:
     def plans(self) -> list[StepPlan]:
         """Dispatch decisions emitted so far (telemetry/debugging)."""
         return list(self._plans)
+
+    @property
+    def prefetch(self) -> int:
+        """Plans the producer may draw ahead of the consumers (0: none)."""
+        return 0 if self._on_demand else self._prefetch
 
     @property
     def refined_adopted(self) -> int:
@@ -625,6 +640,10 @@ class ShardedBucketedLoader:
     def _worker(self) -> None:
         try:
             while not self._stop.is_set():
+                if self._on_demand:
+                    with self._cv:
+                        while not (self._wanted or self._stop.is_set()):
+                            self._cv.wait(0.1)
                 with self._draw_lock:
                     with self._cv:
                         epoch = self._epoch
@@ -682,6 +701,7 @@ class ShardedBucketedLoader:
                     self._plans.append(plan)
                     seq = self._seq
                     self._push_locked(self._pending, per_rank)
+                    self._wanted = False
                     if snap is not None:
                         self._snapshots[seq] = snap
                     self._prune_snapshots_locked()
@@ -719,7 +739,15 @@ class ShardedBucketedLoader:
                     return step
                 if self._stop.is_set():  # closed: end the stream
                     raise StopIteration
+                self._want_locked()
                 self._cv.wait(0.1)
+
+    def _want_locked(self) -> None:
+        """A consumer waits for a plan (``self._cv`` held): with no lead,
+        this is what lets the producer draw the next one."""
+        if self._on_demand and not self._wanted:
+            self._wanted = True
+            self._cv.notify_all()
 
     def _get_rank(self, worker: int) -> WorkerStep:
         with self._cv:
@@ -733,6 +761,7 @@ class ShardedBucketedLoader:
                     return item
                 if self._stop.is_set():  # closed: end the stream
                     raise StopIteration
+                self._want_locked()
                 self._cv.wait(0.1)
 
     def worker_iter(self, worker: int) -> Iterator[WorkerStep]:
@@ -779,6 +808,7 @@ class ShardedBucketedLoader:
                             f"checkpoint again at the next plan boundary"
                         )
                     return {"version": 1, "seq": seq, **copy.deepcopy(snap)}
+                self._want_locked()
                 self._cv.wait(0.1)
 
     def _apply_state(self, sd: dict) -> None:
@@ -810,6 +840,7 @@ class ShardedBucketedLoader:
                 d.clear()
             self._snapshots.clear()
             self._carry = []
+            self._wanted = False
             self._plans.clear()
             self._refined_adopted = 0
             n = int(sd["planner"]["n_workers"])

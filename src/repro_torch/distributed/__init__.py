@@ -1,3 +1,4 @@
-"""Fault tolerance of the port: checkpoint cadence, failure detection,
+"""Distribution of the port: step plans executed with one process a rank
+(``plan_exec``), fault tolerance: checkpoint cadence, failure detection,
 elastic recovery and graceful preemption (``fault_tolerance``), and the
 deterministic chaos harness that injects them (``chaos``)."""

@@ -27,6 +27,10 @@ Churn on spot/preemptible fleets adds the other half of the story:
   and a clean handoff instead of the emergency weights-only degrade.
 * Checkpoint I/O retries transiently-failing writes with jittered backoff
   (``store.save(max_attempts=...)``); each retry surfaces as a run event.
+
+The port adds :class:`RankZeroRunner` for one process a rank
+(``Trainer(mesh=)``): rank 0 alone writes, every rank waits at a barrier
+after each save, and a preemption notice seen by any rank drains them all.
 """
 
 from __future__ import annotations
@@ -379,3 +383,43 @@ class FaultTolerantRunner:
         else:
             self._handled_dead = frozenset(dead)
         return {"dead": dead, "plan": plan}
+
+
+@dataclasses.dataclass
+class RankZeroRunner(FaultTolerantRunner):
+    """The runner of one process of a data-parallel group (``group``, a
+    ``torch.distributed`` group; None is the default group): every process
+    makes the same decisions (the trainer feeds the cadence the slowest
+    process's step time), rank 0 alone writes each checkpoint and every
+    rank waits at a barrier after it, so no rank runs ahead of a save it
+    might restore.  A preemption notice is agreed on (one small
+    ``all_reduce``), so a SIGTERM that reaches one process drains them
+    all at the same plan boundary."""
+
+    group: object = None
+
+    def _save(self, state, step: int, run_state: dict | None) -> None:
+        import torch.distributed as dist
+
+        if dist.get_rank(self.group) == 0:
+            super()._save(state, step, run_state)
+        else:
+            self._last_saved_step = step
+        dist.barrier(group=self.group)
+
+    def handle_preemption(self, state, step: int, *, run_state: RunState = None) -> dict | None:
+        import torch
+        import torch.distributed as dist
+
+        p = self.preemption
+        local = p is not None and p.pending()
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if dist.get_backend(self.group) == "nccl" else torch.device("cpu"))
+        flag = torch.tensor([int(local)], device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        if flag.item() and not local:
+            if p is None:
+                raise RuntimeError("another rank was preempted; give every rank a "
+                                   "PreemptionNotice")
+            p.notify()
+        return super().handle_preemption(state, step, run_state=run_state)

@@ -16,7 +16,14 @@ draws one global pool a step and packs it across the N ranks by ``B·S^p``
 (``--dispatch``; ``--overlap`` refines knapsack plans on a background
 thread, ``--deterministic-refine`` in fixed rounds; ``--sp-max-ranks``
 lets it split packed windows).  The N ranks run serially on one device
-(``EmulatedEngine``: the pool-mean gradient, one AdamW update a step).
+(``EmulatedEngine``: the pool-mean gradient, one AdamW update a step), or,
+with ``--mesh``, one process a rank: start N processes with ``--rank
+0..N-1``, the same ``--dist-store`` (a file path or ``tcp://host:port``)
+and ``--backend`` (``nccl``, one card a rank, or ``gloo``).  Each process
+draws the whole plan stream (every microbatch's seed from the loader's
+generator, so plans and draws are the emulated route's), makes only its
+own rank's batches on its device, and ``PlanExecutor`` sums the ranks'
+gradients in one ``all_reduce`` a step (``MeshEngine``).
 Without ``--adaptive`` every step is one fixed ``--batch`` x ``--seq``
 microbatch.  The mmdit trains on diffusion latents, the LMs (the dense
 ``tinyllama-1.1b``, the default as in the reference launcher, and
@@ -45,14 +52,24 @@ resumes the other's.  Without ``--ckpt-dir`` nothing is saved.
         --chaos 'kill@1:2,3;join@3:2;preempt@4'
     PYTHONPATH=src python -m repro_torch.launch.train --arch wan2.1-1.3b \\
         --adaptive --workers 4 --steps 6 --ckpt-dir CKPT --digest-log D --resume
+
+On a mesh, rank 0 alone writes checkpoints and the digest log, every rank
+restores, and every rank waits at a barrier after each save:
+
+    T=$(mktemp -d); for r in 0 1; do PYTHONPATH=src python -m \\
+        repro_torch.launch.train --arch wan2.1-1.3b --adaptive --mesh \\
+        --workers 2 --rank $r --backend gloo --dist-store $T/store \\
+        --steps 2 & done; wait
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import signal
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import store
@@ -67,7 +84,10 @@ from repro_torch.distributed.fault_tolerance import (
     FaultTolerantRunner,
     HeartbeatMonitor,
     PreemptionNotice,
+    RankZeroRunner,
 )
+from repro_torch.distributed.plan_exec import DeferredBatch
+from repro_torch.launch.mesh import make_data_group
 from repro_torch.optim.adamw import OptimizerConfig
 from repro_torch.train.loop import Trainer, TrainHistory, deserialize_rng_key
 from repro_torch.train.steps import init_state
@@ -76,11 +96,12 @@ EPILOG = (
     "Differences from repro.launch.train: checkpoints are written only with "
     "--ckpt-dir (the reference defaults to /tmp/repro_ckpt and always saves at the "
     "end), so --resume, --chaos and --preempt-flag need it; the SIGTERM handler "
-    "(graceful preemption) is installed for the duration of main only.  Not yet in "
-    "the port: --mesh (one rank a GPU, the multi-GPU plan executor, ROADMAP Queue 1 "
-    "item 3).  --workers runs its ranks serially on one device; a split window "
-    "merges back whole there (the ring step itself is "
-    "repro_torch.train.steps.make_sp_pool_grad_step)."
+    "(graceful preemption) is installed for the duration of main only.  --mesh runs "
+    "one process a rank (--rank, --dist-store, --backend; --workers is the world "
+    "size): plan agreement is checked every step, --overlap needs "
+    "--deterministic-refine when --workers > 1, and with --ckpt-dir rank 0 alone "
+    "writes.  --workers without --mesh runs its ranks serially on one device; a "
+    "split window merges back whole there."
 )
 
 
@@ -129,7 +150,18 @@ def main(argv=None) -> TrainHistory:
     ap.add_argument("--adaptive", action="store_true",
                     help="bucketed AdaptiveLoad data (variable shapes)")
     ap.add_argument("--workers", type=int, default=1,
-                    help="DP ranks fed from one global step plan (run serially)")
+                    help="DP ranks fed from one global step plan (run serially; with "
+                         "--mesh the world size, one process a rank)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="execute the step plan with one process a rank over "
+                         "torch.distributed (PlanExecutor) instead of emulating ranks")
+    ap.add_argument("--rank", type=int, default=0, help="this process's rank (--mesh)")
+    ap.add_argument("--dist-store", default=None, metavar="PATH|tcp://HOST:PORT",
+                    help="the process group's rendezvous: a FileStore path every rank "
+                         "names, or rank 0's TCP address (--mesh)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the process group's backend (--mesh): nccl, one card a rank; "
+                         "gloo")
     ap.add_argument("--dispatch", default="lpt", choices=DISPATCH_STRATEGIES,
                     help="step-level microbatch dispatch strategy (§4.5)")
     ap.add_argument("--overlap", action="store_true",
@@ -165,8 +197,19 @@ def main(argv=None) -> TrainHistory:
                  "has no planner to shard)")
     if args.overlap and args.dispatch != "knapsack":
         ap.error("--overlap refines knapsack plans; pass --dispatch knapsack")
-    if args.overlap and not args.workers > 1:
-        ap.error("--overlap requires the planner-driven stream (--workers > 1)")
+    if args.mesh and not args.adaptive:
+        ap.error("--mesh requires --adaptive (mesh execution consumes the "
+                 "planner's per-rank streams)")
+    if args.mesh and (args.dist_store is None or args.backend is None):
+        ap.error("--mesh needs --dist-store and --backend")
+    if not args.mesh and (args.rank != 0 or args.dist_store or args.backend):
+        ap.error("--rank, --dist-store and --backend configure --mesh")
+    if args.overlap and not (args.mesh or args.workers > 1):
+        ap.error("--overlap requires the planner-driven stream "
+                 "(--workers > 1 or --mesh)")
+    if args.mesh and args.workers > 1 and args.overlap and not args.deterministic_refine:
+        ap.error("--mesh --overlap needs --deterministic-refine: wall-clock adoption "
+                 "differs between processes, and their plans would part")
     if args.deterministic_refine and not args.overlap:
         ap.error("--deterministic-refine configures the overlapped refiner; "
                  "pass --overlap (the synchronous knapsack pass is already "
@@ -179,9 +222,9 @@ def main(argv=None) -> TrainHistory:
                  "--workers N (N > 1)")
     if args.sp_max_ranks < 1:
         ap.error("--sp-max-ranks must be >= 1")
-    if args.sp_max_ranks > 1 and not args.workers > 1:
+    if args.sp_max_ranks > 1 and not (args.mesh or args.workers > 1):
         ap.error("--sp-max-ranks > 1 needs the planner-driven multi-rank "
-                 "stream (--workers N > 1)")
+                 "stream (--workers N > 1, usually with --mesh)")
     for flag, value in (("--resume", args.resume), ("--chaos", args.chaos),
                         ("--preempt-flag", args.preempt_flag)):
         if value and args.ckpt_dir is None:
@@ -193,7 +236,22 @@ def main(argv=None) -> TrainHistory:
         peak_lr=opt.peak_lr, schedule="constant", warmup=0,
         total_steps=args.steps, state_dtype=cfg.opt_state_dtype,
     )
-    device = resolve_device(args.device)
+    group = None
+    if args.mesh:
+        group = make_data_group(rank=args.rank, world_size=args.workers, store=args.dist_store,
+                                backend=args.backend, device=args.device)
+        device = group.device
+    else:
+        device = resolve_device(args.device)
+    try:
+        return _train(args, cfg, opt, device, group)
+    finally:
+        if group is not None:
+            group.close()
+
+
+def _train(args, cfg, opt, device, group) -> TrainHistory:
+    rank0 = group is None or group.rank == 0
     state = init_state(cfg, opt, seed=0, device=device)
     start = 0
     run_state = None
@@ -214,6 +272,14 @@ def main(argv=None) -> TrainHistory:
         # exactly one draw from the loader's generator per microbatch, as
         # the reference launcher takes one for its PRNGKey
         seed = int(rng_np.integers(2**31))
+        if group is not None:
+            # every process draws the whole pool; each makes only its own
+            # rank's batches, on its device, when the executor takes them
+            if cfg.family == "mmdit":
+                return DeferredBatch(make_diffusion_batch,
+                                     (seed, bucket.batch_size, bucket.seq_len, cfg))
+            return DeferredBatch(make_lm_batch,
+                                 (seed, bucket.batch_size, bucket.seq_len, cfg.vocab, cfg))
         if cfg.family == "mmdit":
             return make_diffusion_batch(seed, bucket.batch_size, bucket.seq_len, cfg, device)
         return make_lm_batch(seed, bucket.batch_size, bucket.seq_len, cfg.vocab, cfg, device)
@@ -226,11 +292,12 @@ def main(argv=None) -> TrainHistory:
                   DataShape(17, 192, 192, 16)]
         policy = BucketingPolicy(m_mem=args.batch * 1024, m_comp=2.0e7, p=2.0)
         buckets = policy.make_buckets(shapes)
-        if args.workers > 1:
+        if group is not None or args.workers > 1:
             # global step plan: one pool per step, packed across ranks by
             # quadratic load, instead of independent per-rank draws
             loader = ShardedBucketedLoader(
-                buckets, None, on_side_stream(make_batch, device),
+                buckets, None,
+                make_batch if group is not None else on_side_stream(make_batch, device),
                 n_workers=args.workers,
                 budget=float(args.batch * args.seq),
                 budget_of=lambda b: float(b.tokens),
@@ -241,6 +308,9 @@ def main(argv=None) -> TrainHistory:
                 refine_rounds=args.refine_rounds,
                 sp_max_ranks=args.sp_max_ranks if args.sp_max_ranks > 1 else None,
                 resume_state=(run_state or {}).get("loader"),
+                # on a mesh each process draws the stream itself: no lead,
+                # so a resize lands at the same plan on every process
+                **({"prefetch": 0} if group is not None else {}),
             )
         else:
             loader = BucketedLoader(
@@ -263,7 +333,9 @@ def main(argv=None) -> TrainHistory:
             # (a test runner, a parent script) must survive this call
             previous_sigterm = preemption.install_signal_handler()
             installed = True
-            ft = FaultTolerantRunner(
+            runner = (FaultTolerantRunner if group is None
+                      else functools.partial(RankZeroRunner, group=group.group))
+            ft = runner(
                 ckpt_dir=args.ckpt_dir,
                 cadence=CheckpointCadence(ckpt_cost_s=0.5, mtbf_s=3600.0,
                                           min_interval_steps=args.ckpt_every),
@@ -272,7 +344,10 @@ def main(argv=None) -> TrainHistory:
                 preemption=preemption,
             )
         chaos = ChaosSchedule.from_spec(args.chaos) if args.chaos else None
-        trainer = Trainer(cfg, opt, ft=ft, run_state_of=run_state_of, chaos=chaos)
+        # the mesh route measures every rank (CUDA events, gathered), so its
+        # records are the emulated route's
+        trainer = Trainer(cfg, opt, ft=ft, run_state_of=run_state_of, chaos=chaos, mesh=group,
+                          measure_ranks="async" if group is not None else None)
         if ft is not None and args.elastic == "remap":
             # the plan stream stays at logical width --workers; rank changes
             # only regroup shares onto the surviving/grown physical fleet, so
@@ -291,7 +366,7 @@ def main(argv=None) -> TrainHistory:
         if sharded:
             # the producer runs ahead by its prefetch depth: the consumed prefix
             hist.plans = loader.plans[:n_done]
-            if args.digest_log:
+            if args.digest_log and rank0:
                 # appended only when the run resumed mid-stream: a --resume
                 # that found no checkpoint starts at step 0 and truncates
                 with open(args.digest_log, "a" if start > 0 else "w") as f:
@@ -311,9 +386,13 @@ def main(argv=None) -> TrainHistory:
             f"events={hist.events}"
         )
         if ft is not None:
-            store.save(state, args.steps, args.ckpt_dir, keep=args.keep,
-                       run_state=trainer.last_run_state)
-            print(f"checkpoint (weights + run state) at step {args.steps} -> {args.ckpt_dir}")
+            if rank0:
+                store.save(state, args.steps, args.ckpt_dir, keep=args.keep,
+                           run_state=trainer.last_run_state)
+                print(f"checkpoint (weights + run state) at step {args.steps} -> "
+                      f"{args.ckpt_dir}")
+            if group is not None:
+                dist.barrier()
         return hist
     finally:
         if installed:  # None: a handler not set from Python, put back as the default

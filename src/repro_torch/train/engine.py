@@ -1,6 +1,7 @@
-"""Execution engines of the port: the counterpart of ``repro.train.engine``
-(the backend contract and ``EmulatedEngine``; the mesh engine, one rank a
-GPU, comes with the multi-GPU slice).
+"""Execution engines of the port: the counterpart of ``repro.train.engine``:
+the backend contract, ``EmulatedEngine`` (every rank serially on one
+device) and ``MeshEngine`` (one process a rank over ``torch.distributed``,
+through ``distributed.plan_exec.PlanExecutor``).
 
 Every engine implements the reference's gradient semantics: each
 microbatch of the step's global pool contributes the gradient of its own
@@ -17,6 +18,7 @@ import time
 from typing import Any, Mapping, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.dispatch import SplitShard, merge_split_worker_steps
 from repro_torch.core.telemetry import WorkerStepRecord
@@ -47,17 +49,35 @@ def seconds(start, end) -> float:
 
 @dataclasses.dataclass
 class StepOutcome:
-    """What one executed step reports back to the trainer.  ``loss`` may be
-    a device scalar; ``compiled`` is True iff a microbatch was the first of
-    its batch signature (kernel builds, library set-up), which the trainer
-    records as an event and keeps out of throughput."""
+    """What one executed step reports back to the trainer.  ``compiled`` is
+    True iff a microbatch was the first of its batch signature (kernel
+    builds, library set-up), which the trainer records as an event and
+    keeps out of throughput.  Both may be device scalars, read once the
+    next step is staged."""
 
     loss: Any
-    compiled: bool = False
+    compiled: Any = False
 
 
 class ExecutionEngine:
-    """Backend contract for ``Trainer.run``."""
+    """Backend contract for ``Trainer.run``.  ``async_dispatch`` says that
+    ``execute_step`` returns before the device has finished the step: the
+    trainer then fetches the next step and hands it to :meth:`prepare`
+    while the device still computes."""
+
+    async_dispatch: bool = False
+
+    def place_state(self, state):
+        """Put a train state where this engine runs it (identity here)."""
+        return state
+
+    def prepare(self, worker_steps: WorkerSteps) -> None:
+        """Optional: stage a future step's batches behind the current step."""
+
+    def agreed_time(self, seconds_: float) -> float:
+        """A step time every process of the run agrees on (this process's
+        own here), for decisions that must not part the ranks."""
+        return seconds_
 
     def execute_step(self, state, worker_steps: WorkerSteps, *, step_key: int,
                      step: int) -> tuple[Any, StepOutcome]:
@@ -174,4 +194,92 @@ class EmulatedEngine(ExecutionEngine):
         return self._records
 
 
-__all__ = ["EmulatedEngine", "ExecutionEngine", "StepOutcome", "WorkerSteps", "clock", "seconds"]
+class MeshEngine(ExecutionEngine):
+    """One process a data-parallel rank: rank ``r``'s microbatches run in
+    process ``r`` of ``group`` through
+    :class:`~repro_torch.distributed.plan_exec.PlanExecutor`; gradients
+    meet in one ``all_reduce``, one update a step on every process.
+
+    ``measure``:
+
+    * ``False``: no telemetry;
+    * ``"async"`` (alias ``True``): CUDA event pairs a microbatch, resolved
+      and all-gathered in :meth:`timing_records`, so every process holds
+      every rank's records;
+    * ``"serial"``: a synchronisation after each microbatch.
+
+    ``async_dispatch`` is set exactly when ``measure != "serial"``: the
+    step returns before the device has finished it (over NCCL), and the
+    trainer stages the next step's batches behind it.  Every step
+    all-gathers this process's own ``worker_steps_digest`` (every process
+    derives its own plan).  ``worker_time_scale`` scales rank ``w``'s
+    recorded times.  The reference's ``donate`` has no counterpart."""
+
+    def __init__(self, group, cfg: ModelConfig, opt: OptimizerConfig, *, device=None,
+                 measure: bool | str = False,
+                 worker_time_scale: Mapping[int, float] | None = None):
+        from repro_torch.distributed.plan_exec import PlanExecutor
+
+        if measure is True:
+            measure = "async"
+        if measure not in (False, "serial", "async"):
+            raise ValueError(f"measure must be False, 'serial', or 'async'; got {measure!r}")
+        self.executor = PlanExecutor(group, cfg, opt, device=device)
+        self.async_dispatch = measure != "serial"
+        self._measure = measure
+        self._scale = dict(worker_time_scale or {})
+        self._records: list[WorkerStepRecord] = []
+        self._timers = None
+        self._rank_times: list[float] | None = None
+
+    def set_time_scale(self, worker: int, scale: float) -> None:
+        if scale <= 0:
+            raise ValueError("time scale must be positive")
+        self._scale[int(worker)] = float(scale)
+
+    def place_state(self, state):
+        if self.executor.is_placed(state):
+            return state
+        return self.executor.place_state(state)
+
+    def prepare(self, worker_steps) -> None:
+        self.executor.stage(worker_steps)
+
+    def agreed_time(self, seconds_: float) -> float:
+        """The slowest process's time (one small ``all_reduce``)."""
+        ex = self.executor
+        t = torch.tensor([seconds_], dtype=torch.float64, device=ex.comm_device())
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=ex.group)
+        return float(t.item())
+
+    def execute_step(self, state, worker_steps, *, step_key, step):
+        from repro_torch.distributed.plan_exec import worker_steps_digest
+
+        self._last_ranks = list(range(len(worker_steps)))
+        state, out = self.executor.execute(
+            state, worker_steps, step_key=step_key, step=step,
+            digest=worker_steps_digest(worker_steps),
+            measure=self._measure, time_scale=lambda w: self._scale.get(w, 1.0))
+        self._records = out.get("records", [])
+        self._timers = out.get("timers")
+        self._rank_times = out.get("rank_times")
+        return state, StepOutcome(loss=out["loss"], compiled=out["compiled"])
+
+    def timing_records(self) -> list[WorkerStepRecord]:
+        """Every rank's records of the last step, rank-major (a collective
+        in async mode: every process calls it once a step)."""
+        if self._timers is not None:
+            self._records, self._rank_times = self._timers.join()
+            self._timers = None
+        return self._records
+
+    @property
+    def rank_times(self) -> list[float] | None:
+        """Each rank's time in the last measured step."""
+        if self._timers is not None:
+            self.timing_records()
+        return self._rank_times
+
+
+__all__ = ["EmulatedEngine", "ExecutionEngine", "MeshEngine", "StepOutcome", "WorkerSteps",
+           "clock", "seconds"]

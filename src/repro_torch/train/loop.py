@@ -1,8 +1,10 @@
 """Training loop of the port: the counterpart of ``repro.train.loop``'s
-``Trainer`` and ``TrainHistory`` on one device.
+``Trainer`` and ``TrainHistory``.
 
 ``Trainer.run`` drives ONE :class:`~repro_torch.train.engine.ExecutionEngine`
-(``EmulatedEngine`` by default) over a single-rank stream
+(``EmulatedEngine`` by default; ``MeshEngine`` with ``mesh=``, a
+``launch.mesh.DataGroup``: one process a rank, each running this loop over
+the same plan stream) over a single-rank stream
 (``BucketedLoader``: each item is one ``list[(bucket, batch)]``) or a
 planner-driven multi-rank stream (``ShardedBucketedLoader``: each item is
 per-rank lists from one global dispatch decision).  Each step splits the
@@ -16,7 +18,11 @@ card and from the host clock on the CPU.
 With ``scheduler=`` attached (``core.scheduler.AdaptiveLoadScheduler``)
 every step's records go to ``scheduler.observe``: the closed loop of
 telemetry, cost-model refit and replan, which reaches the loader's planner
-when the loader was built on ``scheduler.make_planner()``.
+when the loader was built on ``scheduler.make_planner()``.  On a mesh of
+more than one process the loader draws with no lead (``prefetch=0``), so a
+replan lands at the same plan index on every process: after the step it
+was observed in with serial dispatch, one step later with async dispatch
+(the next step was already fetched).
 
 **Fault tolerance & resume.**  With ``ft=`` attached
 (``distributed.fault_tolerance.FaultTolerantRunner``) every step (1)
@@ -32,8 +38,14 @@ plan boundary after each step through the same hooks.  ``run(start_step=,
 rng=)`` resumes the step numbering and the key stream exactly, so a
 killed-and-resumed run replays byte-identical plan digests and the same
 parameters as the uninterrupted run.  The event strings and their order
-are the reference's (``repro/train/loop.py``, its synchronous path: the
-port's engines pop no step ahead).
+are the reference's (``repro/train/loop.py``).  An engine with
+``async_dispatch`` (``MeshEngine`` unless it measures serially) returns
+before the device finishes a step: the next step is fetched and staged
+(``engine.prepare``) behind it, and a checkpoint's loader snapshot is
+rewound past that held step, as in the reference; the other engines fetch
+after the fault-tolerance block, with nothing held.  On a mesh the
+cadence reads the slowest process's step time (``engine.agreed_time``), so
+every process saves at the same steps.
 
 The run-state blob has the reference's schema, and the trainer key is
 stored as two uint32 words (:func:`serialize_rng_key`), so either package
@@ -41,7 +53,7 @@ reads the other's blob.  A resume across the two frameworks carries over
 the weights, the moments, ``step`` and the loader and planner streams
 exactly; the trainer key does not reproduce the other package's noise
 draws, which were never the same (``steps.fold_in`` against
-``jax.random``).  Mesh execution comes with its own slice.
+``jax.random``).
 """
 
 from __future__ import annotations
@@ -54,12 +66,18 @@ import numpy as np
 from repro_torch.core.dispatch import group_worker_steps
 from repro_torch.core.scheduler import AdaptiveLoadScheduler
 from repro_torch.core.telemetry import WorkerStepRecord
-from repro_torch.data.pipeline import SnapshotUnavailable
+from repro_torch.data.pipeline import ShardedBucketedLoader, SnapshotUnavailable
 from repro_torch.distributed.chaos import ChaosContext, ChaosSchedule
 from repro_torch.distributed.fault_tolerance import FaultTolerantRunner
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import OptimizerConfig
-from repro_torch.train.engine import EmulatedEngine, ExecutionEngine, clock, seconds
+from repro_torch.train.engine import (
+    EmulatedEngine,
+    ExecutionEngine,
+    MeshEngine,
+    clock,
+    seconds,
+)
 
 RUN_STATE_VERSION = 1
 
@@ -125,7 +143,9 @@ class Trainer:
                  worker_time_scale: Mapping[int, float] | None = None,
                  engine: ExecutionEngine | None = None,
                  run_state_of: Callable[[int], dict] | None = None,
-                 chaos: ChaosSchedule | None = None):
+                 chaos: ChaosSchedule | None = None,
+                 mesh=None,
+                 measure_ranks: bool | str | None = None):
         self.cfg = cfg
         self.opt = opt
         self.scheduler = scheduler
@@ -140,16 +160,24 @@ class Trainer:
         self._n_physical: int | None = None
         # run_state_of(held) -> dict merged into every checkpoint's
         # run-state blob.  ``held`` is how many data items the trainer has
-        # popped but not yet executed (the reference's contract): always 0
-        # here, the port's engines pop no step ahead
+        # popped but not yet executed (the async engine's double buffer): a
+        # loader snapshot rewinds by that many plans
         self.run_state_of = run_state_of
         #: run-state blob as of the END of the last completed ``run``:
         #: what a launcher persists with its final checkpoint
         self.last_run_state: dict | None = None
         if engine is not None:
+            if mesh is not None:
+                raise ValueError("pass engine= or mesh=, not both")
             if worker_time_scale is not None:
                 raise ValueError("pass worker_time_scale to the engine given as engine=")
             self.engine = engine
+        elif mesh is not None:
+            # measure_ranks: False | "serial" | "async" (True = "async");
+            # by default measured only when a scheduler reads the records
+            measure = measure_ranks if measure_ranks is not None else scheduler is not None
+            self.engine = MeshEngine(mesh.group, cfg, opt, device=mesh.device, measure=measure,
+                                     worker_time_scale=worker_time_scale)
         else:
             self.engine = EmulatedEngine(cfg, opt, worker_time_scale=worker_time_scale)
 
@@ -186,7 +214,7 @@ class Trainer:
             return step
         return [step]
 
-    def _run_state(self, next_step: int, rng: int) -> dict:
+    def _run_state(self, next_step: int, rng: int, held: int = 0) -> dict:
         """The resumable run-state blob for a checkpoint taken between step
         ``next_step - 1`` and ``next_step``."""
         rs = {
@@ -195,15 +223,15 @@ class Trainer:
             "trainer": {"rng": serialize_rng_key(rng)},
         }
         if self.run_state_of is not None:
-            rs.update(self.run_state_of(0) or {})
+            rs.update(self.run_state_of(held) or {})
         return rs
 
-    def _failure_run_state(self, next_step: int, rng: int) -> dict:
+    def _failure_run_state(self, next_step: int, rng: int, held: int = 0) -> dict:
         """Run state for an EMERGENCY save: if the loader cannot snapshot
         right now (a resize in flight), degrade to weights + trainer key
         rather than lose the save."""
         try:
-            return self._run_state(next_step, rng)
+            return self._run_state(next_step, rng, held)
         except SnapshotUnavailable:
             return {
                 "version": RUN_STATE_VERSION,
@@ -223,12 +251,21 @@ class Trainer:
         hist = TrainHistory()
         engine = self.engine
         ft = self.ft
+        if (isinstance(engine, MeshEngine) and engine.executor.n_ranks > 1
+                and isinstance(data_iter, ShardedBucketedLoader) and data_iter.prefetch > 0):
+            # a replan or a resize would land at a plan index set by each
+            # process's own producer thread, and the plans would part
+            raise ValueError("on a mesh every process draws the plan stream itself: build the "
+                             "loader with prefetch=0, so that a replan or a resize lands at "
+                             "the same plan on every process")
         if ft is not None and start_step > 0:
             # the restored checkpoint IS start_step's save: count the
             # cadence from there instead of re-saving on the first step
             ft.note_restored(start_step)
+        state = engine.place_state(state)
         device = state["model"].device
         item = next(data_iter) if n_steps > 0 else None
+        held = 0
         for i in range(n_steps):
             step_no = start_step + i
             worker_steps = self._as_worker_steps(item)
@@ -238,8 +275,16 @@ class Trainer:
             rng, sub = split_key(rng)
             state, out = engine.execute_step(state, self._to_physical(worker_steps),
                                              step_key=sub, step=step_no)
-            dt = seconds(t0, clock(device))
+            t1 = clock(device)
+            held = 0
+            if engine.async_dispatch and i + 1 < n_steps:
+                # the device still computes step i: fetch step i+1 and stage
+                # its batches behind that compute
+                item = next(data_iter)
+                engine.prepare(self._to_physical(self._as_worker_steps(item)))
+                held = 1
             recs = engine.timing_records()
+            dt = seconds(t0, t1)
             loss = float(out.loss)
 
             hist.losses.append(loss)
@@ -259,10 +304,11 @@ class Trainer:
                 for msg in self.chaos.fire(step_no, ctx):
                     hist.events.append(f"{msg}@{step_no}")
 
-            if ft is not None and self._fault_tolerance(state, step_no, rng, dt, hist):
+            if ft is not None and self._fault_tolerance(state, step_no, rng,
+                                                        engine.agreed_time(dt), hist, held):
                 break
 
-            if i + 1 < n_steps:
+            if not engine.async_dispatch and i + 1 < n_steps:
                 # fetched AFTER the fault-tolerance block: a checkpoint then
                 # sits exactly on a plan boundary (nothing popped to rewind)
                 item = next(data_iter)
@@ -275,11 +321,12 @@ class Trainer:
         # resize still draining) must not crash a finished run; the
         # launcher then persists weights + trainer key.  A preempted run
         # counts only its completed steps.
-        self.last_run_state = self._failure_run_state(start_step + len(hist.losses), rng)
+        self.last_run_state = self._failure_run_state(start_step + len(hist.losses), rng,
+                                                      held if hist.preempted else 0)
         return state, hist
 
     def _fault_tolerance(self, state, step_no: int, rng: int, dt: float,
-                         hist: TrainHistory) -> bool:
+                         hist: TrainHistory, held: int) -> bool:
         """The runner's work at the plan boundary after ``step_no``, in the
         reference's order: heartbeats, cadence, failures, joins, preemption.
         Returns True when a preemption ends the run."""
@@ -293,10 +340,10 @@ class Trainer:
         next_step = step_no + 1
 
         def run_state():
-            return self._run_state(next_step, rng)
+            return self._run_state(next_step, rng, held)
 
         def failure_run_state():
-            return self._failure_run_state(next_step, rng)
+            return self._failure_run_state(next_step, rng, held)
 
         try:
             if ft.maybe_checkpoint(state, next_step, dt, run_state=run_state):

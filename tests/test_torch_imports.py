@@ -37,6 +37,11 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.core.simulator, repro_torch.core.telemetry\n"
         "import repro_torch.checkpoint.store, repro_torch.distributed.chaos\n"
         "import repro_torch.distributed.fault_tolerance, repro_torch.train.loop\n"
+        "import repro_torch.core.shape_bench, repro_torch.distributed.plan_exec\n"
+        "import repro_torch.launch.mesh\n"
+        "from repro_torch.train.engine import MeshEngine\n"
+        "from repro_torch.train.loop import Trainer; Trainer.__init__\n"
+        "from repro_torch.distributed.fault_tolerance import RankZeroRunner\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes']\n"
         "assert not bad, bad\n"
@@ -58,3 +63,11 @@ def test_source_imports_neither_jax_nor_repro(path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_calls_no_library_kernel_or_environment(path):
     assert not LIBRARY_RE.search(path.read_text()), path
+
+
+@pytest.mark.parametrize("rel", ["core/shape_bench.py", "distributed/plan_exec.py",
+                                 "launch/mesh.py", "train/engine.py", "train/loop.py"])
+def test_mesh_and_shape_bench_modules_are_scanned(rel):
+    """The modules of step-plan execution across processes and of the
+    Shape Benchmark are among the sources scanned above."""
+    assert PORT / rel in PORT_FILES
