@@ -135,6 +135,31 @@ Phases, any failure of which exits non-zero with no result line:
    differing tensors are named and rel-L2 <= 1e-5 holds); launch counts of
    (b) + (c) exact; each checkpoint's save seconds, the handoff
    checkpoint's bytes and the restore seconds.
+12. the Shape Benchmark and step plans across processes (see
+   ``phase_shape_bench``, ``phase_mesh_nccl``, ``phase_mesh_gloo`` and
+   ``phase_mesh_dispatch``).
+13. contiguous LM serving: first K4 rows at d 5120 and 2304 (a 1024-token
+   prefill, a decode wave of 4) and at Mamba-2's decode rows, K13 at
+   Mamba-2's decode (x [4, 1, 5120], the gate a strided z slice), K7 at
+   the Qwen2.5-14B (GQA 5, dh 128) and MiniCPM-2B (MHA 36 x 64) prefills
+   and K12 at their decode waves, each against its plain version and
+   timed; (a) Mamba-2 2.7B at full width and depth (64 layers, bf16, seed
+   0) prefills 4 prompts of 2048 tokens and decodes 32 greedy steps through
+   ``make_prefill_step`` / ``make_decode_step``: exact launch counts (K4
+   rows L+1 and K13 L a call), prefill ms, decode ms a step (host clock,
+   events, device time), tokens/s, cache bytes; the logits against the
+   ``ops="plain"`` ones teacher-forced on the same tokens and against one
+   chunked forward over the 2080 tokens (rel-L2 0.25, ``SERVE_TOL``), and
+   the same model in f32 against the forward (1e-4); (b) Qwen2.5-14B (48 layers, bf16, seed
+   0) through the launcher's paged engine (8 requests, ``--gen 32
+   --max-seq 4096``), then each request through contiguous prefill and
+   decode teacher-forced on the engine's tokens: logits rel-L2 a request
+   (5e-2), greedy disagreements with their top-2 margins, exact launch
+   counts for both, prefill and wave ms, the widest wave's device time
+   against its weights bound, the contiguous step's; (c) MiniCPM-2B (40
+   layers) the same with one contiguous request; (d) the ported example
+   ``repro_torch.examples.serve_lm``, llama3.2-1b at full width in f32:
+   0 token mismatches against contiguous serving, exact launch counts.
 
 Phase 2 also holds K4 on model rows (x [1, 2048, 2048] and [8, 1, 2048]
 bf16) and K12 (the decode wave of phase 6; 64 slots with kv_lens up to
@@ -151,13 +176,16 @@ second run), timed back to back with K3 there and at the paper's Fig. 1
 width (D 5120, B 1, S 8192 to 32768), with its GB/s an SM; all of them at
 small f32 shapes.
 
-Each kernel's launch counts in the record are those of the eight main
-paths, each reset to 0 just before its run and read just after: the
-serving waves of phase 3, the training steps of phase 5 (b), the LM
-serving of phase 6 (b), the Mamba-2 training steps of phase 8 (b), the
-dense-LM training steps of phase 9 (b), the SP step of phase 9 (c), the
-planned launcher of phase 10 (a) and the churn leg and resumed step of
-phase 11 (b), (c) (``launches_by_path``); ``launches`` is their sum.
+Each kernel's launch counts in the record are those of the main paths,
+each reset to 0 just before its run and read just after: the serving
+waves of phase 3, the training steps of phase 5 (b), the LM serving of
+phase 6 (b), the Mamba-2 training steps of phase 8 (b), the dense-LM
+training steps of phase 9 (b), the SP step of phase 9 (c), the planned
+launcher of phase 10 (a), the churn leg and resumed step of phase 11 (b),
+(c), the Shape Benchmark's calls, the NCCL launcher and the gloo processes
+of phase 12, and phase 13's Mamba-2 serving, Qwen2.5-14B's and
+MiniCPM-2B's launchers and contiguous runs, and the example
+(``launches_by_path``); ``launches`` is their sum.
 
 Each phase's wall seconds go to the log and to the record (``phase_s``).
 Prints the kernels' JSON record on the line before the last and, as the
@@ -1733,10 +1761,13 @@ LM_PER_CALL = {  # launches of one prefill and one decode wave, per layer L
 }
 
 
-def check_lm_counts(counts: dict, eng, n_layers: int, what: str) -> tuple[int, int]:
+def check_lm_counts(counts: dict, eng, n_layers: int, what: str,
+                    extra: dict | None = None) -> tuple[int, int]:
+    """Each kernel's count against the engine's prefills and waves (plus
+    ``extra`` launches expected besides)."""
     prefills = sum(len(it["prefills"]) for it in eng.iterations)
     waves = sum(1 for it in eng.iterations if it["decodes"])
-    want = {}
+    want = dict(extra or {})
     for kind, n in (("prefill", prefills), ("wave", waves)):
         for name, per in LM_PER_CALL[kind](n_layers).items():
             want[name] = want.get(name, 0) + n * per
@@ -3232,6 +3263,489 @@ def _fixed_plan(shares):
                     loads=tuple(0.0 for _ in pool), strategy="independent")
 
 
+# -- phase 13: contiguous LM serving, Mamba-2's recurrent decode, two dense configs --
+
+SSM_SERVE_B, SSM_SERVE_S, SSM_SERVE_NEW = 4, 2048, 32  # phase 13 (a): prompts, decode steps
+SSM_F32_NEW = 8  # phase 13 (a): decode steps of the f32 check at full depth
+# rel-L2 of the logits of two computations of one model that round
+# different values: the kernels against their plain versions (another
+# order of f32 sums), the recurrent decode against the chunked scan (the
+# forward's conv sums in bf16, the decode's in f32), K12's bf16 p against
+# the plain f32 softmax.  In bf16 each layer's roundings (2^-9 relative)
+# then differ and the layers amplify the differences.  Unrelated logits (a
+# lost cache, a wrong position, a k not written) give about sqrt(2).
+# - dense_bf16: Qwen2.5-14B and MiniCPM-2B, 40-48 layers: about 1e-2;
+# - ssm_bf16: Mamba-2 2.7B, 64 layers, amplifies them most: the prefill's
+#   kernels against plain (one computation, the f32 sums of the norms in
+#   another order) differ by 5e-2 and the decode against the forward by up
+#   to 1.2e-1 after 32 steps (the state carries them; PERF.md); 0.25 is
+#   twice that;
+# - f32, the whole 64-layer Mamba-2 again: only the order of f32 sums
+#   differs (2^-24 amplified as above gives about 1e-6), so 1e-4 holds the
+#   decode to the forward tightly, and bf16 anywhere would fail it.
+SERVE_TOL = {"dense_bf16": 5e-2, "ssm_bf16": 0.25, "f32": 1e-4}
+CONTIG_PER_CALL = {  # launches of one contiguous prefill and one decode step, per layer L
+    "attn": {"prefill": lambda L: {"rms_fwd": 2 * L + 1, "flash_fwd": L},
+             "step": lambda L: {"rms_fwd": 2 * L + 1}},
+    "ssm": {"prefill": lambda L: {"rms_fwd": L + 1, "gated_rms_fwd": L},
+            "step": lambda L: {"rms_fwd": L + 1, "gated_rms_fwd": L}},
+}
+
+
+def contig_want(kind: str, n_layers: int, prefills: int, steps: int) -> dict[str, int]:
+    want: dict[str, int] = {}
+    for call, n in (("prefill", prefills), ("step", steps)):
+        for name, per in CONTIG_PER_CALL[kind][call](n_layers).items():
+            want[name] = want.get(name, 0) + n * per
+    return want
+
+
+def check_exact(counts: dict, want: dict, what: str) -> None:
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{what}: {name} launched {n} times, expected {want.get(name, 0)}")
+    log(f"  {what}: every launch count exact ({ {k: v for k, v in want.items() if v} })")
+
+
+def device_busy(fn) -> dict:
+    """The device's busy time over one call of ``fn`` (a whole decode step,
+    whose launches outnumber what the device's queue holds behind a
+    sleeping kernel) and the idle share of the window from its first kernel
+    to its last, from ``torch.profiler`` (``profile_serve.profile``; its
+    CPU tracing slows the host a little, so the idle share is an upper
+    estimate)."""
+    from repro_torch.launch.profile_serve import profile
+
+    fn()
+    torch.cuda.synchronize()
+    b = profile(fn)
+    return {k: b[k] for k in ("busy_ms", "window_ms", "idle_share", "device_ms_by_family")}
+
+
+def phase_kernels_serve(dev) -> dict:
+    """Phase 13, the kernels at the new serving shapes against their plain
+    versions, timed: K4 rows at Qwen2.5-14B's d 5120 and MiniCPM-2B's 2304
+    (a 1024-token prefill and a decode wave of 4) and at Mamba-2's decode
+    rows, K13 at Mamba-2's decode (x [4, 1, 5120], the gate strided), K7 at
+    the two prefills (GQA 5 at dh 128; MHA 36 x 64) and K12 at their decode
+    waves (4 slots up to 1056 tokens, pages of 16)."""
+    from repro_torch.kernels.flash_attention.flash import BOUND_TILE, flash_fwd, live_tile_pairs
+    from repro_torch.kernels.flash_attention.paged import paged_decode
+    from repro_torch.kernels.flash_attention.ref import attention_ref, paged_attention_ref
+    from repro_torch.kernels.fused_rmsnorm.ref import gated_rms_norm_ref, rms_norm_ref
+    from repro_torch.kernels.fused_rmsnorm.rmsnorm import gated_rms_fwd, rms_fwd
+    from repro_torch.launch.time_paged import paged_case, paged_work
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    rng = np.random.default_rng(13)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(dtype)
+
+    def report(name, t):
+        log(f"  {name}: ms {t['ms']:.4f}  plain {t['plain_ms']:.4f}  library "
+            f"{'none' if t['library_ms'] is None else format(t['library_ms'], '.4f')}  bound "
+            f"{t['bound_ms']:.4f} ({t['bound_by']}, {t['bytes'] / 1e6:.3f} MB, "
+            f"{t['flops'] / 1e9:.3f} GFLOP)  share {t['bound_ms'] / t['ms']:.1%}")
+
+    out = {"rms_fwd": {}, "flash_fwd": {}, "paged_decode": {}}
+    log("K4 rms_fwd (rows) bf16 at the new widths: qwen [1, 1024, 5120] and [4, 1, 5120], "
+        "minicpm [1, 1024, 2304] and [4, 1, 2304], mamba2 decode [4, 1, 2560]")
+    for nm, shape in (("qwen_prefill", (1, 1024, 5120)), ("qwen_decode", (4, 1, 5120)),
+                      ("minicpm_prefill", (1, 1024, 2304)), ("minicpm_decode", (4, 1, 2304)),
+                      ("mamba2_decode", (4, 1, 2560))):
+        d = shape[-1]
+        x, w = randn(*shape, dtype=torch.bfloat16, scale=2.0, shift=0.3), randn(d, scale=0.1, shift=1.0)
+        (y, r), (yr, rr) = rms_fwd(x, w), rms_norm_ref(x, w)
+        torch.cuda.synchronize()
+        err = max_err(y, yr)
+        check(f"K4 rows y {nm}", err, TOL["norm_bf16"])
+        check(f"K4 rows rstd {nm}", max_err(r, rr), TOL["stat"])
+        wl = w.to(x.dtype)
+        t = dict(shape=list(shape), max_abs_err=err, ms=device_ms(lambda: rms_fwd(x, w), 50),
+                 plain_ms=device_ms(lambda: rms_norm_ref(x, w), 10),
+                 # yardstick only, never on the port's path: the library norm
+                 library_ms=device_ms(lambda: F.rms_norm(x, (d,), wl, 1e-6), 50),
+                 bytes=2 * x.numel() * 2 + x.numel() // d * 4 + d * 4, flops=4 * x.numel())
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], F32_FLOPS)
+        out["rms_fwd"][nm] = t
+        report(f"K4 rows {nm}", t)
+
+    n, di = SSM_SERVE_B, SSM_DI
+    log(f"K13 gated_rms_fwd at Mamba-2's decode: x [{n}, 1, {di}] bf16, g the z slice of an "
+        f"in_proj output [{n}, 1, {SSM_PROJ}] (row stride {SSM_PROJ}), w [{di}] f32")
+    x = randn(n, 1, di, dtype=torch.bfloat16)
+    gz = randn(n, 1, SSM_PROJ, dtype=torch.bfloat16)[:, 0, :di][:, None, :]
+    w = randn(di, scale=0.1, shift=1.0)
+    (y, r), (yr, rr) = gated_rms_fwd(x, w, gz), gated_rms_norm_ref(x, w, gz)
+    torch.cuda.synchronize()
+    err = check_rel("K13 y decode (bf16)", y, yr, BWD_TOL["grad_bf16"])
+    check("K13 rstd decode", max_err(r, rr), TOL["stat"])
+    t = dict(shape=[n, 1, di], max_abs_err=err, ms=device_ms(lambda: gated_rms_fwd(x, w, gz), 50),
+             plain_ms=device_ms(lambda: gated_rms_norm_ref(x, w, gz), 10), library_ms=None,
+             bytes=3 * n * di * 2 + n * 4 + di * 4, flops=10 * n * di)
+    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], F32_FLOPS)
+    out["gated_rms_fwd"] = {"mamba2_decode": t}
+    report("K13 mamba2_decode", t)
+
+    for nm, hq, hkv, dh in (("qwen", 40, 8, 128), ("minicpm", 36, 36, 64)):
+        s = 1024
+        log(f"K7 flash_fwd at the {nm} prefill: q [1, {s}, {hq}, {dh}], k, v [1, {s}, {hkv}, "
+            f"{dh}] bf16 (views of qkv [1, {s}, {(hq + 2 * hkv) * dh}]), causal")
+        qkv = randn(1, s, (hq + 2 * hkv) * dh, dtype=torch.bfloat16)
+        q = qkv[..., : hq * dh].reshape(1, s, hq, dh)
+        k = qkv[..., hq * dh : (hq + hkv) * dh].reshape(1, s, hkv, dh)
+        v = qkv[..., (hq + hkv) * dh :].reshape(1, s, hkv, dh)
+        (o, lse), (o_r, lse_r) = flash_fwd(q, k, v, causal=True), attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = max_err(o, o_r)
+        check(f"K7 {nm} prefill out", err, TOL["attn_bf16"])
+        check(f"K7 {nm} prefill lse", max_err(lse, lse_r), TOL["lse_bf16"])
+        tiles = live_tile_pairs(s, s, causal=True) * hq
+        t = dict(shape=f"q [1, {s}, {hq}, {dh}], kv heads {hkv}", max_abs_err=err,
+                 ms=device_ms(lambda: flash_fwd(q, k, v, causal=True), 20),
+                 plain_ms=device_ms(lambda: attention_ref(q, k, v, causal=True), 3),
+                 # yardstick only, never on the port's path: the library's causal attention
+                 library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                     enable_gqa=hq != hkv), 20),
+                 bytes=2 * q.numel() * 2 + 2 * k.numel() * 2 + hq * s * 4,
+                 flops=tiles * 4 * BOUND_TILE ** 2 * dh, live_tile_pairs=tiles)
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], BF16_FLOPS)
+        out["flash_fwd"][f"{nm}_prefill"] = t
+        report(f"K7 {nm}_prefill", t)
+        del qkv, q, k, v, o, o_r
+
+        lens = [int(x) for x in rng.integers(64, 1057, size=4)]
+        log(f"K12 paged_decode at the {nm} wave: q [4, {hq}, {dh}], pages of 16 [.., 16, {hkv}, "
+            f"{dh}] bf16, 256 entries a table row, kv_lens {lens}")
+        q, kp, vp, tables, kv_lens = paged_case(dev, g, rng, lens, hq, hkv, dh, LM_PAGE,
+                                                torch.bfloat16, pages_max=256, spare=64)
+        args = (q, kp, vp, tables[0], kv_lens)
+        o, o_r = paged_decode(*args), paged_attention_ref(*args)
+        torch.cuda.synchronize()
+        err = max_err(o, o_r)
+        check(f"K12 {nm} wave out", err, TOL["attn_bf16"])
+        check_slots(f"K12 {nm} wave out", o, o_r, TOL["attn_bf16_slot"])
+        nbytes, flops = paged_work(*args)
+        t = dict(shape=f"q [4, {hq}, {dh}], pool {list(kp.shape)}, kv_lens {lens}",
+                 max_abs_err=err, ms=device_ms(lambda: paged_decode(*args), 50),
+                 plain_ms=device_ms(lambda: paged_attention_ref(*args), 3), library_ms=None,
+                 bytes=nbytes, flops=flops)
+        t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
+        out["paged_decode"][f"{nm}_wave"] = t
+        report(f"K12 {nm}_wave", t)
+    return out
+
+
+def phase_serve_ssm(K, dev) -> dict:
+    """Phase 13 (a): Mamba-2 2.7B at full width and depth serves 4 prompts
+    of 2048 tokens and 32 greedy decode steps through ``make_prefill_step``
+    / ``make_decode_step``; kernels against ``ops="plain"`` teacher-forced
+    on the same tokens, the recurrent decode against one chunked forward
+    over the extended sequence, and the same model in f32 against the
+    forward."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = get_config("mamba2-2.7b")
+    L, b, s, new = cfg.n_layers, SSM_SERVE_B, SSM_SERVE_S, SSM_SERVE_NEW
+    t0 = time.perf_counter()
+    model = T.Transformer(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"(a) {cfg.name}: {L} layers, d {cfg.d_model}, {cfg.dtype}, seed 0 (init "
+        f"{time.perf_counter() - t0:.1f} s); {b} prompts of {s} tokens, {new} greedy decode steps")
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+    prefill, decode = make_prefill_step(cfg, s + new), make_decode_step(cfg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(new + 2)]
+    ev[0].record()
+    logits, caches = prefill(model, tokens)
+    ev[1].record()
+    torch.cuda.synchronize()  # the first tokens are ready before decoding starts
+    caches0 = caches
+    got = [logits]
+    t0 = time.perf_counter()
+    for i in range(new):
+        logits, caches = decode(model, caches, got[-1].argmax(dim=-1, keepdim=True).int(), s + i)
+        ev[i + 2].record()
+        got.append(logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_exact(counts, contig_want("ssm", L, 1, new), f"prefill + {new} decode steps")
+    if not all(bool(torch.isfinite(lg).all()) for lg in got):
+        raise AssertionError("Mamba-2 serving gave non-finite logits")
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    step_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(new)]
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches for t in c.values())
+    first = got[0].argmax(dim=-1, keepdim=True).int()
+    busy = device_busy(lambda: decode(model, caches0, first, s))
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    state_bytes = sum(c["state"].numel() * 4 for c in caches)
+    bound_ms = (weight_bytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"  prefill {prefill_ms:.1f} ms ({b * s / prefill_ms * 1e3:.0f} tokens/s); decode "
+        f"{wall / new * 1e3:.2f} ms a step on the host's clock ({b * new / wall:.1f} tokens/s), "
+        f"{np.median(step_ms):.2f} ms median between events; one step profiled: device busy "
+        f"{busy['busy_ms']:.3f} ms of {busy['window_ms']:.3f} (idle {busy['idle_share']:.1%}); "
+        f"bound {bound_ms:.3f} ms (weights {weight_bytes / 1e9:.3f} GB, state "
+        f"{state_bytes / 1e6:.1f} MB read and written); caches {cache_bytes / 1e6:.1f} MB; "
+        f"peak {peak:.2f} GiB")
+
+    # the kernels against their plain versions, teacher-forced on the same tokens
+    forced = [lg.argmax(dim=-1, keepdim=True).int() for lg in got[:new]]
+    with torch.inference_mode():
+        lg, pc = T.prefill(model, tokens, s + new, ops="plain")
+        plain = [lg]
+        for i in range(new):
+            lg, pc = T.decode_step(model, pc, forced[i], s + i, ops="plain")
+            plain.append(lg)
+        del pc
+        # the reference's oracle: one chunked forward over the extended sequence
+        h, _ = model(torch.cat([tokens, *forced], dim=1))
+        oracle = (h[:, s - 1 :] @ model.embed.T).float()  # [B, new + 1, V]
+    rel_plain = [rel_l2(a, p_) for a, p_ in zip(got, plain)]
+    rel_fwd = [rel_l2(a, oracle[:, i]) for i, a in enumerate(got)]
+    log(f"  logits rel-L2, kernels vs plain: prefill {rel_plain[0]:.3e}, decode max "
+        f"{max(rel_plain[1:]):.3e} (tol {SERVE_TOL['ssm_bf16']})")
+    log(f"  logits rel-L2, decode vs the chunked forward over {s + new} tokens: prefill "
+        f"{rel_fwd[0]:.3e}, decode max {max(rel_fwd[1:]):.3e}, median "
+        f"{float(np.median(rel_fwd[1:])):.3e} (tol {SERVE_TOL['ssm_bf16']})")
+    if max(rel_plain) > SERVE_TOL["ssm_bf16"] or max(rel_fwd) > SERVE_TOL["ssm_bf16"]:
+        raise AssertionError(f"Mamba-2 serving disagrees: {rel_plain} {rel_fwd}")
+    del model, caches, caches0, got, plain, h, oracle
+    torch.cuda.empty_cache()
+
+    # the same model in f32: decode against the chunked forward
+    m2 = T.Transformer(dataclasses.replace(cfg, dtype="float32"), seed=0, device=dev)
+    with torch.inference_mode():
+        lg, c2 = T.prefill(m2, tokens, s + SSM_F32_NEW)
+        got2 = [lg]
+        for i in range(SSM_F32_NEW):
+            lg, c2 = T.decode_step(m2, c2, got2[-1].argmax(dim=-1, keepdim=True).int(), s + i)
+            got2.append(lg)
+        ext = torch.cat([tokens, *[x.argmax(dim=-1, keepdim=True).int()
+                                   for x in got2[:SSM_F32_NEW]]], dim=1)
+        h2, _ = m2(ext)
+        oracle2 = (h2[:, s - 1 :] @ m2.embed.T).float()
+    rel_f32 = [rel_l2(a, oracle2[:, i]) for i, a in enumerate(got2)]
+    log(f"  f32, {L} layers: decode vs the chunked forward over {s + SSM_F32_NEW} tokens, "
+        f"rel-L2 prefill {rel_f32[0]:.3e}, decode max {max(rel_f32[1:]):.3e} "
+        f"(tol {SERVE_TOL['f32']:.0e})")
+    if max(rel_f32) > SERVE_TOL["f32"]:
+        raise AssertionError(f"Mamba-2 f32 decode disagrees with the forward: {rel_f32}")
+    del m2, c2, h2, oracle2
+    torch.cuda.empty_cache()
+    return dict(launches=counts, prefill_ms=prefill_ms, decode_ms_wall=wall / new * 1e3,
+                decode_ms_events=step_ms, decode_step_profile=busy,
+                tokens_per_s=b * new / wall, decode_bound_ms=bound_ms, weight_bytes=weight_bytes,
+                cache_bytes=cache_bytes, state_bytes=state_bytes, peak_gib=peak,
+                rel_l2_plain=rel_plain, rel_l2_forward=rel_fwd, rel_l2_f32_forward=rel_f32)
+
+
+def _recording_engine():
+    """The LM engine as it is, keeping each request's logits (its prefill's,
+    then its row of each decode wave it advances in), CUDA events around
+    each call, and the arguments of the widest wave."""
+    from repro_torch.serve import ServeEngine
+
+    class RecordingEngine(ServeEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.logits_of, self.calls, self.widest = {}, {"prefill": [], "decode": []}, None
+            prefill, decode = self._prefill, self._decode
+            self.raw_decode = decode
+
+            def run(kind, fn, args, rows):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                logits, pools = fn(*args)
+                b.record()
+                self.calls[kind].append((len(rows), args[1].shape[1] if kind == "prefill" else
+                                         None, a, b))
+                for row, rid in rows:
+                    self.logits_of.setdefault(rid, []).append(logits[row])
+                return logits, pools
+
+            def rec_prefill(*args):
+                return run("prefill", prefill, args, [(0, self._admitting.rid)])
+
+            def rec_decode(*args):
+                rows = [(r.slot, r.rid) for r in self._running]
+                if self.widest is None or len(rows) > len(self.widest[1]):
+                    self.widest = (args, rows)
+                return run("decode", decode, args, rows)
+
+            self._prefill, self._decode = rec_prefill, rec_decode
+
+        def _start(self, r):
+            self._admitting = r
+            super()._start(r)
+
+        def step(self):
+            # the slots a wave advances: those running before this step's
+            # admissions (a fresh prefill joins the next wave)
+            self._running = [r for r in self.slot_req if r is not None]
+            return super().step()
+
+    return RecordingEngine
+
+
+def phase_serve_dense(K, dev, arch: str, n_contig: int) -> dict:
+    """Phase 13 (b), (c): the launcher serves 8 requests of ``arch`` at full
+    width and depth (bf16, seed 0) on the paged engine, then the first
+    ``n_contig`` requests run through contiguous prefill and decode,
+    teacher-forced on the engine's tokens: logits rel-L2 a request, greedy
+    disagreements with their top-2 margins, exact launch counts; prefill
+    and wave ms, a wave's device time, the contiguous step's."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = get_config(arch)
+    L = cfg.n_layers
+    argv = ["--arch", arch, "--requests", "8", "--gen", "32", "--max-seq", "4096"]
+    log(f"python -m repro_torch.launch.serve {' '.join(argv)}  ({L} layers, d {cfg.d_model}, "
+        f"Hq {cfg.n_heads}, Hkv {cfg.n_kv_heads}, dh {cfg.head_dim}, vocab {cfg.vocab}, {cfg.dtype})")
+    engine = launch_serve.ServeEngine
+    launch_serve.ServeEngine = _recording_engine()
+    try:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng = launch_serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        launch_serve.ServeEngine = engine
+    counts = K.launch_counts()
+    done = sorted(eng.done, key=lambda r: r.rid)
+    if len(done) != 8 or any(len(r.out) != r.max_new for r in done):
+        raise AssertionError(f"{arch}: not every request finished with its max_new tokens")
+    prefills, waves = check_lm_counts(counts, eng, L, "launcher")
+    model = eng.model
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prefill_ms = {}
+    for _, width, a, b in eng.calls["prefill"]:
+        prefill_ms.setdefault(width, []).append(a.elapsed_time(b))
+    wave_ms = [a.elapsed_time(b) for _, _, a, b in eng.calls["decode"]]
+    wave_slots = [n for n, _, _, _ in eng.calls["decode"]]
+    args, rows = eng.widest
+    wave_busy = device_busy(lambda: eng.raw_decode(*args))
+    widest_ms = float(np.median([ms for ms, n in zip(wave_ms, wave_slots) if n == len(rows)]))
+    log(f"  {n_params / 1e9:.3f} B params ({weight_bytes / 1e9:.2f} GB); prompts "
+        f"{[r.prompt_len for r in done]}, new tokens {[r.max_new for r in done]}; {prefills} "
+        f"prefills, {waves} waves in {wall:.2f} s wall (model init included)")
+    for width in sorted(prefill_ms):
+        log(f"  prefill width {width}: {', '.join(f'{m:.2f}' for m in prefill_ms[width])} ms")
+    log(f"  waves: median {np.median(wave_ms):.2f} ms; the widest ({len(rows)} slots) median "
+        f"{widest_ms:.2f} ms; one such wave profiled: device busy {wave_busy['busy_ms']:.3f} ms "
+        f"of {wave_busy['window_ms']:.3f} (idle {wave_busy['idle_share']:.1%}); the weights alone "
+        f"bound a wave at "
+        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms")
+
+    # contiguous prefill and decode of each request, teacher-forced on the engine's tokens
+    decode = make_decode_step(cfg)
+    reqs = done[:n_contig]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    per_req, step_s, steps = [], 0.0, 0
+    for r in reqs:
+        prompt = torch.from_numpy(r.prompt[None]).to(dev)
+        forced = torch.tensor(r.out, dtype=torch.int32, device=dev)[:, None, None]
+        logits, caches = make_prefill_step(cfg, r.prompt_len + r.max_new)(model, prompt)
+        got = [logits[0]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(r.max_new - 1):
+            logits, caches = decode(model, caches, forced[i], r.prompt_len + i)
+            got.append(logits[0])
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - t0
+        steps += r.max_new - 1
+        got, ref = torch.stack(got), torch.stack(eng.logits_of[r.rid])
+        arg = got.argmax(dim=-1).cpu().tolist()  # the first maximum, as the engine's
+        top2 = got.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu().tolist()
+        ref_top2 = ref.topk(2, dim=-1).values
+        ref_margin = (ref_top2[:, 0] - ref_top2[:, 1]).cpu().tolist()
+        dis = [dict(index=i, contiguous=arg[i], engine=r.out[i], margin=margin[i],
+                    engine_margin=ref_margin[i]) for i in range(len(arg)) if arg[i] != r.out[i]]
+        per_req.append(dict(rid=r.rid, prompt_len=r.prompt_len, max_new=r.max_new,
+                            rel_l2=rel_l2(got, ref),
+                            rel_l2_prefill=rel_l2(got[0], ref[0]),
+                            finite=bool(torch.isfinite(got).all()), disagreements=dis))
+    last = (caches, forced[r.max_new - 2], r.prompt_len + r.max_new - 2)
+    torch.cuda.synchronize()
+    ccounts = K.launch_counts()
+    check_exact(ccounts, contig_want("attn", L, len(reqs), steps),
+                 f"contiguous: {len(reqs)} prefills, {steps} decode steps")
+    step_busy = device_busy(lambda: decode(model, *last))
+    for q in per_req:
+        log(f"  request {q['rid']} (prompt {q['prompt_len']}, {q['max_new']} tokens): logits "
+            f"rel-L2 {q['rel_l2']:.3e} (prefill {q['rel_l2_prefill']:.3e}), "
+            f"{len(q['disagreements'])} greedy disagreements"
+            + "".join(f"; at {d['index']}: {d['contiguous']} vs {d['engine']}, top-2 margins "
+                      f"{d['margin']:.4f} (contiguous) {d['engine_margin']:.4f} (engine)"
+                      for d in q["disagreements"]))
+    log(f"  contiguous decode: {step_s / steps * 1e3:.2f} ms a step on the host's clock, "
+        f"one step profiled: device busy {step_busy['busy_ms']:.3f} ms of "
+        f"{step_busy['window_ms']:.3f} (idle {step_busy['idle_share']:.1%}; the plain decode "
+        f"attention over {last[0][0]['k'].shape[1]}-slot caches)")
+    worst = max(q["rel_l2"] for q in per_req)
+    if worst > SERVE_TOL["dense_bf16"] or not all(q["finite"] for q in per_req):
+        raise AssertionError(f"{arch}: contiguous decoding disagrees with the engine: {per_req}")
+    out = dict(
+        n_params=n_params, weight_bytes=weight_bytes,
+        launcher=dict(launches=counts, prefills=prefills, waves=waves, wall_s=wall,
+                      prompts=[r.prompt_len for r in done], max_new=[r.max_new for r in done],
+                      prefill_ms_by_width={str(k): v for k, v in sorted(prefill_ms.items())},
+                      wave_ms=wave_ms, wave_slots=wave_slots, widest_wave_ms=widest_ms,
+                      widest_wave_profile=wave_busy,
+                      weights_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3),
+        contiguous=dict(launches=ccounts, requests=per_req, decode_ms_wall=step_s / steps * 1e3,
+                        decode_step_profile=step_busy, worst_rel_l2=worst,
+                        disagreements=sum(len(q["disagreements"]) for q in per_req),
+                        tokens=steps + len(reqs)),
+    )
+    del eng, model, caches, last, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_example(K, dev) -> dict:
+    """Phase 13 (d): the ported example, llama3.2-1b at full width in f32:
+    the paged engine's tokens against contiguous serving (0 mismatches)."""
+    from repro_torch.examples import serve_lm
+
+    log("python -m repro_torch.examples.serve_lm  (llama3.2-1b, full width, f32)")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    res = serve_lm.main([])  # raises on a token mismatch
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    eng = res["engine"]
+    L = eng.cfg.n_layers
+    steps = sum(len(ref) - 1 for ref in res["refs"].values())
+    check_lm_counts(counts, eng, L, "example: engine + contiguous",
+                    extra=contig_want("attn", L, len(res["refs"]), steps))
+    if res["token_mismatches"] != 0 or eng.cfg.dtype != "float32":
+        raise AssertionError(f"example: {res['token_mismatches']} token mismatches")
+    out = {k: res[k] for k in ("arch", "dtype", "requests", "iterations", "tokens",
+                               "token_mismatches", "leaked_pages", "host_wall_s")}
+    out["launches"] = counts
+    del res, eng
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3318,6 +3832,14 @@ def main() -> int:
     record["mesh_nccl"] = timed("12b mesh_nccl", phase_mesh_nccl, K, dev)
     record["mesh_gloo"] = timed("12c mesh_gloo", phase_mesh_gloo, K, dev)
     record["mesh_dispatch"] = timed("12d mesh_dispatch", phase_mesh_dispatch, dev)
+    for name, cases in timed("13 kernels_serve", phase_kernels_serve, dev).items():
+        record["kernels"][name]["serve13"] = cases
+    record["serve13"] = {
+        "mamba2": timed("13a serve_mamba2", phase_serve_ssm, K, dev),
+        "qwen": timed("13b serve_qwen", phase_serve_dense, K, dev, "qwen2.5-14b", 8),
+        "minicpm": timed("13c serve_minicpm", phase_serve_dense, K, dev, "minicpm-2b", 1),
+        "example": timed("13d example", phase_example, K, dev),
+    }
 
     # launches: each main path's own count, reset to 0 just before that run
     # and read just after (the serving waves of phase 3, the 4 training steps
@@ -3325,8 +3847,10 @@ def main() -> int:
     # steps of phase 8 (b), the 4 dense-LM training steps of phase 9 (b), the
     # SP step of phase 9 (c), the planned launcher of phase 10 (a), the
     # churn leg and resumed step of phase 11 (b), (c), the Shape Benchmark's
-    # calls of phase 12 (a), the NCCL launcher of phase 12 (b) and both
-    # processes of phase 12 (c)); "launches" is their sum
+    # calls of phase 12 (a), the NCCL launcher of phase 12 (b), both
+    # processes of phase 12 (c), and phase 13's Mamba-2 serving, the Qwen and
+    # MiniCPM launchers and contiguous runs, and the example); "launches" is
+    # their sum
     kernels = []
     for name, k in record["kernels"].items():
         by_path = {"serve": record["serve"]["launches"][name],
@@ -3339,7 +3863,13 @@ def main() -> int:
                    "train_resume": record["train_resume"]["launches"][name],
                    "shape_bench": record["shape_bench"]["launches"][name],
                    "train_mesh_nccl": record["mesh_nccl"]["launches"][name],
-                   "train_mesh_gloo": record["mesh_gloo"]["launches"][name]}
+                   "train_mesh_gloo": record["mesh_gloo"]["launches"][name],
+                   "serve_mamba2": record["serve13"]["mamba2"]["launches"][name],
+                   "serve_qwen": record["serve13"]["qwen"]["launcher"]["launches"][name],
+                   "contig_qwen": record["serve13"]["qwen"]["contiguous"]["launches"][name],
+                   "serve_minicpm": record["serve13"]["minicpm"]["launcher"]["launches"][name],
+                   "contig_minicpm": record["serve13"]["minicpm"]["contiguous"]["launches"][name],
+                   "example_llama_f32": record["serve13"]["example"]["launches"][name]}
         kernels.append({"name": name, **{key: k[key] for key in (
             "route", "source", "replaces")}, "launches": sum(by_path.values()),
             "launches_by_path": by_path,

@@ -24,6 +24,12 @@ tree of numpy arrays, with the per-layer entries stacked again, so a test
 compares parameter trees leaf by leaf.  ``jax_keys`` names the JAX leaf
 (its ``/``-joined tree path, the checkpoint store's key) and the stacked
 index of each of the port's parameters, with no copy of their data.
+
+``caches_from_jax`` and ``caches_to_numpy`` carry the LM's decode caches
+(``repro.models.transformer.init_cache`` / ``prefill`` / ``decode_step``)
+across the same way: the JAX ``lead`` / ``blocks.s<i>`` (stacked over
+``n_rep``) / ``tail`` tree against the port's list of one cache dict a
+layer, leaves in their own dtypes (bf16 as raw bits with ``keep_dtype``).
 """
 
 from __future__ import annotations
@@ -168,3 +174,34 @@ def _insert(tree, key: str, leaf) -> None:
     for k in path:
         tree = tree[int(k)] if isinstance(tree, list) else tree.setdefault(k, {})
     tree[last] = leaf
+
+
+def caches_from_jax(cache_np: dict, cfg: ModelConfig, *, device=None) -> list:
+    """The JAX LM's cache tree (numpy leaves) as the port's per-layer list
+    (``repro_torch.models.transformer.init_cache``'s layout)."""
+    device = resolve_device(device)
+    caches = []
+    for where, j in lm_layers(cfg):
+        if where in ("lead", "tail"):
+            caches.append({k: _to_torch(v, device) for k, v in cache_np[where][j].items()})
+        else:
+            caches.append({k: _to_torch(v[j], device)
+                           for k, v in cache_np["blocks"][where].items()})
+    return caches
+
+
+def caches_to_numpy(caches: list, cfg: ModelConfig, *, keep_dtype: bool = False) -> dict:
+    """The port's per-layer caches as the JAX LM's cache tree of numpy
+    arrays, the superblocks' leaves stacked again (bf16 as in
+    :func:`to_numpy_leaf`)."""
+    tree: dict = {"lead": [], "tail": [], "blocks": {}}
+    stacked: dict = {}
+    for (where, _), cache in zip(lm_layers(cfg), caches):
+        leaf = {k: to_numpy_leaf(v, keep_dtype=keep_dtype) for k, v in cache.items()}
+        if where in ("lead", "tail"):
+            tree[where].append(leaf)
+        else:
+            stacked.setdefault(where, []).append(leaf)
+    for where, leaves in stacked.items():
+        tree["blocks"][where] = {k: np.stack([leaf[k] for leaf in leaves]) for k in leaves[0]}
+    return tree

@@ -136,7 +136,7 @@ def ssm_layer_times(model, cfg, tokens) -> dict:
     q = min(cfg.ssm.chunk, tokens.shape[1])
 
     def ssd_fwd():
-        return S.ssd(*leaves, p, q, cfg.ssm.head_dim)
+        return S.ssd(*leaves, p, q, cfg.ssm.head_dim)[0]
 
     def block_fwd():
         return T.apply_block(bp, x, cfg, None, T.kernels, "ssm")[0]

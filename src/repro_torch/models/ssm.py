@@ -1,6 +1,7 @@
-"""Mamba-2 SSD (state-space duality) mixer, chunked training forward: the
-counterpart of ``repro.models.ssm`` (``ssm_params``, ``_causal_conv``,
-``_split_proj``, ``apply_ssm``).
+"""Mamba-2 SSD (state-space duality) mixer: the chunked forward of training
+and prefill, and the recurrent decode step.  The counterpart of
+``repro.models.ssm`` (``ssm_params``, ``_causal_conv``, ``_split_proj``,
+``apply_ssm``, ``ssm_cache_init``, ``apply_ssm_decode``).
 
 Follows arXiv:2405.21060's block decomposition: within a chunk of length Q
 the output is the quadratic "attention-like" form; across chunks a [H, hd,
@@ -13,10 +14,12 @@ Layout (one group, as in the 2.7b config):
   gate:      gated_rms_norm(y, w, z), through the kernel dispatch (K13)
   out_proj:  di -> d_model
 
-The SSD arithmetic (einsums, cumulative sums, ``exp``, the causal conv) is
-plain PyTorch, as the JAX model leaves it to XLA outside any Pallas
-kernel; only the gated norm is a kernel.  The recurrent decode step
-(``ssm_cache_init``, ``apply_ssm_decode``) is not ported yet.
+Decode carries ``{"conv": [B, cw-1, di+2ds] in the model's dtype, "state":
+[B, H, hd, ds] f32}``: the last cw-1 rows of the pre-conv (x, B, C)
+channels and the SSD state.  The SSD arithmetic (einsums, cumulative sums,
+``exp``, the causal conv, the recurrent update) is plain PyTorch, as the
+JAX model leaves it to XLA outside any Pallas kernel; only the gated norm
+is a kernel.
 """
 
 from __future__ import annotations
@@ -78,8 +81,10 @@ def ssd(xs, bmat, cmat, dt, p: SSM, chunk: int, head_dim: int):
     """The chunked SSD scan of one sequence batch, S a multiple of ``chunk``.
 
     xs [B, S, di], bmat and cmat [B, S, ds] (after the conv), dt [B, S, H]
-    (before softplus).  Returns y [B, S, di] in f32, the skip term ``D x``
-    included."""
+    (before softplus).  Returns ``(y [B, S, di] f32, the skip term ``D x``
+    included, h [B, H, hd, ds] f32, the state after the last chunk)``: the
+    inter-chunk recurrence computes h either way; prefill keeps it as the
+    decode cache."""
     bsz, s, di = xs.shape
     ds = bmat.shape[-1]
     nh, hd, q = di // head_dim, head_dim, chunk
@@ -126,7 +131,14 @@ def ssd(xs, bmat, cmat, dt, p: SSM, chunk: int, head_dim: int):
     # inter-chunk contribution: y += exp(cs_t) * C_t · h_in
     y_inter = torch.einsum("bnts,bnhds->bnthd", cm, h_in) * torch.exp(cs)[..., None]
     y = y_intra + y_inter + xh * p.D[None, None, None, :, None]
-    return y.reshape(bsz, s, di)
+    return y.reshape(bsz, s, di), h
+
+
+def _conv_silu(p: SSM, xbc, di: int, ds: int):
+    """The causal conv with its silu over the (x, B, C) channels, split:
+    ``(xs [..., di], bmat [..., ds], cmat [..., ds])``."""
+    xbc = F.silu(_causal_conv(xbc, p.conv_w, p.conv_b))
+    return xbc[..., :di], xbc[..., di : di + ds], xbc[..., di + ds :]
 
 
 def ssd_inputs(p: SSM, x, cfg: SSMConfig):
@@ -136,24 +148,81 @@ def ssd_inputs(p: SSM, x, cfg: SSMConfig):
     inputs."""
     di, ds = cfg.expand * x.shape[-1], cfg.d_state
     z, xbc, dt = _split_proj(x @ p.in_proj, di, ds)
-    xbc = F.silu(_causal_conv(xbc, p.conv_w, p.conv_b))
-    return z, xbc[..., :di], xbc[..., di : di + ds], xbc[..., di + ds :], dt
+    return (z, *_conv_silu(p, xbc, di, ds), dt)
 
 
-def apply_ssm(p: SSM, x, cfg: SSMConfig, ops=kernels):
-    """Chunked SSD forward.  x: [B, S, d_model] -> [B, S, d_model].  The
-    gated norm runs through ``ops.gated_rms_norm`` (the kernel dispatch, or
-    ``kernels.plain``)."""
+def apply_ssm(p: SSM, x, cfg: SSMConfig, ops=kernels, *, return_cache: bool = False):
+    """Chunked SSD forward.  x: [B, S, d_model] -> [B, S, d_model], and with
+    ``return_cache`` the decode cache too: ``(out, {"conv": the last cw-1
+    rows of the pre-conv (x, B, C) channels, "state": the final SSD
+    state})``.  The gated norm runs through ``ops.gated_rms_norm`` (the
+    kernel dispatch, or ``kernels.plain``)."""
     s = x.shape[1]
     q = min(cfg.chunk, s)
     if s % q != 0:
         # pad at the end (causal: padded positions never influence real ones)
         pad = q - s % q
-        return apply_ssm(p, F.pad(x, (0, 0, 0, pad)), cfg, ops)[:, :s]
+        res = apply_ssm(p, F.pad(x, (0, 0, 0, pad)), cfg, ops, return_cache=return_cache)
+        if return_cache:
+            # as in the reference: the cache is the padded sequence's (its conv
+            # window and state have run over the padding), which is wrong for
+            # decode; prefill callers use chunk-aligned lengths
+            return res[0][:, :s], res[1]
+        return res[:, :s]
 
-    z, xs, bmat, cmat, dt = ssd_inputs(p, x, cfg)
-    y = ssd(xs, bmat, cmat, dt, p, q, cfg.head_dim).to(x.dtype)
+    di, ds = cfg.expand * x.shape[-1], cfg.d_state
+    z, xbc, dt = _split_proj(x @ p.in_proj, di, ds)
+    xs, bmat, cmat = _conv_silu(p, xbc, di, ds)
+    y, h_final = ssd(xs, bmat, cmat, dt, p, q, cfg.head_dim)
 
     # Gate + Norm fusion (paper §4.4) then output projection
-    y = ops.gated_rms_norm(y, p.norm_w, z)
-    return y @ p.out_proj
+    y = ops.gated_rms_norm(y.to(x.dtype), p.norm_w, z)
+    out = y @ p.out_proj
+    if not return_cache:
+        return out
+    # the last cw-1 rows (the conv above takes no shorter sequence), copied
+    # so the cache does not hold the whole projection alive
+    return out, {"conv": xbc[:, -(cfg.conv_width - 1):].contiguous(), "state": h_final}
+
+
+def ssm_cache_init(batch: int, d_model: int, cfg: SSMConfig, dtype, device) -> dict:
+    """Zero decode caches: conv [B, cw-1, di+2ds] in ``dtype``, state [B, H,
+    hd, ds] f32."""
+    di = cfg.expand * d_model
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, di + 2 * cfg.d_state), dtype=dtype,
+                            device=device),
+        "state": torch.zeros((batch, di // cfg.head_dim, cfg.head_dim, cfg.d_state),
+                             dtype=torch.float32, device=device),
+    }
+
+
+def apply_ssm_decode(p: SSM, x, cache: dict, cfg: SSMConfig, ops=kernels):
+    """Single-token recurrent update.  x: [B, 1, d_model] -> ``(out [B, 1,
+    d_model], new cache)``.  The conv window and the state update run in
+    f32; the gate is the z slice of the projection (a strided view), through
+    ``ops.gated_rms_norm``."""
+    bsz, _, d_model = x.shape
+    di, ds = cfg.expand * d_model, cfg.d_state
+    hd = cfg.head_dim
+    nh = di // hd
+
+    z, xbc, dt = _split_proj((x @ p.in_proj)[:, 0], di, ds)  # [B, *]
+
+    # conv cache: window = [cache, current]
+    win = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)  # [B, cw, C]
+    conv_out = torch.einsum("bwc,wc->bc", win.float(), p.conv_w.float())
+    xbc_c = F.silu(conv_out + p.conv_b.float()).to(x.dtype)
+    xs, bm, cm = xbc_c[..., :di], xbc_c[..., di : di + ds], xbc_c[..., di + ds :]
+
+    dtv = F.softplus(dt.float() + p.dt_bias)  # [B, H]
+    dec = torch.exp(dtv * -torch.exp(p.A_log))  # [B, H]
+    xh = xs.reshape(bsz, nh, hd).float()
+    # the reference's einsum "bh,bs,bhd->bhds" (products only, no sum) as
+    # broadcasts: a three-operand einsum searches its contraction path on
+    # the host at every call
+    dbx = (dtv[..., None] * xh)[..., None] * bm.float()[:, None, None, :]  # [B, H, hd, ds]
+    h = cache["state"] * dec[..., None, None] + dbx
+    y = torch.einsum("bs,bhds->bhd", cm.float(), h) + xh * p.D[None, :, None]
+    y = ops.gated_rms_norm(y.reshape(bsz, 1, di).to(x.dtype), p.norm_w, z[:, None, :])
+    return y @ p.out_proj, {"conv": win[:, 1:], "state": h}

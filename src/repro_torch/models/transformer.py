@@ -1,5 +1,6 @@
-"""Decoder-only LM: global-attention blocks for serving over a paged KV
-cache, and Mamba-2 blocks for training.
+"""Decoder-only LM: global-attention blocks and Mamba-2 blocks, trained,
+served over a paged KV cache (attention blocks) or served from contiguous
+per-layer caches (both kinds).
 
 The counterpart of ``repro.models.transformer`` for global-attention
 transformer blocks (``"attn"``) and SSD mixer blocks (``"ssm"``: ``norm1``
@@ -14,30 +15,39 @@ Entry points:
 
 * :meth:`Transformer.forward` — the full-sequence forward, each block
   optionally recomputed in the backward (``remat``, training), or
-  collecting each layer's k and v (prefill); packed windows pass
+  collecting each layer's decode cache (prefill); packed windows pass
   ``segment_ids`` (attention scoped to each document, RoPE restarting at
   each), and a sequence-parallel shard passes its ring ``seq_group`` and
   the whole window's ``positions``;
 * :func:`lm_loss` — the chunked next-token cross-entropy (training);
+* :func:`prefill` and :func:`decode_step` — contiguous serving: prompts
+  of one length through ``forward``, their caches grown to a capacity
+  (:func:`init_cache` gives zero ones), then one new token per row at a
+  position ``pos`` that every row shares, a Python int, so decoding never
+  waits on the device for an index;
 * :func:`paged_prefill` — prompts through ``forward``, their k and v
   scattered into pool pages, logits at each prompt's last true token;
 * :func:`paged_decode_step` — one decode wave, one new token per slot,
   every slot at its own depth (``kv_lens``), its k and v written into the
   slot's current page before the paged attention.
 
-The pools (:func:`init_paged_pools`: one k and one v pool per layer,
+Caches are one dict per layer, in a list: ``{"k", "v"}`` [B, cap, Hkv,
+dh] for an attention layer, ``{"conv", "state"}`` for a Mamba-2 layer
+(``convert.caches_to_numpy`` gives the JAX tree).  Attention caches and the
+pools (:func:`init_paged_pools`: one k and one v pool per layer,
 ``[num_pages + 1, page_size, Hkv, dh]``, the last page a scratch sink) are
-updated in place with ``index_copy_``, where the JAX model builds new
-arrays with ``.at[].set``: prefill and decode return the pools they were
-given.  Paged serving takes ``"attn"`` blocks only, as the reference's
-``_paged_kinds`` takes attention kinds only; the SSM's recurrent decode is
-not ported.  Other block kinds (MoE, RG-LRU, local, cross) raise: they
-come with their slices of the port.
+updated in place, where the JAX model builds new arrays with
+``dynamic_update_slice`` and ``.at[].set``: the decode steps return the
+caches and pools they were given (a Mamba-2 layer's cache is new each
+step).  Paged serving takes ``"attn"`` blocks only, as the reference's
+``_paged_kinds`` takes attention kinds only.  Other block kinds (MoE,
+RG-LRU, local, cross) raise: they come with their slices of the port.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -57,7 +67,8 @@ from .layers import (
     last_token_logits,
     segment_relative_positions,
 )
-from .ssm import SSM, apply_ssm
+from .attention import decode_attention, repeat_kv
+from .ssm import SSM, apply_ssm, apply_ssm_decode, ssm_cache_init
 
 KINDS = ("attn", "ssm")  # the block kinds ported so far
 PAGED_KINDS = ("attn",)  # the kinds paged serving takes
@@ -166,10 +177,12 @@ class Transformer(nn.Module):
     def forward(self, tokens, *, collect_cache: bool = False, ops: str = "kernel",
                 remat: bool = False, segment_ids=None, positions=None, seq_group=None):
         """Token ids [B, S] -> ``(hidden [B, S, d] after the final norm,
-        caches)``: with ``collect_cache``, one ``{"k", "v"}`` [B, S, Hkv,
-        dh] per layer (k after RoPE), else None.  ``remat`` recomputes each
-        block in the backward (``torch.utils.checkpoint``, the reference's
-        per-superblock ``jax.checkpoint``), as training does.
+        caches)``: with ``collect_cache``, one decode cache per layer
+        (``{"k", "v"}`` [B, S, Hkv, dh], k after RoPE, for an attention
+        layer; the SSM's ``{"conv", "state"}``), else None.  ``remat``
+        recomputes each block in the backward (``torch.utils.checkpoint``,
+        the reference's per-superblock ``jax.checkpoint``), as training
+        does.
 
         ``segment_ids`` [B, S] int32 (packed windows, -1 = padding) scope
         attention to each document, and RoPE restarts at each document
@@ -180,8 +193,6 @@ class Transformer(nn.Module):
         shard they would restart at the shard boundary."""
         K = _ops(ops)
         cfg = self.cfg
-        if collect_cache:
-            _paged_kinds(cfg)
         if seq_group is not None and positions is None:
             raise ValueError(
                 "sequence-parallel forward needs globally computed positions "
@@ -252,6 +263,9 @@ def apply_block(bp: Block | SSMBlock, x, cfg: ModelConfig, positions, K, kind: s
         )
     h = apply_norm(bp.norm1, x, cfg.norm, cfg.norm_eps, K)
     if kind == "ssm":
+        if collect_cache:
+            out, cache = apply_ssm(bp.mixer, h, cfg.ssm, K, return_cache=True)
+            return x + out, cache
         return x + apply_ssm(bp.mixer, h, cfg.ssm, K), None
     out, (k, v) = _self_attn_full(bp.attn, h, cfg, positions, K, segment_ids=segment_ids,
                                   seq_group=seq_group)
@@ -296,6 +310,105 @@ def decays(cfg: ModelConfig):
         return p.ndim + extra >= 2
 
     return decay
+
+
+# --------------------------------------------------------------------------
+# contiguous caches: prefill and decode
+# --------------------------------------------------------------------------
+
+
+def kind_cache_init(kind: str, batch: int, cap: int, cfg: ModelConfig, *, device) -> dict:
+    """One layer's zero decode cache: k and v [B, cap, Hkv, dh] in the
+    model's dtype (``"attn"``), or the SSM's conv window and state
+    (``"ssm"``)."""
+    dt = DTYPES[cfg.dtype]
+    if kind == "attn":
+        shape = (batch, cap, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+    if kind == "ssm":
+        return ssm_cache_init(batch, cfg.d_model, cfg.ssm, dt, device)
+    raise ValueError(kind)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cap: int, *, device=None) -> list:
+    """Zero decode caches, one per layer, for ``batch`` rows of up to
+    ``cap`` tokens."""
+    device = resolve_device(device)
+    return [kind_cache_init(k, batch, cap, cfg, device=device) for k in _model_kinds(cfg)]
+
+
+def _pad_attn_caches(caches: list, cfg: ModelConfig, cap: int) -> list:
+    """Grow the attention layers' k and v along the sequence to ``cap``
+    (never shorter: a longer prompt keeps its length)."""
+    out = []
+    for c, kind in zip(caches, cfg.layer_kinds()):
+        s = c["k"].shape[1] if kind == "attn" else cap
+        if s < cap:
+            pad = (0, 0, 0, 0, 0, cap - s)
+            c = {"k": F.pad(c["k"], pad), "v": F.pad(c["v"], pad)}
+        out.append(c)
+    return out
+
+
+def prefill(model: Transformer, tokens, cache_cap: int, *, ops: str = "kernel"):
+    """Run the prompts tokens [B, S] (one length: the logits are at the
+    last position of every row).  Returns ``(logits [B, V] f32, caches)``,
+    the attention caches grown to ``cache_cap`` positions."""
+    h, caches = model(tokens, collect_cache=True, ops=ops)
+    return last_token_logits(h[:, -1], model.embed), _pad_attn_caches(caches, model.cfg,
+                                                                      cache_cap)
+
+
+def apply_block_decode(bp: Block | SSMBlock, x, cfg: ModelConfig, cache: dict, pos: int, K,
+                       kind: str = "attn"):
+    """One block for one new token per row at position ``pos``.  Returns
+    ``(x, cache)``: an attention layer's k and v are written at ``pos`` in
+    place before attending over ``pos + 1`` positions; a Mamba-2 layer's
+    cache is new."""
+    h = apply_norm(bp.norm1, x, cfg.norm, cfg.norm_eps, K)
+    if kind == "ssm":
+        out, cache = apply_ssm_decode(bp.mixer, h, cache, cfg.ssm, K)
+        return x + out, cache
+    if kind != "attn":
+        raise ValueError(kind)
+    b = x.shape[0]
+    q, k, v = _project_qkv(bp.attn, h, cfg, K)
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k = apply_rope(k, posv, cfg.rope_theta)
+    kc, vc = cache["k"], cache["v"]
+    kc[:, pos] = k[:, 0].to(kc.dtype)
+    vc[:, pos] = v[:, 0].to(vc.dtype)
+    g = cfg.n_heads // cfg.n_kv_heads
+    ctx = decode_attention(q, repeat_kv(kc, g), repeat_kv(vc, g), pos + 1)
+    x = x + ctx.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ bp.attn.wo
+    h2 = apply_norm(bp.norm2, x, cfg.norm, cfg.norm_eps, K)
+    return x + apply_mlp(bp.mlp, h2), cache
+
+
+def decode_step(model: Transformer, caches: list, token, pos: int, *, ops: str = "kernel"):
+    """One new token per row: token [B, 1] at position ``pos``, a Python
+    int that every row shares.  Returns ``(logits [B, V] f32, caches)``.
+
+    Raises where ``pos`` is not below an attention cache's length: JAX's
+    ``dynamic_update_slice`` would clamp the write to the last slot and
+    overwrite it."""
+    if isinstance(pos, torch.Tensor):
+        raise TypeError("decode_step takes pos as a Python int (the host never reads it back)")
+    for c, kind in zip(caches, model.kinds):
+        if kind == "attn" and not 0 <= pos < c["k"].shape[1]:
+            raise ValueError(f"decode_step: position {pos} is outside the attention cache's "
+                             f"{c['k'].shape[1]} positions")
+    K = _ops(ops)
+    cfg = model.cfg
+    x = model.embed[token.long()]
+    new = []
+    for bp, kind, c in zip(model.blocks, model.kinds, caches):
+        x, c = apply_block_decode(bp, x, cfg, c, pos, K, kind)
+        new.append(c)
+    x = apply_norm(model.final_norm, x, cfg.norm, cfg.norm_eps, K)
+    return last_token_logits(x[:, -1], model.embed), new
 
 
 # --------------------------------------------------------------------------
@@ -401,6 +514,7 @@ def paged_prefill(model: Transformer, tokens, true_len, page_table, pools: list,
     entries past a request's allocation) and is masked by ``kv_lens``
     forever after.
     """
+    _paged_kinds(model.cfg)
     ps = pools[0]["k"].shape[1]
     s = tokens.shape[1]
     if s % ps != 0:

@@ -3,7 +3,10 @@ training the mmdit, dense and ssm families and for serving the mmdit and
 the dense LM.
 
 Diffusion serving needs a denoise step (one velocity evaluation, the unit
-of diffusion sampling); LM serving a paged prefill and a paged decode wave.
+of diffusion sampling); LM serving a paged prefill and a paged decode wave
+(continuous batching, attention LMs), or a contiguous prefill and decode
+step (one batch of equal-length prompts at one position; attention and
+Mamba-2 LMs, and the yardstick paged serving is held to).
 Training needs the state, the loss (the rectified-flow loss, or the LM
 loss of ``tokens`` against ``labels``, packed windows with their
 ``segment_ids``), the pool microbatch's gradient step, the one-batch train
@@ -232,6 +235,32 @@ def make_denoise_step(cfg: ModelConfig) -> Callable:
 def _lm_only(cfg: ModelConfig, what: str) -> None:
     if cfg.family == "mmdit":
         raise ValueError(f"{what} needs an LM config, got {cfg.family!r}")
+
+
+def make_prefill_step(cfg: ModelConfig, cache_cap: int) -> Callable:
+    """Contiguous prefill without autograd state: run the prompts [B, S]
+    (one length) and return ``(logits at the last position [B, V] f32,
+    caches)``, the attention caches grown to ``cache_cap`` positions."""
+    _lm_only(cfg, "prefill")
+
+    def prefill_step(model, tokens):
+        with torch.inference_mode():
+            return T.prefill(model, tokens, cache_cap)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    """One contiguous decode step without autograd state: token [B, 1] at
+    position ``pos`` (a Python int every row shares).  Returns ``(logits
+    [B, V] f32, caches)``, the attention caches updated in place."""
+    _lm_only(cfg, "decode")
+
+    def decode_step(model, caches, token, pos: int):
+        with torch.inference_mode():
+            return T.decode_step(model, caches, token, pos)
+
+    return decode_step
 
 
 def make_paged_prefill_step(cfg: ModelConfig) -> Callable:

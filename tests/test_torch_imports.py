@@ -38,7 +38,7 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.checkpoint.store, repro_torch.distributed.chaos\n"
         "import repro_torch.distributed.fault_tolerance, repro_torch.train.loop\n"
         "import repro_torch.core.shape_bench, repro_torch.distributed.plan_exec\n"
-        "import repro_torch.launch.mesh\n"
+        "import repro_torch.launch.mesh, repro_torch.examples.serve_lm\n"
         "from repro_torch.train.engine import MeshEngine\n"
         "from repro_torch.train.loop import Trainer; Trainer.__init__\n"
         "from repro_torch.distributed.fault_tolerance import RankZeroRunner\n"

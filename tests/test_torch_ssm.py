@@ -436,8 +436,11 @@ def test_paged_serving_refuses_ssm_blocks_and_the_layer_plan_matches():
     with pytest.raises(ValueError, match="paged serving"):
         T.init_paged_pools(cfg, 8, 16, device="cpu")
     model = T.Transformer(cfg, device="cpu")
+    pools = [{"k": torch.zeros(3, 8, 8, 16), "v": torch.zeros(3, 8, 8, 16)}] * cfg.n_layers
     with pytest.raises(ValueError, match="paged serving"):
-        model(torch.zeros(1, 16, dtype=torch.int32), collect_cache=True)
+        T.paged_prefill(model, torch.zeros(1, 16, dtype=torch.int32),
+                        torch.tensor([16], dtype=torch.int32), torch.zeros(1, 2, dtype=torch.int32),
+                        pools)
     kw = dict(name="t", family="hybrid", n_layers=5, d_model=64, n_heads=4, n_kv_heads=4,
               head_dim=16, d_ff=128, vocab=64, pattern=("ssm", "attn"),
               ssm=torch_mamba.smoke_config().ssm)
