@@ -160,6 +160,24 @@ Phases, any failure of which exits non-zero with no result line:
    layers) the same with one contiguous request; (d) the ported example
    ``repro_torch.examples.serve_lm``, llama3.2-1b at full width in f32:
    0 token mismatches against contiguous serving, exact launch counts.
+14. RecurrentGemma-9B (RG-LRU and local-attention blocks, bf16, seed 0):
+   first K4 rows at d 4096 (training rows [8192, 4096], the prefill's [4,
+   3000, 4096], the decode step's [4, 1, 4096]) and K5, K6 on rows at
+   [8192, 4096] against their plain versions (K6 also bitwise against a
+   second run), timed; (a) 9 of its 38 layers at full width: 4
+   ``Trainer`` steps on ``EmulatedEngine``, 3 of B 2 x S 4096 unpacked
+   rows and one of 2 packed windows of 4096 (documents of 300-3000 tokens,
+   segment ids): exact launch counts (K4 rows 4L+1, K5 and K6 2L+1 a
+   microbatch), step ms (CUDA events), tokens/s, peak memory; then at 3
+   layers the kernel loss and every gradient against ``ops="plain"`` on
+   both kinds of batch (loss 1e-4, gradients rel-L2 5e-2); (b) all 38
+   layers prefill 4 prompts of 3000 tokens (above the window, not a
+   multiple of it) and decode 64 greedy steps, so the local rings wrap:
+   exact launch counts (K4 rows 2L+1 a call), the caches' bytes (exactly
+   105,021,440), the rings' positions, prefill ms, decode ms a step, one
+   step profiled, tokens/s; the logits against ``ops="plain"``
+   teacher-forced (rel-L2 0.1) and against one forward over the 3064
+   tokens (0.25); (c) 6 layers in f32, 40 decode steps against the forward (1e-4).
 
 Phase 2 also holds K4 on model rows (x [1, 2048, 2048] and [8, 1, 2048]
 bf16) and K12 (the decode wave of phase 6; 64 slots with kv_lens up to
@@ -184,8 +202,9 @@ training steps of phase 9 (b), the SP step of phase 9 (c), the planned
 launcher of phase 10 (a), the churn leg and resumed step of phase 11 (b),
 (c), the Shape Benchmark's calls, the NCCL launcher and the gloo processes
 of phase 12, and phase 13's Mamba-2 serving, Qwen2.5-14B's and
-MiniCPM-2B's launchers and contiguous runs, and the example
-(``launches_by_path``); ``launches`` is their sum.
+MiniCPM-2B's launchers and contiguous runs, and the example, and phase
+14's RecurrentGemma training steps and serving (``launches_by_path``);
+``launches`` is their sum.
 
 Each phase's wall seconds go to the log and to the record (``phase_s``).
 Prints the kernels' JSON record on the line before the last and, as the
@@ -198,6 +217,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import gc
 import importlib
 import itertools
 import json
@@ -3280,15 +3300,27 @@ SSM_F32_NEW = 8  # phase 13 (a): decode steps of the f32 check at full depth
 #   another order) differ by 5e-2 and the decode against the forward by up
 #   to 1.2e-1 after 32 steps (the state carries them; PERF.md); 0.25 is
 #   twice that;
+# - hybrid_bf16: RecurrentGemma-9B, 38 layers (phase 14), the decode
+#   against the forward: the prefill's RG-LRU conv sums its 4 taps in bf16
+#   and the decode's in f32, and the recurrent layers carry the differences
+#   as Mamba-2's do; read 6.7e-2 after 64 steps (PERF.md), so Mamba-2's
+#   0.25;
+# - hybrid_kernels_bf16: the same model, the kernels against their plain
+#   versions on the same tokens (only the norms' f32 sums differ): read
+#   3.5e-2 (prefill) and 4.2e-2 (decode) (PERF.md), so 0.1;
 # - f32, the whole 64-layer Mamba-2 again: only the order of f32 sums
 #   differs (2^-24 amplified as above gives about 1e-6), so 1e-4 holds the
 #   decode to the forward tightly, and bf16 anywhere would fail it.
-SERVE_TOL = {"dense_bf16": 5e-2, "ssm_bf16": 0.25, "f32": 1e-4}
+SERVE_TOL = {"dense_bf16": 5e-2, "ssm_bf16": 0.25, "hybrid_bf16": 0.25,
+             "hybrid_kernels_bf16": 0.1, "f32": 1e-4}
 CONTIG_PER_CALL = {  # launches of one contiguous prefill and one decode step, per layer L
     "attn": {"prefill": lambda L: {"rms_fwd": 2 * L + 1, "flash_fwd": L},
              "step": lambda L: {"rms_fwd": 2 * L + 1}},
     "ssm": {"prefill": lambda L: {"rms_fwd": L + 1, "gated_rms_fwd": L},
             "step": lambda L: {"rms_fwd": L + 1, "gated_rms_fwd": L}},
+    # RG-LRU and local blocks: norm1 and norm2 a layer, the final norm
+    "hybrid": {"prefill": lambda L: {"rms_fwd": 2 * L + 1},
+               "step": lambda L: {"rms_fwd": 2 * L + 1}},
 }
 
 
@@ -3746,6 +3778,357 @@ def phase_example(K, dev) -> dict:
     return out
 
 
+# -- phase 14: RecurrentGemma-9B (RG-LRU and local attention), trained and served -------
+
+HYB_ARCH = "recurrentgemma-9b"
+HYB_TRAIN_LAYERS = 9  # phase 14 (a): 3 of the 12 superblocks (3.02 B parameters)
+HYB_B, HYB_S = 2, 4096  # phase 14 (a): two windows of 2048, so the chunked branch runs
+HYB_STEPS = 4  # phase 14 (a): 3 unpacked steps, then one packed microbatch
+HYB_SERVE_B, HYB_SERVE_S, HYB_SERVE_NEW = 4, 3000, 64  # phase 14 (b): prompts, decode steps
+HYB_F32_LAYERS, HYB_F32_NEW = 6, 40  # phase 14 (c): 2 superblocks in f32
+# phase 14 (a)'s 3-layer check, kernels against plain: the loss (read
+# 3.0e-7 and 0; only the norms' f32 sums differ) and every gradient's
+# rel-L2 (read 9.6e-3, the embedding's) (PERF.md)
+HYB_LOSS_TOL, HYB_GRAD_TOL = 1e-4, 5e-2
+HYB_CACHE_BYTES = 105_021_440  # 26 RG-LRU layers x 163,840 + 12 local rings x 8,396,800 (B 4)
+
+
+def per_microbatch_hybrid(n_layers: int) -> dict[str, int]:
+    """Launches of one RecurrentGemma training microbatch of n_layers
+    blocks with per-block recompute: each block's norm1 and norm2 (K4 on
+    rows) run twice (forward, then again in the backward), the final norm
+    once; K5 and K6 on rows once per norm.  The RG-LRU and local attention
+    are plain PyTorch (the reference runs them outside Pallas)."""
+    L = n_layers
+    return {"rms_fwd": 4 * L + 1, "rms_bwd_dx": 2 * L + 1, "rms_bwd_dw": 2 * L + 1}
+
+
+def phase_kernels_hybrid(dev) -> dict:
+    """Phase 14, K4, K5 and K6 on rows at RecurrentGemma's d 4096 against
+    their plain versions, timed: the training rows (B 2 x S 4096), the
+    prefill's (4 x 3000) and the decode step's (4 rows)."""
+    from repro_torch.kernels.fused_rmsnorm.ref import rms_bwd_ref, rms_norm_ref
+    from repro_torch.kernels.fused_rmsnorm.rmsnorm import rms_bwd_dw, rms_bwd_dx, rms_fwd
+
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(dtype)
+
+    def report(name, t):
+        log(f"  {name}: ms {t['ms']:.4f}  plain {t['plain_ms']:.4f}  library {t['library_ms']:.4f}"
+            f"  bound {t['bound_ms']:.4f} ({t['bound_by']}, {t['bytes'] / 1e6:.3f} MB)  share "
+            f"{t['bound_ms'] / t['ms']:.1%}")
+
+    d = 4096
+    out = {"rms_fwd": {}, "rms_bwd_dx": {}, "rms_bwd_dw": {}}
+    log(f"K4 rms_fwd (rows) bf16 at d {d}: training [{HYB_B * HYB_S}, {d}], prefill "
+        f"[{HYB_SERVE_B}, {HYB_SERVE_S}, {d}], decode [{HYB_SERVE_B}, 1, {d}]")
+    for nm, shape in (("train", (HYB_B * HYB_S, d)), ("prefill", (HYB_SERVE_B, HYB_SERVE_S, d)),
+                      ("decode", (HYB_SERVE_B, 1, d))):
+        x, w = randn(*shape, dtype=torch.bfloat16, scale=2.0, shift=0.3), randn(d, scale=0.1, shift=1.0)
+        (y, r), (yr, rr) = rms_fwd(x, w), rms_norm_ref(x, w)
+        torch.cuda.synchronize()
+        err = max_err(y, yr)
+        check(f"K4 rows y {nm}", err, TOL["norm_bf16"])
+        check(f"K4 rows rstd {nm}", max_err(r, rr), TOL["stat"])
+        wl = w.to(x.dtype)
+        t = dict(shape=list(shape), max_abs_err=err, ms=device_ms(lambda: rms_fwd(x, w), 20),
+                 plain_ms=device_ms(lambda: rms_norm_ref(x, w), 5),
+                 # yardstick only, never on the port's path: the library norm
+                 library_ms=device_ms(lambda: F.rms_norm(x, (d,), wl, 1e-6), 20),
+                 bytes=2 * x.numel() * 2 + x.numel() // d * 4 + d * 4, flops=4 * x.numel())
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], F32_FLOPS)
+        out["rms_fwd"][nm] = t
+        report(f"K4 rows {nm}", t)
+        del x, y, yr
+
+    n = HYB_B * HYB_S
+    log(f"K5 rms_bwd_dx, K6 rms_bwd_dw (rows)  dy, x [{n}, {d}] bf16, w [{d}] f32, rstd of the "
+        f"plain forward")
+    xs, ws = randn(n, d, dtype=torch.bfloat16, scale=2.0, shift=0.3), randn(d, scale=0.1, shift=1.0)
+    rs = rms_norm_ref(xs, ws)[1]
+    dys = randn(n, d, dtype=torch.bfloat16)
+    dxr, dwr = rms_bwd_ref(dys, xs, ws, rs)
+    k5_err = check_rel(f"K5 rows dx [{n}, {d}]", rms_bwd_dx(dys, xs, ws, rs), dxr,
+                       BWD_TOL["grad_bf16"])
+    dw = rms_bwd_dw(dys, xs, rs)
+    k6_err = check_rel(f"K6 rows dw [{n}, {d}]", dw, dwr, BWD_TOL["sum_f32"])
+    if not torch.equal(dw, rms_bwd_dw(dys, xs, rs)):
+        raise AssertionError("K6 on rows is not bitwise deterministic at d 4096")
+    log("  K6 rows: a second run is bitwise equal")
+    # yardstick only, never on the port's path: the library norm's backward
+    leaves = [xs.detach().requires_grad_(), ws.bfloat16().detach().requires_grad_()]
+    yl = F.rms_norm(leaves[0], (d,), leaves[1], 1e-6)
+    plain_ms = device_ms(lambda: rms_bwd_ref(dys, xs, ws, rs), 5)
+    for name, fn, err, lib, nbytes, flops in (
+            ("rms_bwd_dx", lambda: rms_bwd_dx(dys, xs, ws, rs), k5_err, leaves[:1],
+             3 * n * d * 2 + n * 4 + d * 4, 6 * n * d),
+            ("rms_bwd_dw", lambda: rms_bwd_dw(dys, xs, rs), k6_err, leaves[1:],
+             2 * n * d * 2 + n * 4 + d * 4, 3 * n * d)):
+        t = dict(shape=[n, d], max_abs_err=err, ms=device_ms(fn, 20), plain_ms=plain_ms,
+                 library_ms=cuda_ms(lambda: torch.autograd.grad(yl, lib, dys, retain_graph=True),
+                                    10),
+                 bytes=nbytes, flops=flops)
+        t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
+        out[name]["train"] = t
+        report(f"{'K5' if name == 'rms_bwd_dx' else 'K6'} rows train", t)
+    del xs, dys, leaves, yl, dxr, dwr
+    return out
+
+
+def hybrid_packed_batch(cfg, dev, seed: int = 14) -> dict:
+    """One microbatch of HYB_B packed windows of HYB_S tokens holding
+    documents of 300-3000 tokens (segment ids, -1 on any padding)."""
+    from repro_torch.data.pipeline import materialize_packed_windows, to_device
+
+    lengths = np.random.default_rng(seed).integers(300, 3001, size=16)
+    mbs = materialize_packed_windows(lengths, window=HYB_S, vocab=cfg.vocab, batch_windows=HYB_B,
+                                     seed=seed)
+    if mbs[0]["tokens"].shape[0] != HYB_B:
+        raise AssertionError("the documents packed into fewer windows than a microbatch holds")
+    return to_device({k: mbs[0][k] for k in ("tokens", "labels", "segment_ids")}, dev)
+
+
+def phase_train_hybrid(K, dev) -> dict:
+    """Phase 14 (a): RecurrentGemma-9B training at full width and 9 of its
+    38 layers (3 superblocks): 4 ``Trainer`` steps on ``EmulatedEngine``
+    (3 of B 2 x S 4096 unpacked rows, one of 2 packed windows of 4096), exact
+    launch counts, step time, tokens/s and peak memory; then at 3 layers the
+    kernel loss and every gradient against ``ops="plain"`` on both kinds of
+    batch."""
+    import types
+
+    from repro_torch.configs.registry import get_config, get_optimizer
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models.transformer import Transformer, lm_loss
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.engine import EmulatedEngine
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.steps import init_state
+
+    out = {}
+    full = get_config(HYB_ARCH)
+    cfg = dataclasses.replace(full, n_layers=HYB_TRAIN_LAYERS)
+    opt = OptimizerConfig(peak_lr=get_optimizer(HYB_ARCH).peak_lr, schedule="constant",
+                          warmup=0, total_steps=HYB_STEPS)
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["model"].parameters())
+    rng = np.random.default_rng(0)
+    packed = hybrid_packed_batch(cfg, dev)
+    docs = int((packed["segment_ids"].max(dim=1).values + 1).sum())
+    pad = int((packed["segment_ids"] < 0).sum())
+    log(f"(a) Trainer on EmulatedEngine, {cfg.name}: {cfg.n_layers} of {full.n_layers} layers "
+        f"({cfg.layer_kinds()}), d {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} over "
+        f"{cfg.n_kv_heads}, window {cfg.local_window}, vocab {cfg.vocab}, bf16, "
+        f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s; steps 0-2 B "
+        f"{HYB_B} x S {HYB_S} unpacked, step 3 {HYB_B} packed windows of {HYB_S} ({docs} "
+        f"documents of 300-3000 tokens, {pad} padding slots)")
+    bucket = types.SimpleNamespace(batch_size=HYB_B, seq_len=HYB_S, tokens=HYB_B * HYB_S)
+    batches = [make_lm_batch(int(rng.integers(2**31)), HYB_B, HYB_S, cfg.vocab, cfg, dev)
+               for _ in range(HYB_STEPS - 1)] + [packed]
+    stream = iter([[(bucket, b)] for b in batches])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    state, hist = Trainer(cfg, opt, engine=EmulatedEngine(cfg, opt)).run(
+        state, stream, HYB_STEPS, rng=1, log_every=1)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not np.isfinite(hist.losses).all():
+        raise AssertionError(f"a loss is not finite: {hist.losses}")
+    bad = [n for n, prm in state["model"].named_parameters() if not torch.isfinite(prm).all()]
+    if bad or state["step"] != HYB_STEPS:
+        raise AssertionError(f"parameters not finite after the updates: {bad[:5]}")
+    check_counts(counts, sum(hist.microbatches), cfg.n_layers, "training", per_microbatch_hybrid)
+    steady = [i for i in range(HYB_STEPS) if i not in hist.compile_steps]
+    if not steady:
+        raise AssertionError("every step ran a new batch signature: no steady step")
+    step_ms = [1e3 * t for t in hist.step_times]
+    steady_ms = float(np.mean([step_ms[i] for i in steady]))
+    for i, (ms, tok) in enumerate(zip(step_ms, hist.tokens)):
+        log(f"  step {i}: {tok} tokens, {ms:.1f} ms, loss {hist.losses[i]:.4f}"
+            f"{'  (first signature)' if i in hist.compile_steps else ''}")
+    log(f"  steady step {steady_ms:.1f} ms (steps {steady}), {hist.throughput:,.0f} tokens/s, "
+        f"peak memory {peak:.2f} GiB, events {hist.events}")
+    out["train"] = dict(
+        n_params=n_params, documents=docs, padding=pad, losses=hist.losses, step_ms=step_ms,
+        tokens=hist.tokens, events=hist.events, steady_steps=steady, steady_step_ms=steady_ms,
+        tokens_per_s=hist.throughput, peak_gib=peak, launches=counts,
+        per_microbatch=per_microbatch_hybrid(cfg.n_layers),
+    )
+    state["opt"] = None
+    del state, hist, stream, batches
+    torch.cuda.empty_cache()
+
+    # one superblock at full width: kernel loss and gradients against the
+    # plain versions', unpacked rows and the packed windows
+    cfg3 = dataclasses.replace(full, n_layers=3)
+    model = Transformer(cfg3, seed=1, device=dev)
+    out["grad_check"] = []
+    for what, batch in (("unpacked B 1 x S 4096", make_lm_batch(5, 1, HYB_S, cfg3.vocab, cfg3, dev)),
+                        (f"packed {HYB_B} x {HYB_S}", packed)):
+        res = {}
+        for ops in ("kernel", "plain"):
+            model.zero_grad(set_to_none=True)
+            loss = lm_loss(model, batch["tokens"], batch["labels"], ops=ops,
+                           segment_ids=batch.get("segment_ids"))
+            loss.backward()
+            res[ops] = (loss.item(), {n: prm.grad.clone() for n, prm in model.named_parameters()})
+        loss_rel = abs(res["kernel"][0] - res["plain"][0]) / abs(res["plain"][0])
+        rels = {n: rel_l2(res["kernel"][1][n], gp) for n, gp in res["plain"][1].items()}
+        worst = max(rels, key=rels.get)
+        log(f"  3 layers, full width, bf16, {what}: loss {res['kernel'][0]:.6f} kernel vs "
+            f"{res['plain'][0]:.6f} plain (rel {loss_rel:.2e}, tol {HYB_LOSS_TOL}); largest "
+            f"gradient rel-L2 {rels[worst]:.3e} ({worst}, tol {HYB_GRAD_TOL})")
+        if not (np.isfinite(res["kernel"][0]) and loss_rel <= HYB_LOSS_TOL
+                and rels[worst] <= HYB_GRAD_TOL):
+            raise AssertionError("kernel training gradients disagree with the plain versions'")
+        out["grad_check"].append(dict(batch=what, loss_kernel=res["kernel"][0],
+                                      loss_plain=res["plain"][0], loss_rel=loss_rel,
+                                      worst_grad=worst, worst_grad_rel_l2=rels[worst]))
+        del res
+    del model, packed
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ring_positions(caches, kinds) -> list[int]:
+    """The positions the first local layer's ring holds, sorted."""
+    ring = caches[kinds.index("local")]["pos"]
+    return sorted(int(p) for p in ring.tolist() if p >= 0)
+
+
+def phase_serve_hybrid(K, dev) -> dict:
+    """Phase 14 (b), (c): RecurrentGemma-9B at full width and depth serves
+    4 prompts of 3000 tokens (above the window and not a multiple of it)
+    and 64 greedy decode steps through ``make_prefill_step`` /
+    ``make_decode_step``; kernels against ``ops="plain"`` teacher-forced,
+    each step's logits against one forward over the extended sequence, the
+    caches' bytes; then 6 layers in f32, decode against the forward."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = get_config(HYB_ARCH)
+    L, b, s, new, w = cfg.n_layers, HYB_SERVE_B, HYB_SERVE_S, HYB_SERVE_NEW, cfg.local_window
+    t0 = time.perf_counter()
+    model = T.Transformer(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"(b) {cfg.name}: {L} layers, d {cfg.d_model}, {cfg.dtype}, seed 0, "
+        f"{n_params / 1e9:.3f} B params (init {time.perf_counter() - t0:.1f} s); {b} prompts "
+        f"of {s} tokens, {new} greedy decode steps from position {s} (window {w})")
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+    prefill, decode = make_prefill_step(cfg, s + new), make_decode_step(cfg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(new + 2)]
+    ev[0].record()
+    logits, caches = prefill(model, tokens)
+    ev[1].record()
+    torch.cuda.synchronize()  # the first tokens are ready before decoding starts
+    rings0 = _ring_positions(caches, model.kinds)
+    got = [logits]
+    t0 = time.perf_counter()
+    for i in range(new):
+        logits, caches = decode(model, caches, got[-1].argmax(dim=-1, keepdim=True).int(), s + i)
+        ev[i + 2].record()
+        got.append(logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_exact(counts, contig_want("hybrid", L, 1, new), f"prefill + {new} decode steps")
+    if not all(bool(torch.isfinite(lg).all()) and lg.shape == (b, cfg.vocab) for lg in got):
+        raise AssertionError("RecurrentGemma serving gave non-finite or misshapen logits")
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches for t in c.values())
+    rings = _ring_positions(caches, model.kinds)
+    log(f"  caches {cache_bytes:,} bytes (expected {HYB_CACHE_BYTES:,}); the ring held "
+        f"{rings0[0]}..{rings0[-1]} after the prefill, {rings[0]}..{rings[-1]} after decoding")
+    if cache_bytes != HYB_CACHE_BYTES:
+        raise AssertionError(f"cache bytes {cache_bytes} != {HYB_CACHE_BYTES}")
+    if rings0 != list(range(s - w, s)) or rings != list(range(s + new - w, s + new)):
+        raise AssertionError("a local ring does not hold the last window of positions")
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    step_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(new)]
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    first = got[0].argmax(dim=-1, keepdim=True).int()
+    # one more step at position s for the profile: it rewrites the ring slot
+    # of position s with the same k and v (the correctness checks are done)
+    busy = device_busy(lambda: decode(model, caches, first, s))
+    log(f"  prefill {prefill_ms:.1f} ms ({b * s / prefill_ms * 1e3:.0f} tokens/s); decode "
+        f"{wall / new * 1e3:.2f} ms a step on the host's clock ({b * new / wall:.1f} tokens/s), "
+        f"{np.median(step_ms):.2f} ms median between events; one step profiled: device busy "
+        f"{busy['busy_ms']:.3f} ms of {busy['window_ms']:.3f} (idle {busy['idle_share']:.1%}); "
+        f"weights bound {bound_ms:.3f} ms ({weight_bytes / 1e9:.3f} GB); peak {peak:.2f} GiB")
+    del caches
+
+    # the kernels against their plain versions, teacher-forced on the same tokens
+    forced = [lg.argmax(dim=-1, keepdim=True).int() for lg in got[:new]]
+    with torch.inference_mode():
+        lg, pc = T.prefill(model, tokens, s + new, ops="plain")
+        plain = [lg]
+        for i in range(new):
+            lg, pc = T.decode_step(model, pc, forced[i], s + i, ops="plain")
+            plain.append(lg)
+        del pc
+        # the oracle: one forward over the extended sequence (the chunked
+        # local attention, the RG-LRU's prefix scan)
+        h, _ = model(torch.cat([tokens, *forced], dim=1))
+        oracle = (h[:, s - 1 :] @ model.embed.T).float()  # [B, new + 1, V]
+    tol_plain, tol = SERVE_TOL["hybrid_kernels_bf16"], SERVE_TOL["hybrid_bf16"]
+    rel_plain = [rel_l2(a, p_) for a, p_ in zip(got, plain)]
+    rel_fwd = [rel_l2(a, oracle[:, i]) for i, a in enumerate(got)]
+    log(f"  logits rel-L2, kernels vs plain: prefill {rel_plain[0]:.3e}, decode max "
+        f"{max(rel_plain[1:]):.3e} (tol {tol_plain})")
+    log(f"  logits rel-L2, decode vs the forward over {s + new} tokens: prefill "
+        f"{rel_fwd[0]:.3e}, decode max {max(rel_fwd[1:]):.3e}, median "
+        f"{float(np.median(rel_fwd[1:])):.3e} (tol {tol})")
+    if max(rel_plain) > tol_plain or max(rel_fwd) > tol:
+        raise AssertionError(f"RecurrentGemma serving disagrees: {rel_plain} {rel_fwd}")
+    out = dict(launches=counts, prefill_ms=prefill_ms, decode_ms_wall=wall / new * 1e3,
+               decode_ms_events=step_ms, decode_step_profile=busy,
+               prefill_tokens_per_s=b * s / prefill_ms * 1e3, tokens_per_s=b * new / wall,
+               decode_bound_ms=bound_ms, n_params=n_params, weight_bytes=weight_bytes,
+               cache_bytes=cache_bytes,
+               peak_gib=peak, rel_l2_plain=rel_plain, rel_l2_forward=rel_fwd)
+    del model, got, plain, h, oracle
+    torch.cuda.empty_cache()
+
+    # (c) f32 at reduced depth: decode against the forward, tightly
+    cfg32 = dataclasses.replace(cfg, n_layers=HYB_F32_LAYERS, dtype="float32")
+    n32 = HYB_F32_NEW
+    m2 = T.Transformer(cfg32, seed=0, device=dev)
+    with torch.inference_mode():
+        lg, c2 = T.prefill(m2, tokens, s + n32)
+        got2 = [lg]
+        for i in range(n32):
+            lg, c2 = T.decode_step(m2, c2, got2[-1].argmax(dim=-1, keepdim=True).int(), s + i)
+            got2.append(lg)
+        ext = torch.cat([tokens, *[x.argmax(dim=-1, keepdim=True).int() for x in got2[:n32]]],
+                        dim=1)
+        h2, _ = m2(ext)
+        oracle2 = (h2[:, s - 1 :] @ m2.embed.T).float()
+    rel_f32 = [rel_l2(a, oracle2[:, i]) for i, a in enumerate(got2)]
+    log(f"(c) f32, {HYB_F32_LAYERS} layers ({cfg32.layer_kinds()}): decode vs the forward over "
+        f"{s + n32} tokens, rel-L2 prefill {rel_f32[0]:.3e}, decode max {max(rel_f32[1:]):.3e} "
+        f"(tol {SERVE_TOL['f32']:.0e})")
+    if max(rel_f32) > SERVE_TOL["f32"]:
+        raise AssertionError(f"RecurrentGemma f32 decode disagrees with the forward: {rel_f32}")
+    out["f32"] = dict(layers=HYB_F32_LAYERS, decode_steps=n32, rel_l2_forward=rel_f32)
+    del m2, c2, h2, oracle2
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3804,9 +4187,14 @@ def main() -> int:
     def timed(name, fn, *args):
         t = time.perf_counter()
         res = fn(*args)
+        # a phase's objects in reference cycles (trainers, engines, loaders)
+        # would keep their device memory until the collector's next pass
+        gc.collect()
         torch.cuda.empty_cache()
         record["phase_s"][name] = time.perf_counter() - t
-        log(f"[{name}: {record['phase_s'][name]:.1f} s]")
+        held = torch.cuda.memory_allocated() / 2**30
+        record.setdefault("held_gib", {})[name] = held
+        log(f"[{name}: {record['phase_s'][name]:.1f} s, {held:.2f} GiB still allocated]")
         return res
 
     record["kernels"] = timed("1 kernels", phase_kernels, dev)
@@ -3840,6 +4228,12 @@ def main() -> int:
         "minicpm": timed("13c serve_minicpm", phase_serve_dense, K, dev, "minicpm-2b", 1),
         "example": timed("13d example", phase_example, K, dev),
     }
+    for name, cases in timed("14 kernels_hybrid", phase_kernels_hybrid, dev).items():
+        record["kernels"][name]["hybrid14"] = cases
+    record["hybrid14"] = {
+        "train": timed("14a train_hybrid", phase_train_hybrid, K, dev),
+        "serve": timed("14bc serve_hybrid", phase_serve_hybrid, K, dev),
+    }
 
     # launches: each main path's own count, reset to 0 just before that run
     # and read just after (the serving waves of phase 3, the 4 training steps
@@ -3848,9 +4242,9 @@ def main() -> int:
     # SP step of phase 9 (c), the planned launcher of phase 10 (a), the
     # churn leg and resumed step of phase 11 (b), (c), the Shape Benchmark's
     # calls of phase 12 (a), the NCCL launcher of phase 12 (b), both
-    # processes of phase 12 (c), and phase 13's Mamba-2 serving, the Qwen and
-    # MiniCPM launchers and contiguous runs, and the example); "launches" is
-    # their sum
+    # processes of phase 12 (c), phase 13's Mamba-2 serving, the Qwen and
+    # MiniCPM launchers and contiguous runs, and the example, and phase 14's
+    # RecurrentGemma training steps and serving); "launches" is their sum
     kernels = []
     for name, k in record["kernels"].items():
         by_path = {"serve": record["serve"]["launches"][name],
@@ -3869,7 +4263,9 @@ def main() -> int:
                    "contig_qwen": record["serve13"]["qwen"]["contiguous"]["launches"][name],
                    "serve_minicpm": record["serve13"]["minicpm"]["launcher"]["launches"][name],
                    "contig_minicpm": record["serve13"]["minicpm"]["contiguous"]["launches"][name],
-                   "example_llama_f32": record["serve13"]["example"]["launches"][name]}
+                   "example_llama_f32": record["serve13"]["example"]["launches"][name],
+                   "train_hybrid": record["hybrid14"]["train"]["train"]["launches"][name],
+                   "serve_hybrid": record["hybrid14"]["serve"]["launches"][name]}
         kernels.append({"name": name, **{key: k[key] for key in (
             "route", "source", "replaces")}, "launches": sum(by_path.values()),
             "launches_by_path": by_path,

@@ -12,6 +12,7 @@ ARCHS = {
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "wan2.1-1.3b": "repro_torch.configs.wan2_1_mmdit",
 }

@@ -12,8 +12,9 @@ port's module (``MMDiT`` or ``Transformer``) ``load_state_dict``:
   plan of ``cfg.superblocks()``: unrolled ``lead`` and ``tail`` lists and
   ``blocks.s<i>.*`` stacked over ``n_rep`` superblocks; layer ``len(lead)
   + r * len(pattern) + i`` of the port is ``blocks.s<i>`` entry r, and the
-  lists take the layers before and after (attention blocks and Mamba-2
-  blocks, whose ``mixer.*`` leaves map like any other);
+  lists take the layers before and after (attention, local-attention,
+  RG-LRU and Mamba-2 blocks, whose ``mixer.*`` leaves map like any other,
+  each in its own dtype: the RG-LRU's ``lam`` stays f32);
 * every weight keeps its ``[d_in, d_out]`` layout: the port applies
   projections as ``x @ w`` exactly as the JAX model does, so nothing is
   transposed.
@@ -29,7 +30,8 @@ index of each of the port's parameters, with no copy of their data.
 (``repro.models.transformer.init_cache`` / ``prefill`` / ``decode_step``)
 across the same way: the JAX ``lead`` / ``blocks.s<i>`` (stacked over
 ``n_rep``) / ``tail`` tree against the port's list of one cache dict a
-layer, leaves in their own dtypes (bf16 as raw bits with ``keep_dtype``).
+layer, leaves in their own dtypes (bf16 as raw bits with ``keep_dtype``;
+a local layer's int32 ring positions ``pos`` [w], stacked to [n_rep, w]).
 """
 
 from __future__ import annotations

@@ -11,7 +11,10 @@ CPU at the smoke size.  LM requests stream through
 :class:`repro_torch.serve.ServeEngine` (iteration-level admission against
 the ``a + b·B·S^p`` cost model, paged KV-cache pool); mmdit configs route
 denoise sampling through :class:`repro_torch.serve.DiffusionServeEngine`
-on the same scheduler.  The cost model here is a synthetic seed (no fitted
+on the same scheduler.  Paged serving takes global-attention LMs only: a
+model with other block kinds (Mamba-2, RecurrentGemma) is refused, as the
+reference's engine refuses it; those serve contiguously
+(``train.steps.make_prefill_step`` / ``make_decode_step``).  The cost model here is a synthetic seed (no fitted
 telemetry on a demo host).
 """
 
@@ -24,7 +27,7 @@ import numpy as np
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.core.cost_model import CostModel
 from repro_torch.models.mmdit import MMDiT
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, paged_kinds
 from repro_torch.serve import DiffusionServeEngine, ServeConfig, ServeEngine
 
 #: synthetic seed fit for demo runs: ~5 ms fixed overhead, p = 2 attention
@@ -49,6 +52,7 @@ def _serve_config(args) -> ServeConfig:
 
 
 def serve_lm(cfg, args) -> ServeEngine:
+    paged_kinds(cfg)  # refuse a model paged serving cannot run before building it
     model = Transformer(cfg, seed=0, device=args.device)
     eng = ServeEngine(model, cfg, DEMO_MODEL, _serve_config(args))
     rng = np.random.default_rng(args.seed)

@@ -61,11 +61,15 @@ class SSM(nn.Module):
 
 
 def _causal_conv(x, w, b):
-    """Depthwise causal conv via shifted adds.  x: [B, S, C]; w: [cw, C]."""
-    cw = w.shape[0]
+    """Depthwise causal conv via shifted adds.  x: [B, S, C]; w: [cw, C].
+
+    A shift of i >= S is all zeros (the reference's ``pad(x[:, :-i])``
+    takes no such shift: its conv raises for S < cw - 1); shorter shifts
+    are the reference's, value for value."""
+    cw, s = w.shape[0], x.shape[1]
     out = x * w[-1]
     for i in range(1, cw):
-        shifted = F.pad(x[:, :-i], (0, 0, i, 0))
+        shifted = F.pad(x, (0, 0, i, 0))[:, :s]
         out = out + shifted * w[cw - 1 - i]
     return out + b
 

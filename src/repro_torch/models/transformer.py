@@ -1,10 +1,13 @@
-"""Decoder-only LM: global-attention blocks and Mamba-2 blocks, trained,
-served over a paged KV cache (attention blocks) or served from contiguous
-per-layer caches (both kinds).
+"""Decoder-only LM: global-attention, local-attention, RG-LRU and Mamba-2
+blocks, trained, served over a paged KV cache (global-attention blocks) or
+served from contiguous per-layer caches (every kind).
 
 The counterpart of ``repro.models.transformer`` for global-attention
-transformer blocks (``"attn"``) and SSD mixer blocks (``"ssm"``: ``norm1``
-and ``mixer``, no MLP half): the same parameters under the same names (one
+transformer blocks (``"attn"``), Griffin's sliding-window attention blocks
+(``"local"``: the attention block's parameters, ``local_attention``) and
+RG-LRU blocks (``"rglru"``: ``norm1``, the recurrent ``mixer``, ``norm2``
+and the MLP), and SSD mixer blocks (``"ssm"``: ``norm1`` and ``mixer``, no
+MLP half): the same parameters under the same names (one
 ``blocks.<i>`` module per layer, run in one Python loop, where the JAX
 model scans the stacked superblocks), the same arithmetic, and the fused
 operators routed through ``repro_torch.kernels``, which picks the CUDA
@@ -32,16 +35,20 @@ Entry points:
   slot's current page before the paged attention.
 
 Caches are one dict per layer, in a list: ``{"k", "v"}`` [B, cap, Hkv,
-dh] for an attention layer, ``{"conv", "state"}`` for a Mamba-2 layer
-(``convert.caches_to_numpy`` gives the JAX tree).  Attention caches and the
-pools (:func:`init_paged_pools`: one k and one v pool per layer,
-``[num_pages + 1, page_size, Hkv, dh]``, the last page a scratch sink) are
-updated in place, where the JAX model builds new arrays with
+dh] for an attention layer; a local layer's ring ``{"k", "v"}`` [B, w,
+Hkv, dh] with ``"pos"`` [w] int32 (the position each slot holds, -1 where
+empty; position t lives in slot t mod w); ``{"h", "conv"}`` for an RG-LRU
+layer and ``{"conv", "state"}`` for a Mamba-2 layer
+(``convert.caches_to_numpy`` gives the JAX tree).  Attention caches, local
+rings and the pools (:func:`init_paged_pools`: one k and one v pool per
+layer, ``[num_pages + 1, page_size, Hkv, dh]``, the last page a scratch
+sink) are updated in place, where the JAX model builds new arrays with
 ``dynamic_update_slice`` and ``.at[].set``: the decode steps return the
-caches and pools they were given (a Mamba-2 layer's cache is new each
+caches and pools they were given (a recurrent layer's cache is new each
 step).  Paged serving takes ``"attn"`` blocks only, as the reference's
-``_paged_kinds`` takes attention kinds only.  Other block kinds (MoE,
-RG-LRU, local, cross) raise: they come with their slices of the port.
+``_paged_kinds`` takes global-attention kinds only, and sequence
+parallelism global attention only.  The kinds not ported (MoE, cross)
+raise: they come with their slices of the port.
 """
 
 from __future__ import annotations
@@ -67,10 +74,11 @@ from .layers import (
     last_token_logits,
     segment_relative_positions,
 )
-from .attention import decode_attention, repeat_kv
+from .attention import decode_attention, local_attention, repeat_kv
+from .rglru import RGLRU, apply_rglru, apply_rglru_decode, rglru_cache_init
 from .ssm import SSM, apply_ssm, apply_ssm_decode, ssm_cache_init
 
-KINDS = ("attn", "ssm")  # the block kinds ported so far
+KINDS = ("attn", "ssm", "local", "rglru")  # the block kinds ported so far
 PAGED_KINDS = ("attn",)  # the kinds paged serving takes
 SP_KINDS = ("attn", "moe")  # the kinds sequence parallelism takes (MoE is not ported)
 
@@ -87,14 +95,15 @@ def _model_kinds(cfg: ModelConfig) -> list[str]:
     bad = sorted({k for k in kinds if k not in KINDS})
     if bad:
         raise ValueError(
-            f"the port runs global-attention transformer blocks and Mamba-2 "
+            f"the port runs global- and local-attention, RG-LRU and Mamba-2 "
             f"blocks only ({KINDS}); config {cfg.name} has {bad}"
         )
     return kinds
 
 
-def _paged_kinds(cfg: ModelConfig) -> list[str]:
-    """The layer plan of paged serving (the reference's ``_paged_kinds``)."""
+def paged_kinds(cfg: ModelConfig) -> list[str]:
+    """The layer plan of paged serving (the reference's ``_paged_kinds``),
+    refusing every kind but global attention."""
     kinds = _model_kinds(cfg)
     bad = sorted({k for k in kinds if k not in PAGED_KINDS})
     if bad:
@@ -128,7 +137,8 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    """One dense block's parameters (``block_params`` for ``"attn"``)."""
+    """One attention block's parameters (``block_params`` for ``"attn"``
+    and ``"local"``)."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype, device):
         super().__init__()
@@ -148,7 +158,19 @@ class SSMBlock(nn.Module):
         self.mixer = SSM(cfg.d_model, cfg.ssm, gen, dtype, device)
 
 
-BLOCKS = {"attn": Block, "ssm": SSMBlock}
+class RGLRUBlock(nn.Module):
+    """One RG-LRU block's parameters (``block_params`` for ``"rglru"``):
+    ``norm1``, the recurrent ``mixer``, ``norm2`` and the MLP."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype, device):
+        super().__init__()
+        self.norm1 = Norm(cfg.d_model, device, cfg.norm)
+        self.mixer = RGLRU(cfg, gen, dtype, device)
+        self.norm2 = Norm(cfg.d_model, device, cfg.norm)
+        self.mlp = MLP(gen, cfg.d_model, cfg.d_ff, dtype, device)
+
+
+BLOCKS = {"attn": Block, "local": Block, "ssm": SSMBlock, "rglru": RGLRUBlock}
 
 
 class Transformer(nn.Module):
@@ -179,7 +201,8 @@ class Transformer(nn.Module):
         """Token ids [B, S] -> ``(hidden [B, S, d] after the final norm,
         caches)``: with ``collect_cache``, one decode cache per layer
         (``{"k", "v"}`` [B, S, Hkv, dh], k after RoPE, for an attention
-        layer; the SSM's ``{"conv", "state"}``), else None.  ``remat``
+        layer; a local layer's ring; the RG-LRU's ``{"h", "conv"}``; the
+        SSM's ``{"conv", "state"}``), else None.  ``remat``
         recomputes each block in the backward (``torch.utils.checkpoint``,
         the reference's per-superblock ``jax.checkpoint``), as training
         does.
@@ -238,24 +261,34 @@ def _project_qkv(bp: Attention, x, cfg: ModelConfig, K):
     return q, k, v
 
 
-def _self_attn_full(bp: Attention, x, cfg: ModelConfig, positions, K, *, segment_ids=None,
-                    seq_group=None):
+def _self_attn_full(bp: Attention, x, cfg: ModelConfig, positions, K, *, local: bool = False,
+                    segment_ids=None, seq_group=None):
     """Causal self-attention over the whole sequence, scoped to each
     document by ``segment_ids``, or over this rank's shard of the ring
-    ``seq_group``.  Returns ``(out [B, S, d], (k, v))``."""
+    ``seq_group``; with ``local``, Griffin's sliding window of
+    ``cfg.local_window`` positions (:func:`local_attention`, kv repeated to
+    every query head).  Returns ``(out [B, S, d], (k, v))``, k after RoPE."""
     q, k, v = _project_qkv(bp, x, cfg, K)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    ctx = K.attention(q, k, v, causal=True, q_segment_ids=segment_ids,
-                      kv_segment_ids=segment_ids, seq_group=seq_group)
+    if local:
+        g = cfg.n_heads // cfg.n_kv_heads
+        ctx = local_attention(q, repeat_kv(k, g), repeat_kv(v, g), window=cfg.local_window,
+                              segment_ids=segment_ids)
+    else:
+        ctx = K.attention(q, k, v, causal=True, q_segment_ids=segment_ids,
+                          kv_segment_ids=segment_ids, seq_group=seq_group)
     b, s = x.shape[:2]
     return ctx.reshape(b, s, cfg.n_heads * cfg.head_dim) @ bp.wo, (k, v)
 
 
-def apply_block(bp: Block | SSMBlock, x, cfg: ModelConfig, positions, K, kind: str = "attn", *,
-                collect_cache: bool = False, segment_ids=None, seq_group=None):
+def apply_block(bp: Block | SSMBlock | RGLRUBlock, x, cfg: ModelConfig, positions, K,
+                kind: str = "attn", *, collect_cache: bool = False, segment_ids=None,
+                seq_group=None):
     """One block over a full sequence (or a ring shard of one, with
-    ``seq_group``).  Returns ``(x, cache or None)``."""
+    ``seq_group``).  Returns ``(x, cache or None)``.  As in the reference,
+    ``segment_ids`` reach the attention kinds only: in a packed window the
+    RG-LRU's and the SSM's conv and recurrence run across documents."""
     if seq_group is not None and kind not in SP_KINDS:
         raise ValueError(
             f"sequence parallelism does not support {kind!r} blocks "
@@ -267,11 +300,40 @@ def apply_block(bp: Block | SSMBlock, x, cfg: ModelConfig, positions, K, kind: s
             out, cache = apply_ssm(bp.mixer, h, cfg.ssm, K, return_cache=True)
             return x + out, cache
         return x + apply_ssm(bp.mixer, h, cfg.ssm, K), None
-    out, (k, v) = _self_attn_full(bp.attn, h, cfg, positions, K, segment_ids=segment_ids,
-                                  seq_group=seq_group)
+    cache = None
+    if kind == "rglru":
+        if collect_cache:
+            out, cache = apply_rglru(bp.mixer, h, cfg, return_cache=True)
+        else:
+            out = apply_rglru(bp.mixer, h, cfg)
+    else:
+        out, (k, v) = _self_attn_full(bp.attn, h, cfg, positions, K, local=kind == "local",
+                                      segment_ids=segment_ids, seq_group=seq_group)
+        if collect_cache:
+            cache = _make_attn_cache(k, v, kind, cfg)
     x = x + out
     h2 = apply_norm(bp.norm2, x, cfg.norm, cfg.norm_eps, K)
-    return x + apply_mlp(bp.mlp, h2), ({"k": k, "v": v} if collect_cache else None)
+    return x + apply_mlp(bp.mlp, h2), cache
+
+
+def _make_attn_cache(k, v, kind: str, cfg: ModelConfig) -> dict:
+    """An attention layer's prefill cache: its k and v [B, S, Hkv, dh]; for
+    a local layer the ring of the last ``min(S, w)`` positions, position t
+    in slot t mod w, and ``"pos"`` [w] int32 (-1 where empty)."""
+    if kind != "local":
+        return {"k": k, "v": v}
+    w = cfg.local_window
+    s = k.shape[1]
+    n = min(s, w)
+    pos = torch.arange(s - n, s, device=k.device)
+    slots = pos % w
+    ring_k = k.new_zeros((k.shape[0], w) + k.shape[2:])
+    ring_v = v.new_zeros((v.shape[0], w) + v.shape[2:])
+    ring_k[:, slots] = k[:, s - n:]
+    ring_v[:, slots] = v[:, s - n:]
+    pos_arr = torch.full((w,), -1, dtype=torch.int32, device=k.device)
+    pos_arr[slots] = pos.int()
+    return {"k": ring_k, "v": ring_v, "pos": pos_arr}
 
 
 # --------------------------------------------------------------------------
@@ -319,13 +381,20 @@ def decays(cfg: ModelConfig):
 
 def kind_cache_init(kind: str, batch: int, cap: int, cfg: ModelConfig, *, device) -> dict:
     """One layer's zero decode cache: k and v [B, cap, Hkv, dh] in the
-    model's dtype (``"attn"``), or the SSM's conv window and state
-    (``"ssm"``)."""
+    model's dtype (``"attn"``), an empty ring of ``cfg.local_window`` slots
+    (``"local"``: every ``pos`` -1), or the recurrent state and conv rows
+    of an RG-LRU (``"rglru"``) or SSM (``"ssm"``) layer."""
     dt = DTYPES[cfg.dtype]
-    if kind == "attn":
-        shape = (batch, cap, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+    if kind in ("attn", "local"):
+        n = cap if kind == "attn" else cfg.local_window
+        shape = (batch, n, cfg.n_kv_heads, cfg.head_dim)
+        c = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+        if kind == "local":
+            c["pos"] = torch.full((n,), -1, dtype=torch.int32, device=device)
+        return c
+    if kind == "rglru":
+        return rglru_cache_init(batch, cfg, dt, device)
     if kind == "ssm":
         return ssm_cache_init(batch, cfg.d_model, cfg.ssm, dt, device)
     raise ValueError(kind)
@@ -339,8 +408,9 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, *, device=None) -> list:
 
 
 def _pad_attn_caches(caches: list, cfg: ModelConfig, cap: int) -> list:
-    """Grow the attention layers' k and v along the sequence to ``cap``
-    (never shorter: a longer prompt keeps its length)."""
+    """Grow the global-attention layers' k and v along the sequence to
+    ``cap`` (never shorter: a longer prompt keeps its length); local rings
+    keep their window."""
     out = []
     for c, kind in zip(caches, cfg.layer_kinds()):
         s = c["k"].shape[1] if kind == "attn" else cap
@@ -360,29 +430,43 @@ def prefill(model: Transformer, tokens, cache_cap: int, *, ops: str = "kernel"):
                                                                       cache_cap)
 
 
-def apply_block_decode(bp: Block | SSMBlock, x, cfg: ModelConfig, cache: dict, pos: int, K,
-                       kind: str = "attn"):
+def apply_block_decode(bp: Block | SSMBlock | RGLRUBlock, x, cfg: ModelConfig, cache: dict,
+                       pos: int, K, kind: str = "attn"):
     """One block for one new token per row at position ``pos``.  Returns
     ``(x, cache)``: an attention layer's k and v are written at ``pos`` in
-    place before attending over ``pos + 1`` positions; a Mamba-2 layer's
-    cache is new."""
+    place before attending over ``pos + 1`` positions; a local layer's at
+    slot ``pos mod w`` of its ring, in place, with ``pos`` recorded there,
+    before attending over the slots that hold one of the last w positions;
+    a recurrent layer's cache is new."""
     h = apply_norm(bp.norm1, x, cfg.norm, cfg.norm_eps, K)
     if kind == "ssm":
         out, cache = apply_ssm_decode(bp.mixer, h, cache, cfg.ssm, K)
         return x + out, cache
-    if kind != "attn":
+    if kind == "rglru":
+        out, cache = apply_rglru_decode(bp.mixer, h, cache, cfg)
+        x = x + out
+    elif kind in ("attn", "local"):
+        b = x.shape[0]
+        q, k, v = _project_qkv(bp.attn, h, cfg, K)
+        posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k = apply_rope(k, posv, cfg.rope_theta)
+        kc, vc = cache["k"], cache["v"]
+        slot = pos if kind == "attn" else pos % cfg.local_window
+        kc[:, slot] = k[:, 0].to(kc.dtype)
+        vc[:, slot] = v[:, 0].to(vc.dtype)
+        if kind == "attn":
+            valid = torch.arange(kc.shape[1], device=x.device) <= pos
+        else:
+            pos_arr = cache["pos"]
+            pos_arr[slot] = pos
+            # valid = stored position within (pos - w, pos]
+            valid = (pos_arr >= 0) & (pos - pos_arr < cfg.local_window) & (pos_arr <= pos)
+        g = cfg.n_heads // cfg.n_kv_heads
+        ctx = decode_attention(q, repeat_kv(kc, g), repeat_kv(vc, g), valid)
+        x = x + ctx.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ bp.attn.wo
+    else:
         raise ValueError(kind)
-    b = x.shape[0]
-    q, k, v = _project_qkv(bp.attn, h, cfg, K)
-    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, posv, cfg.rope_theta)
-    k = apply_rope(k, posv, cfg.rope_theta)
-    kc, vc = cache["k"], cache["v"]
-    kc[:, pos] = k[:, 0].to(kc.dtype)
-    vc[:, pos] = v[:, 0].to(vc.dtype)
-    g = cfg.n_heads // cfg.n_kv_heads
-    ctx = decode_attention(q, repeat_kv(kc, g), repeat_kv(vc, g), pos + 1)
-    x = x + ctx.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ bp.attn.wo
     h2 = apply_norm(bp.norm2, x, cfg.norm, cfg.norm_eps, K)
     return x + apply_mlp(bp.mlp, h2), cache
 
@@ -391,9 +475,10 @@ def decode_step(model: Transformer, caches: list, token, pos: int, *, ops: str =
     """One new token per row: token [B, 1] at position ``pos``, a Python
     int that every row shares.  Returns ``(logits [B, V] f32, caches)``.
 
-    Raises where ``pos`` is not below an attention cache's length: JAX's
-    ``dynamic_update_slice`` would clamp the write to the last slot and
-    overwrite it."""
+    Raises where ``pos`` is not below a global-attention cache's length:
+    JAX's ``dynamic_update_slice`` would clamp the write to the last slot
+    and overwrite it.  A local layer's ring wraps, so it takes any
+    ``pos``."""
     if isinstance(pos, torch.Tensor):
         raise TypeError("decode_step takes pos as a Python int (the host never reads it back)")
     for c, kind in zip(caches, model.kinds):
@@ -423,7 +508,7 @@ def init_paged_pools(cfg: ModelConfig, num_pages: int, page_size: int, *, device
     all of them.  The extra final page (index ``num_pages``) is the scratch
     sink inactive decode slots and padding page-table entries point at; it
     is written but never read unmasked."""
-    kinds = _paged_kinds(cfg)
+    kinds = paged_kinds(cfg)
     device = resolve_device(device)
     shape = (num_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
     dt = DTYPES[cfg.dtype]
@@ -453,7 +538,7 @@ def scatter_caches_into_pools(caches: list, pools: list, cfg: ModelConfig, page_
                               page_size: int) -> list:
     """Move ``forward(collect_cache=True)`` caches into the paged pools (in
     place); returns the pools."""
-    _paged_kinds(cfg)
+    paged_kinds(cfg)
     for pool, cache in zip(pools, caches):
         _scatter_pages(pool["k"], cache["k"], page_table, page_size)
         _scatter_pages(pool["v"], cache["v"], page_table, page_size)
@@ -514,7 +599,7 @@ def paged_prefill(model: Transformer, tokens, true_len, page_table, pools: list,
     entries past a request's allocation) and is masked by ``kv_lens``
     forever after.
     """
-    _paged_kinds(model.cfg)
+    paged_kinds(model.cfg)
     ps = pools[0]["k"].shape[1]
     s = tokens.shape[1]
     if s % ps != 0:

@@ -1,12 +1,12 @@
 """Step functions of the port: the counterpart of ``repro.train.steps`` for
-training the mmdit, dense and ssm families and for serving the mmdit and
-the dense LM.
+training the mmdit, dense, ssm and hybrid (RecurrentGemma) families and
+for serving the mmdit and the LMs.
 
 Diffusion serving needs a denoise step (one velocity evaluation, the unit
 of diffusion sampling); LM serving a paged prefill and a paged decode wave
 (continuous batching, attention LMs), or a contiguous prefill and decode
-step (one batch of equal-length prompts at one position; attention and
-Mamba-2 LMs, and the yardstick paged serving is held to).
+step (one batch of equal-length prompts at one position; every LM kind,
+and the yardstick paged serving is held to).
 Training needs the state, the loss (the rectified-flow loss, or the LM
 loss of ``tokens`` against ``labels``, packed windows with their
 ``segment_ids``), the pool microbatch's gradient step, the one-batch train
@@ -40,7 +40,7 @@ NoiseHook = Callable[[int, int, dict], "tuple[torch.Tensor, torch.Tensor] | None
 
 
 #: the families the port trains
-TRAINED = ("mmdit", "dense", "ssm")
+TRAINED = ("mmdit", "dense", "ssm", "hybrid")
 
 
 def _mmdit_only(cfg: ModelConfig, what: str) -> None:

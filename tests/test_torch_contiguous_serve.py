@@ -163,7 +163,8 @@ def test_decode_attention_and_repeat_kv_match(n_rep, cache_len):
     want = JA.decode_attention(jnp.asarray(q), JA.repeat_kv(jnp.asarray(kc), n_rep),
                                JA.repeat_kv(jnp.asarray(vc), n_rep), cache_len)
     got = TA.decode_attention(torch.from_numpy(q), got_kv,
-                              TA.repeat_kv(torch.from_numpy(vc), n_rep), cache_len)
+                              TA.repeat_kv(torch.from_numpy(vc), n_rep),
+                              torch.arange(11) < cache_len)
     assert _rel(got, want) <= GATE
 
 

@@ -30,6 +30,7 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch, repro_torch.kernels, repro_torch.convert\n"
         "import repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.models.ssm, repro_torch.launch.train, repro_torch.launch.profile_train\n"
+        "import repro_torch.models.rglru, repro_torch.configs.recurrentgemma_9b\n"
         "import repro_torch.data.packing, repro_torch.kernels.flash_attention.ring\n"
         "import repro_torch.configs.tinyllama_1_1b\n"
         "import repro_torch.core, repro_torch.core.balancer, repro_torch.core.cost_model\n"

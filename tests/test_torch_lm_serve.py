@@ -91,8 +91,8 @@ def test_layer_plan_matches(pattern, n_layers):
 
 
 def test_transformer_refuses_unported_kinds():
-    cfg = dataclasses.replace(torch_llama.smoke_config(), pattern=("attn", "local"))
-    with pytest.raises(ValueError, match="global-attention"):
+    cfg = dataclasses.replace(torch_llama.smoke_config(), pattern=("attn", "cross"))
+    with pytest.raises(ValueError, match="RG-LRU and Mamba-2 blocks only"):
         T.Transformer(cfg, device="cpu")
 
 
