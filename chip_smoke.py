@@ -178,6 +178,34 @@ Phases, any failure of which exits non-zero with no result line:
    step profiled, tokens/s; the logits against ``ops="plain"``
    teacher-forced (rel-L2 0.1) and against one forward over the 3064
    tokens (0.25); (c) 6 layers in f32, 40 decode steps against the forward (1e-4).
+15. routed MoE: first K4 rows at Kimi-K2's d 7168 (a 4 x 1024 prefill, a
+   decode step of 4) and at Llama-4-Scout's training rows [8192, 5120],
+   K5 and K6 on those rows (K6 also bitwise against a second run), K7
+   causal at Hq 64 over Hkv 8 (4 x 1024) and at Hq 40 over 8 (2 x 4096,
+   dh 128), and K12 at group 8 (a wave of 4 slots) against their plain
+   versions, timed;
+   (a) Llama-4-Scout at full width and 2 of its 48 layers (bf16, 16
+   experts top-1 and a shared one, capacity factor 1.25): 4 ``Trainer``
+   steps on ``EmulatedEngine`` (3 of B 2 x S 4096, one of 2 packed
+   windows): exact launch counts (the dense LM's: K4 rows 4L+1, K5 and K6
+   2L+1, K7 2L, K8 and K9 L a microbatch), step ms, tokens/s, peak
+   memory, the share of dropped assignments, one microbatch's gradient
+   profiled; then the same depth in f32, the kernel loss and every
+   gradient against ``ops="plain"`` (1e-4, 5e-2) with the share of
+   (token, layer) routes that differ; (d) that f32 model without drops
+   (capacity factor E / k): 32 decode steps against one forward (1e-4);
+   (b) 12 of its 48 layers (bf16, capacity factor E / k: no drop) through
+   the serve launcher's ``serve_lm`` on a recording engine (8 requests),
+   each request through contiguous prefill and decode teacher-forced on
+   the engine's tokens, two of them again with ``ops="plain"`` (logits
+   rel-L2 0.25 each, route-flip shares), exact launch counts, prefill and
+   wave ms, the widest wave profiled against its weights bound; (c)
+   Kimi-K2 at full width and 2 of its 61 layers (the dense lead and one
+   MoE layer of 384 experts top-8, bf16, capacity factor 1.25): a
+   contiguous prefill of 4 x 1024 tokens (drop share) and 32 greedy decode
+   steps (ms against the weights bound, one profiled), then the paged
+   prefill of the same prompts and one paged wave against the contiguous
+   prefill and first step (0.25), exact launch counts for both.
 
 Phase 2 also holds K4 on model rows (x [1, 2048, 2048] and [8, 1, 2048]
 bf16) and K12 (the decode wave of phase 6; 64 slots with kv_lens up to
@@ -202,9 +230,11 @@ training steps of phase 9 (b), the SP step of phase 9 (c), the planned
 launcher of phase 10 (a), the churn leg and resumed step of phase 11 (b),
 (c), the Shape Benchmark's calls, the NCCL launcher and the gloo processes
 of phase 12, and phase 13's Mamba-2 serving, Qwen2.5-14B's and
-MiniCPM-2B's launchers and contiguous runs, and the example, and phase
-14's RecurrentGemma training steps and serving (``launches_by_path``);
-``launches`` is their sum.
+MiniCPM-2B's launchers and contiguous runs, and the example, phase
+14's RecurrentGemma training steps and serving, and phase 15's
+Llama-4-Scout training steps, engine and contiguous runs and Kimi-K2's
+contiguous and paged runs (``launches_by_path``); ``launches`` is their
+sum.
 
 Each phase's wall seconds go to the log and to the record (``phase_s``).
 Prints the kernels' JSON record on the line before the last and, as the
@@ -4129,6 +4159,634 @@ def phase_serve_hybrid(K, dev) -> dict:
     return out
 
 
+MOE_LLAMA, MOE_KIMI = "llama4-scout-17b-a16e", "kimi-k2-1t-a32b"
+MOE_TRAIN_LAYERS = 2  # phase 15 (a): 2 of Llama-4-Scout's 48 layers (65.3 GB of state)
+MOE_STEPS = 4  # phase 15 (a): 3 unpacked steps of B 2 x S 4096, then one packed microbatch
+MOE_SERVE_LAYERS = 12  # phase 15 (b): 12 of 48 layers, 54.9 GB of bf16 weights
+MOE_KIMI_B, MOE_KIMI_S, MOE_KIMI_NEW = 4, 1024, 32  # phase 15 (c): prompts, decode steps
+MOE_F32_B, MOE_F32_S, MOE_F32_NEW = 2, 1024, 32  # phase 15 (d)
+# phase 15 (a)'s f32 check at 2 layers, kernels against plain: phase 14's
+# gates (the loss 1e-4, every gradient's rel-L2 5e-2)
+MOE_LOSS_TOL, MOE_GRAD_TOL = 1e-4, 5e-2
+# phase 15, bf16: a token whose route differs at one layer (a near tie of
+# router probabilities, moved by one bf16 rounding of a norm's output, an
+# attention's, or a matrix product's whose tiling follows its row count)
+# takes another expert's whole output.  So bf16 logits are held to the
+# dense gate (SERVE_TOL "dense_bf16") only where every route of the two
+# runs agrees, and otherwise printed beside the share of (token, layer)
+# routes that differ; the engine against contiguous serving, whose routes
+# cannot be paired (other batches), is printed in bf16 and gated in f32
+# (15 (d), SERVE_TOL "f32").
+MOE_ENGINE_REQUESTS = 8  # 15 (b) and (d)
+
+
+class MoERoutes:
+    """Records every call of ``models.moe.route`` while active: the keep mask,
+    the top-k experts and whether the call routed without drops (capacity
+    ``T k``).  References only: no copy, no read-back while recording."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route, self.calls = moe, moe.route, []
+
+    def __enter__(self):
+        def recording(logits, cfg, cap):
+            out = self.route(logits, cfg, cap)
+            self.calls.append((out[1], out[4], cap >= logits.shape[1] * cfg.top_k))
+            return out
+
+        self.moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def drop_share(self) -> float:
+        """Dropped assignments over all assignments of the capacity-routed
+        calls (0.0 if there were none)."""
+        kept = [k for k, _, no_drop in self.calls if not no_drop]
+        n = sum(k.numel() for k in kept)
+        return float(sum(int((~k).sum()) for k in kept)) / n if n else 0.0
+
+    def flip_share(self, other_calls: list) -> float:
+        """(token, layer) routes whose top-k set differs from those of
+        ``other_calls``, another run's record of the same calls."""
+        if len(self.calls) != len(other_calls):
+            raise AssertionError(f"{len(self.calls)} routing calls against {len(other_calls)}")
+        flips = total = 0
+        for (_, a, _), (_, b, _) in zip(self.calls, other_calls):
+            flips += int((a.sort(dim=-1).values != b.sort(dim=-1).values).any(dim=-1).sum())
+            total += a.shape[0] * a.shape[1]
+        return flips / total
+
+
+def moe_no_drop(cfg):
+    """``cfg`` with the capacity factor E / k: every expert has room for every
+    token of its group, so nothing drops."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def phase_kernels_moe(dev) -> dict:
+    """Phase 15, the kernels at the MoE models' new widths against their
+    plain versions, timed: K4 rows at Kimi-K2's d 7168 (a 4 x 1024 prefill,
+    a decode step of 4) and at Llama-4-Scout's training rows [8192, 5120],
+    K5 and K6 on those rows, K7 causal at Hq 64 over Hkv 8 (Kimi's prefill)
+    and at Hq 40 over 8 (Llama-4's training windows, B 2 x S 4096), and K12
+    at group 8 (a Kimi decode wave of 4 slots)."""
+    from repro_torch.kernels.flash_attention.flash import BOUND_TILE, flash_fwd, live_tile_pairs
+    from repro_torch.kernels.flash_attention.paged import paged_decode
+    from repro_torch.kernels.flash_attention.ref import attention_ref, paged_attention_ref
+    from repro_torch.kernels.fused_rmsnorm.ref import rms_bwd_ref, rms_norm_ref
+    from repro_torch.kernels.fused_rmsnorm.rmsnorm import rms_bwd_dw, rms_bwd_dx, rms_fwd
+    from repro_torch.launch.time_paged import paged_case, paged_work
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    rng = np.random.default_rng(15)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(dtype)
+
+    def report(name, t):
+        log(f"  {name}: ms {t['ms']:.4f}  plain {t['plain_ms']:.4f}  library "
+            f"{'none' if t['library_ms'] is None else format(t['library_ms'], '.4f')}  bound "
+            f"{t['bound_ms']:.4f} ({t['bound_by']}, {t['bytes'] / 1e6:.3f} MB, "
+            f"{t['flops'] / 1e9:.3f} GFLOP)  share {t['bound_ms'] / t['ms']:.1%}")
+
+    b, s, hq, hkv, dh = MOE_KIMI_B, MOE_KIMI_S, 64, 8, 128
+    rows = HYB_B * HYB_S  # Llama-4-Scout's training rows (B 2 x S 4096)
+    out = {"rms_fwd": {}, "rms_bwd_dx": {}, "rms_bwd_dw": {}, "flash_fwd": {},
+           "paged_decode": {}}
+    log(f"K4 rms_fwd (rows) bf16: Kimi-K2's prefill [{b}, {s}, 7168] and decode [{b}, 1, 7168], "
+        f"Llama-4-Scout's training rows [{rows}, 5120]")
+    for nm, shape in (("kimi_prefill", (b, s, 7168)), ("kimi_decode", (b, 1, 7168)),
+                      ("llama4_train", (rows, 5120))):
+        d = shape[-1]
+        x, w = randn(*shape, dtype=torch.bfloat16, scale=2.0, shift=0.3), randn(d, scale=0.1, shift=1.0)
+        (y, r), (yr, rr) = rms_fwd(x, w), rms_norm_ref(x, w)
+        torch.cuda.synchronize()
+        err = max_err(y, yr)
+        check(f"K4 rows y {nm}", err, TOL["norm_bf16"])
+        check(f"K4 rows rstd {nm}", max_err(r, rr), TOL["stat"])
+        wl = w.to(x.dtype)
+        t = dict(shape=list(shape), max_abs_err=err, ms=device_ms(lambda: rms_fwd(x, w), 50),
+                 plain_ms=device_ms(lambda: rms_norm_ref(x, w), 10),
+                 # yardstick only, never on the port's path: the library norm
+                 library_ms=device_ms(lambda: F.rms_norm(x, (d,), wl, 1e-6), 50),
+                 bytes=2 * x.numel() * 2 + x.numel() // d * 4 + d * 4, flops=4 * x.numel())
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], F32_FLOPS)
+        out["rms_fwd"][nm] = t
+        report(f"K4 rows {nm}", t)
+        del x, y, yr
+
+    d = 5120
+    log(f"K5 rms_bwd_dx, K6 rms_bwd_dw (rows)  dy, x [{rows}, {d}] bf16, w [{d}] f32, rstd of the "
+        f"plain forward")
+    xs, ws = randn(rows, d, dtype=torch.bfloat16, scale=2.0, shift=0.3), randn(d, scale=0.1, shift=1.0)
+    rs = rms_norm_ref(xs, ws)[1]
+    dys = randn(rows, d, dtype=torch.bfloat16)
+    dxr, dwr = rms_bwd_ref(dys, xs, ws, rs)
+    k5_err = check_rel(f"K5 rows dx [{rows}, {d}]", rms_bwd_dx(dys, xs, ws, rs), dxr,
+                       BWD_TOL["grad_bf16"])
+    dw = rms_bwd_dw(dys, xs, rs)
+    k6_err = check_rel(f"K6 rows dw [{rows}, {d}]", dw, dwr, BWD_TOL["sum_f32"])
+    if not torch.equal(dw, rms_bwd_dw(dys, xs, rs)):
+        raise AssertionError(f"K6 on rows is not bitwise deterministic at d {d}")
+    # yardstick only, never on the port's path: the library norm's backward
+    leaves = [xs.detach().requires_grad_(), ws.bfloat16().detach().requires_grad_()]
+    yl = F.rms_norm(leaves[0], (d,), leaves[1], 1e-6)
+    plain_ms = device_ms(lambda: rms_bwd_ref(dys, xs, ws, rs), 5)
+    for name, fn, err, lib, nbytes, flops in (
+            ("rms_bwd_dx", lambda: rms_bwd_dx(dys, xs, ws, rs), k5_err, leaves[:1],
+             3 * rows * d * 2 + rows * 4 + d * 4, 6 * rows * d),
+            ("rms_bwd_dw", lambda: rms_bwd_dw(dys, xs, rs), k6_err, leaves[1:],
+             2 * rows * d * 2 + rows * 4 + d * 4, 3 * rows * d)):
+        t = dict(shape=[rows, d], max_abs_err=err, ms=device_ms(fn, 20), plain_ms=plain_ms,
+                 library_ms=cuda_ms(lambda: torch.autograd.grad(yl, lib, dys, retain_graph=True),
+                                    10),
+                 bytes=nbytes, flops=flops)
+        t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
+        out[name]["llama4_train"] = t
+        report(f"{'K5' if name == 'rms_bwd_dx' else 'K6'} rows llama4_train", t)
+    del xs, dys, leaves, yl, dxr, dwr
+
+    for nm, bb, ss, hh in (("kimi_prefill", b, s, hq), ("llama4_train", HYB_B, HYB_S, 40)):
+        log(f"K7 flash_fwd, {nm}: q [{bb}, {ss}, {hh}, {dh}], k, v [{bb}, {ss}, {hkv}, {dh}] bf16 "
+            f"(views of qkv [{bb}, {ss}, {(hh + 2 * hkv) * dh}]), causal")
+        qkv = randn(bb, ss, (hh + 2 * hkv) * dh, dtype=torch.bfloat16)
+        q = qkv[..., : hh * dh].reshape(bb, ss, hh, dh)
+        k = qkv[..., hh * dh : (hh + hkv) * dh].reshape(bb, ss, hkv, dh)
+        v = qkv[..., (hh + hkv) * dh :].reshape(bb, ss, hkv, dh)
+        (o, lse), (o_r, lse_r) = flash_fwd(q, k, v, causal=True), attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = max_err(o, o_r)
+        check(f"K7 {nm} out", err, TOL["attn_bf16"])
+        check(f"K7 {nm} lse", max_err(lse, lse_r), TOL["lse_bf16"])
+        tiles = live_tile_pairs(ss, ss, causal=True) * hh * bb
+        t = dict(shape=f"q [{bb}, {ss}, {hh}, {dh}], kv heads {hkv}", max_abs_err=err,
+                 ms=device_ms(lambda: flash_fwd(q, k, v, causal=True), 20),
+                 plain_ms=device_ms(lambda: attention_ref(q, k, v, causal=True), 3),
+                 # yardstick only, never on the port's path: the library's causal attention
+                 library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                     enable_gqa=True), 20),
+                 bytes=2 * q.numel() * 2 + 2 * k.numel() * 2 + bb * hh * ss * 4,
+                 flops=tiles * 4 * BOUND_TILE ** 2 * dh, live_tile_pairs=tiles)
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], BF16_FLOPS)
+        out["flash_fwd"][nm] = t
+        report(f"K7 {nm}", t)
+        del qkv, q, k, v, o, o_r
+
+    lens = [int(x) for x in rng.integers(s, s + MOE_KIMI_NEW + 1, size=b)]
+    log(f"K12 paged_decode at the Kimi-K2 wave: q [{b}, {hq}, {dh}] (group {hq // hkv}), pages "
+        f"of 16 [.., 16, {hkv}, {dh}] bf16, 256 entries a table row, kv_lens {lens}")
+    q, kp, vp, tables, kv_lens = paged_case(dev, g, rng, lens, hq, hkv, dh, LM_PAGE,
+                                            torch.bfloat16, pages_max=256, spare=64)
+    args = (q, kp, vp, tables[0], kv_lens)
+    o, o_r = paged_decode(*args), paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    err = max_err(o, o_r)
+    check("K12 kimi wave out", err, TOL["attn_bf16"])
+    check_slots("K12 kimi wave out", o, o_r, TOL["attn_bf16_slot"])
+    nbytes, flops = paged_work(*args)
+    t = dict(shape=f"q [{b}, {hq}, {dh}], pool {list(kp.shape)}, kv_lens {lens}",
+             max_abs_err=err, ms=device_ms(lambda: paged_decode(*args), 50),
+             plain_ms=device_ms(lambda: paged_attention_ref(*args), 3), library_ms=None,
+             bytes=nbytes, flops=flops)
+    t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
+    out["paged_decode"]["kimi_wave"] = t
+    report("K12 kimi_wave", t)
+    return out
+
+
+def phase_train_moe(K, dev) -> dict:
+    """Phase 15 (a): Llama-4-Scout training at full width and 2 of its 48
+    layers (bf16, f32 AdamW moments): 4 ``Trainer`` steps on
+    ``EmulatedEngine`` (3 of B 2 x S 4096 unpacked rows, one of 2 packed
+    windows), exact launch counts, step ms, tokens/s, peak memory and the
+    drop share; one step's gradient profiled; then the same 2 layers in f32,
+    the kernel loss and every gradient against ``ops="plain"`` with the
+    route-flip share; (d) the f32 model without drops, 32 decode steps
+    against one forward."""
+    import types
+
+    from repro_torch.configs.registry import get_config, get_optimizer
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.engine import EmulatedEngine
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.steps import init_state, make_pool_grad_step
+
+    out = {}
+    full = get_config(MOE_LLAMA)
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    B, S, L = HYB_B, HYB_S, cfg.n_layers
+    opt = OptimizerConfig(peak_lr=get_optimizer(MOE_LLAMA).peak_lr, schedule="constant",
+                          warmup=0, total_steps=MOE_STEPS)
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["model"].parameters())
+    rng = np.random.default_rng(0)
+    packed = hybrid_packed_batch(cfg, dev, seed=15)
+    docs = int((packed["segment_ids"].max(dim=1).values + 1).sum())
+    log(f"(a) Trainer on EmulatedEngine, {cfg.name}: {L} of {full.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} over {cfg.n_kv_heads}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of {cfg.moe.d_expert} and a shared "
+        f"one, capacity factor {cfg.moe.capacity_factor}, vocab {cfg.vocab}, bf16, "
+        f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s; steps 0-2 B {B} x "
+        f"S {S} unpacked, step 3 {B} packed windows of {S} ({docs} documents)")
+    bucket = types.SimpleNamespace(batch_size=B, seq_len=S, tokens=B * S)
+    batches = [make_lm_batch(int(rng.integers(2**31)), B, S, cfg.vocab, cfg, dev)
+               for _ in range(MOE_STEPS - 1)] + [packed]
+    stream = iter([[(bucket, b)] for b in batches])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with MoERoutes() as routes:
+        state, hist = Trainer(cfg, opt, engine=EmulatedEngine(cfg, opt)).run(
+            state, stream, MOE_STEPS, rng=1, log_every=1)
+        torch.cuda.synchronize()
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not np.isfinite(hist.losses).all():
+        raise AssertionError(f"a loss is not finite: {hist.losses}")
+    bad = [n for n, prm in state["model"].named_parameters() if not torch.isfinite(prm).all()]
+    if bad or state["step"] != MOE_STEPS:
+        raise AssertionError(f"parameters not finite after the updates: {bad[:5]}")
+    check_counts(counts, sum(hist.microbatches), L, "training", per_microbatch_dense)
+    steady = [i for i in range(MOE_STEPS) if i not in hist.compile_steps]
+    if not steady:
+        raise AssertionError("every step ran a new batch signature: no steady step")
+    step_ms = [1e3 * t for t in hist.step_times]
+    steady_ms = float(np.mean([step_ms[i] for i in steady]))
+    drop = routes.drop_share()
+    for i, (ms, tok) in enumerate(zip(step_ms, hist.tokens)):
+        log(f"  step {i}: {tok} tokens, {ms:.1f} ms, loss {hist.losses[i]:.4f}"
+            f"{'  (first signature)' if i in hist.compile_steps else ''}")
+    log(f"  steady step {steady_ms:.1f} ms (steps {steady}), {hist.throughput:,.0f} tokens/s, "
+        f"peak memory {peak:.2f} GiB, dropped assignments {drop:.2%} of {len(routes.calls)} "
+        f"capacity-routed calls, events {hist.events}")
+    grad_step = make_pool_grad_step(cfg)
+    busy = device_busy(lambda: grad_step(state["model"], batches[0], 0, 0))
+    log(f"  one microbatch's gradient (B {B} x S {S}) profiled: device busy "
+        f"{busy['busy_ms']:.1f} ms of {busy['window_ms']:.1f} (idle {busy['idle_share']:.1%}); by "
+        f"family {json.dumps({k: round(v, 2) for k, v in busy['device_ms_by_family'].items()})}")
+    out["train"] = dict(
+        n_params=n_params, documents=docs, losses=hist.losses, step_ms=step_ms,
+        tokens=hist.tokens, events=hist.events, steady_steps=steady, steady_step_ms=steady_ms,
+        tokens_per_s=hist.throughput, peak_gib=peak, launches=counts, drop_share=drop,
+        per_microbatch=per_microbatch_dense(L), grad_profile=busy)
+    state["opt"] = None
+    del state, hist, stream, batches, routes, grad_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same depth in f32: the kernels against their plain versions
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = T.Transformer(cfg32, seed=1, device=dev)
+    batch = make_lm_batch(5, 1, S, cfg32.vocab, cfg32, dev)
+    res, runs = {}, {}
+    for ops in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        with MoERoutes() as runs[ops]:
+            loss = T.lm_loss(model, batch["tokens"], batch["labels"], ops=ops)
+            loss.backward()
+        res[ops] = (loss.item(), {n: prm.grad for n, prm in model.named_parameters()})
+        for prm in model.parameters():
+            prm.grad = None
+    loss_rel = abs(res["kernel"][0] - res["plain"][0]) / abs(res["plain"][0])
+    rels = {n: rel_l2(res["kernel"][1][n], gp) for n, gp in res["plain"][1].items()}
+    worst = max(rels, key=rels.get)
+    flips = runs["kernel"].flip_share(runs["plain"].calls)
+    log(f"  {L} layers, full width, f32, B 1 x S {S}: loss {res['kernel'][0]:.6f} kernel vs "
+        f"{res['plain'][0]:.6f} plain (rel {loss_rel:.2e}, tol {MOE_LOSS_TOL}); largest gradient "
+        f"rel-L2 {rels[worst]:.3e} ({worst}, tol {MOE_GRAD_TOL}); routes that differ "
+        f"{flips:.3%}; dropped {runs['kernel'].drop_share():.2%} (kernel), "
+        f"{runs['plain'].drop_share():.2%} (plain)")
+    if not (np.isfinite(res["kernel"][0]) and loss_rel <= MOE_LOSS_TOL
+            and rels[worst] <= MOE_GRAD_TOL):
+        raise AssertionError("kernel training gradients disagree with the plain versions'")
+    out["grad_check"] = dict(dtype="float32", loss_kernel=res["kernel"][0],
+                             loss_plain=res["plain"][0], loss_rel=loss_rel, worst_grad=worst,
+                             worst_grad_rel_l2=rels[worst], route_flip_share=flips)
+    del res, runs, batch
+
+    # (d) no drops (capacity factor E / k): decoding against the forward
+    model.cfg = moe_no_drop(cfg32)
+    b, s, new = MOE_F32_B, MOE_F32_S, MOE_F32_NEW
+    tokens = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        lg, caches = T.prefill(model, tokens, s + new)
+        got = [lg]
+        for i in range(new):
+            lg, caches = T.decode_step(model, caches, got[-1].argmax(dim=-1, keepdim=True).int(),
+                                       s + i)
+            got.append(lg)
+        ext = torch.cat([tokens, *[x.argmax(dim=-1, keepdim=True).int() for x in got[:new]]],
+                        dim=1)
+        h, _ = model(ext)
+        oracle = (h[:, s - 1 :] @ model.embed.T).float()
+    rel = [rel_l2(a, oracle[:, i]) for i, a in enumerate(got)]
+    log(f"(d) f32, {L} layers, capacity factor {model.cfg.moe.capacity_factor} (no drop): "
+        f"{new} decode steps from {b} prompts of {s} against the forward over {s + new} tokens, "
+        f"rel-L2 prefill {rel[0]:.3e}, decode max {max(rel[1:]):.3e} (tol {SERVE_TOL['f32']:.0e})")
+    if max(rel) > SERVE_TOL["f32"]:
+        raise AssertionError(f"Llama-4-Scout f32 decode disagrees with the forward: {rel}")
+    del caches, h, oracle, got
+    # the paged engine against contiguous serving, in f32
+    eng, wall = moe_engine(K, model, MOE_ENGINE_REQUESTS, max_seq=1024)
+    check_lm_counts(K.launch_counts(), eng, L, "f32 engine")
+    contig = engine_vs_contiguous(K, eng, L)
+    worst = max(q["rel_l2"] for q in contig["requests"])
+    rels = ", ".join(format(q["rel_l2"], ".2e") for q in contig["requests"])
+    log(f"  f32 engine ({len(eng.done)} requests, {wall:.2f} s) against contiguous serving "
+        f"teacher-forced: logits rel-L2 [{rels}] (tol {SERVE_TOL['f32']:.0e}), greedy "
+        f"disagreements {[q['disagreements'] for q in contig['requests']]}")
+    if worst > SERVE_TOL["f32"]:
+        raise AssertionError(f"the f32 engine disagrees with contiguous serving: {contig}")
+    out["f32_decode"] = dict(layers=L, decode_steps=new, rel_l2_forward=rel,
+                             engine_rel_l2=[q["rel_l2"] for q in contig["requests"]])
+    del model, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_engine(K, model, n_requests: int, *, max_seq: int):
+    """``n_requests`` requests through a recording ``ServeEngine`` on
+    ``model`` (the serve launcher's stream: Poisson arrivals at 20/s,
+    prompts of 4 to max_seq / 4 tokens, 2 to 32 new tokens; 4 slots, 256
+    pages of 16), launch counts reset just before.  Returns ``(engine, wall
+    s)``."""
+    from repro_torch.launch.serve import DEMO_MODEL
+    from repro_torch.serve import ServeConfig
+
+    eng = _recording_engine()(model, model.cfg, DEMO_MODEL, ServeConfig(
+        target_step=0.25, page_size=LM_PAGE, num_pages=256, decode_slots=4, max_seq=max_seq))
+    rng = np.random.default_rng(0)
+    clock = 0.0
+    for _ in range(n_requests):
+        clock += float(rng.exponential(1.0 / 20.0))
+        plen = int(rng.integers(4, max(5, max_seq // 4)))
+        eng.submit(rng.integers(0, model.cfg.vocab, size=plen).astype(np.int32),
+                   1 + int(rng.integers(1, 33)), arrival=clock)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(eng.done) != n_requests or any(len(r.out) != r.max_new for r in eng.done):
+        raise AssertionError("not every request finished with its max_new tokens")
+    return eng, wall
+
+
+def engine_vs_contiguous(K, eng, n_layers: int) -> dict:
+    """Each of the engine's requests through contiguous prefill and decode,
+    teacher-forced on the engine's tokens: the logits' rel-L2 against the
+    engine's and the greedy disagreements a request, exact launch counts,
+    the host's ms a decode step, one step profiled."""
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    model, cfg = eng.model, eng.cfg
+    decode = make_decode_step(cfg)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    per_req, step_s, steps = [], 0.0, 0
+    for r in sorted(eng.done, key=lambda r: r.rid):
+        prompt = torch.from_numpy(r.prompt[None]).to(model.device)
+        forced = torch.tensor(r.out, dtype=torch.int32, device=model.device)[:, None, None]
+        logits, caches = make_prefill_step(cfg, r.prompt_len + r.max_new)(model, prompt)
+        got = [logits[0]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(r.max_new - 1):
+            logits, caches = decode(model, caches, forced[i], r.prompt_len + i)
+            got.append(logits[0])
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - t0
+        steps += r.max_new - 1
+        got, ref = torch.stack(got), torch.stack(eng.logits_of[r.rid])
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"request {r.rid}: non-finite contiguous logits")
+        arg = got.argmax(dim=-1).cpu().tolist()
+        per_req.append(dict(rid=r.rid, prompt_len=r.prompt_len, max_new=r.max_new,
+                            rel_l2=rel_l2(got, ref),
+                            disagreements=sum(a != o for a, o in zip(arg, r.out))))
+    last = (caches, forced[r.max_new - 2], r.prompt_len + r.max_new - 2)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check_exact(counts, contig_want("attn", n_layers, len(per_req), steps),
+                f"contiguous: {len(per_req)} prefills, {steps} decode steps")
+    busy = device_busy(lambda: decode(model, *last))
+    return dict(launches=counts, requests=per_req, decode_ms_wall=step_s / steps * 1e3,
+                decode_step_profile=busy)
+
+
+def phase_serve_moe(K, dev) -> dict:
+    """Phase 15 (b): Llama-4-Scout at 12 of its 48 layers (bf16, seed 0,
+    capacity factor E / k so that no route drops) serves 8 requests on a
+    recording ``ServeEngine`` (the serve launcher's stream), then each
+    request through contiguous prefill and decode teacher-forced on the
+    engine's tokens, and two of them again with ``ops="plain"``: exact
+    launch counts, prefill and wave ms, the widest wave's device time
+    against its weights bound, the logits' rel-L2 and the route-flip
+    shares (bf16: gated only where every route agrees)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = moe_no_drop(dataclasses.replace(get_config(MOE_LLAMA), n_layers=MOE_SERVE_LAYERS))
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    model = T.Transformer(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"(b) {cfg.name} at {L} of 48 layers, bf16, capacity factor "
+        f"{cfg.moe.capacity_factor} (no drop), init {time.perf_counter() - t0:.1f} s; "
+        f"{MOE_ENGINE_REQUESTS} requests through ServeEngine (max_seq 4096, 4 slots)")
+    torch.cuda.reset_peak_memory_stats()
+    eng, wall = moe_engine(K, model, MOE_ENGINE_REQUESTS, max_seq=4096)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    done = sorted(eng.done, key=lambda r: r.rid)
+    prefills, waves = check_lm_counts(counts, eng, L, "engine")
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prefill_ms = {}
+    for _, width, a, b in eng.calls["prefill"]:
+        prefill_ms.setdefault(width, []).append(a.elapsed_time(b))
+    wave_ms = [a.elapsed_time(b) for _, _, a, b in eng.calls["decode"]]
+    wave_slots = [n for n, _, _, _ in eng.calls["decode"]]
+    wargs, rows = eng.widest
+    wave_busy = device_busy(lambda: eng.raw_decode(*wargs))
+    widest_ms = float(np.median([ms for ms, n in zip(wave_ms, wave_slots) if n == len(rows)]))
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  {weight_bytes / 1e9:.2f} GB of weights; prompts {[r.prompt_len for r in done]}, new "
+        f"tokens {[r.max_new for r in done]}; {prefills} prefills, {waves} waves in {wall:.2f} s, "
+        f"peak {peak:.2f} GiB")
+    for width in sorted(prefill_ms):
+        log(f"  prefill width {width}: {', '.join(f'{m:.2f}' for m in prefill_ms[width])} ms")
+    log(f"  waves: median {np.median(wave_ms):.2f} ms; the widest ({len(rows)} slots) median "
+        f"{widest_ms:.2f} ms; one profiled: device busy {wave_busy['busy_ms']:.3f} ms of "
+        f"{wave_busy['window_ms']:.3f} (idle {wave_busy['idle_share']:.1%}); the weights bound a "
+        f"wave at {bound_ms:.2f} ms; by family "
+        f"{json.dumps({k: round(v, 3) for k, v in wave_busy['device_ms_by_family'].items()})}")
+    contig = engine_vs_contiguous(K, eng, L)
+    busy = contig["decode_step_profile"]
+    log(f"  contiguous against the engine, bf16 (printed; gated in f32 in (d)): logits rel-L2 a "
+        f"request {[round(q['rel_l2'], 4) for q in contig['requests']]}, greedy disagreements "
+        f"{[q['disagreements'] for q in contig['requests']]}; decode "
+        f"{contig['decode_ms_wall']:.2f} ms a step (host clock), one step profiled: device busy "
+        f"{busy['busy_ms']:.3f} ms of {busy['window_ms']:.3f} (idle {busy['idle_share']:.1%})")
+
+    # the kernels against their plain versions, teacher-forced, two requests
+    plain_check = []
+    for r in done[:2]:
+        prompt = torch.from_numpy(r.prompt[None]).to(dev)
+        forced = torch.tensor(r.out, dtype=torch.int32, device=dev)[:, None, None]
+        lgs, runs = {}, {}
+        for ops in ("kernel", "plain"):
+            with torch.inference_mode(), MoERoutes() as runs[ops]:
+                lg, c = T.prefill(model, prompt, r.prompt_len + r.max_new, ops=ops)
+                lgs[ops] = [lg[0]]
+                for i in range(r.max_new - 1):
+                    lg, c = T.decode_step(model, c, forced[i], r.prompt_len + i, ops=ops)
+                    lgs[ops].append(lg[0])
+        rel = rel_l2(torch.stack(lgs["kernel"]), torch.stack(lgs["plain"]))
+        flips = runs["kernel"].flip_share(runs["plain"].calls)
+        gated = flips == 0.0
+        plain_check.append(dict(rid=r.rid, rel_l2=rel, route_flip_share=flips, gated=gated))
+        log(f"  request {r.rid}, kernels against plain teacher-forced: logits rel-L2 {rel:.3e}, "
+            f"routes that differ {flips:.3%} of (token, layer)"
+            + (f" (tol {SERVE_TOL['dense_bf16']})" if gated else " (printed: a route differs)"))
+        if gated and rel > SERVE_TOL["dense_bf16"]:
+            raise AssertionError(f"kernel serving disagrees with the plain versions: {rel}")
+    out = dict(
+        layers=L, weight_bytes=weight_bytes, peak_gib=peak,
+        engine=dict(launches=counts, prefills=prefills, waves=waves, wall_s=wall,
+                    prompts=[r.prompt_len for r in done], max_new=[r.max_new for r in done],
+                    prefill_ms_by_width={str(k): v for k, v in sorted(prefill_ms.items())},
+                    wave_ms=wave_ms, wave_slots=wave_slots, widest_wave_ms=widest_ms,
+                    widest_wave_profile=wave_busy, weights_bound_ms=bound_ms),
+        contiguous=contig, plain_check=plain_check)
+    del eng, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_kimi(K, dev) -> dict:
+    """Phase 15 (c): Kimi-K2 at full width and 2 of its 61 layers (the dense
+    lead layer and one MoE layer of 384 experts, bf16, seed 0, the published
+    capacity factor): a contiguous prefill of 4 x 1024 tokens, 32 greedy
+    decode steps, then the same prompts through the paged prefill and one
+    paged decode wave against the first contiguous step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import (
+        make_decode_step,
+        make_paged_decode_step,
+        make_paged_prefill_step,
+        make_prefill_step,
+    )
+
+    cfg = dataclasses.replace(get_config(MOE_KIMI), n_layers=2)
+    L, b, s, new = cfg.n_layers, MOE_KIMI_B, MOE_KIMI_S, MOE_KIMI_NEW
+    t0 = time.perf_counter()
+    model = T.Transformer(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    expert_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                       if n.split(".")[-1] in ("w1", "w2", "w3") and ".moe." in n
+                       and ".shared." not in n)
+    log(f"(c) {cfg.name}: {L} of 61 layers ({cfg.layer_kinds()}), d {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k} of {cfg.moe.d_expert}, capacity factor {cfg.moe.capacity_factor}, "
+        f"{weight_bytes / 1e9:.2f} GB of weights ({expert_bytes / 1e9:.2f} GB of routed experts, "
+        f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at the memory rate), "
+        f"init {time.perf_counter() - t0:.1f} s; {b} prompts of {s}, {new} decode steps")
+    tokens = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+    prefill, decode = make_prefill_step(cfg, s + new), make_decode_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(new + 2)]
+    with MoERoutes() as routes:
+        ev[0].record()
+        logits, caches = prefill(model, tokens)
+        ev[1].record()
+        got = [logits]
+        t0 = time.perf_counter()
+        for i in range(new):
+            logits, caches = decode(model, caches, got[-1].argmax(dim=-1, keepdim=True).int(),
+                                    s + i)
+            ev[i + 2].record()
+            got.append(logits)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_exact(counts, contig_want("attn", L, 1, new), f"prefill + {new} decode steps")
+    if not all(bool(torch.isfinite(lg).all()) and lg.shape == (b, cfg.vocab) for lg in got):
+        raise AssertionError("Kimi-K2 serving gave non-finite or misshapen logits")
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    step_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(new)]
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    first = got[0].argmax(dim=-1, keepdim=True).int()
+    busy = device_busy(lambda: decode(model, caches, first, s))
+    drop = routes.drop_share()
+    log(f"  prefill {prefill_ms:.1f} ms ({b * s / prefill_ms * 1e3:.0f} tokens/s), dropped "
+        f"assignments {drop:.2%}; decode {wall / new * 1e3:.2f} ms a step on the host's clock "
+        f"({b * new / wall:.1f} tokens/s), {np.median(step_ms):.2f} ms median between events; "
+        f"one step profiled: device busy {busy['busy_ms']:.3f} ms of {busy['window_ms']:.3f} "
+        f"(idle {busy['idle_share']:.1%}); weights bound {bound_ms:.2f} ms; peak {peak:.2f} GiB; "
+        f"by family {json.dumps({k: round(v, 3) for k, v in busy['device_ms_by_family'].items()})}")
+    del caches
+
+    # the same prompts through the paged path, and one wave against step 0
+    ps = LM_PAGE
+    per = -(-(s + new) // ps)
+    pools = T.init_paged_pools(cfg, b * per, ps, device=dev)
+    table = torch.arange(b * per, dtype=torch.int32, device=dev).reshape(b, per)
+    K.reset_launch_counts()
+    with MoERoutes() as paged_routes:
+        plg, pools = make_paged_prefill_step(cfg)(
+            model, tokens, torch.full((b,), s, dtype=torch.int32, device=dev), table[:, : s // ps],
+            pools)
+        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        wlg, pools = make_paged_decode_step(cfg)(
+            model, pools, table, torch.full((b,), s, dtype=torch.int32, device=dev), first)
+        e.record()
+        torch.cuda.synchronize()
+    pcounts = K.launch_counts()
+    want = {}
+    for kind in ("prefill", "wave"):
+        for name, n in LM_PER_CALL[kind](L).items():
+            want[name] = want.get(name, 0) + n
+    check_exact(pcounts, want, "paged prefill + one wave")
+    rel_prefill, rel_wave = rel_l2(plg, got[0]), rel_l2(wlg, got[1])
+    # against the contiguous prefill's and first decode step's calls
+    flips = paged_routes.flip_share(routes.calls[: len(paged_routes.calls)])
+    tol = SERVE_TOL["dense_bf16"]
+    log(f"  paged: prefill logits against the contiguous prefill's rel-L2 {rel_prefill:.3e}, "
+        f"the wave's against decode step 0 {rel_wave:.3e}, wave {a.elapsed_time(e):.2f} ms, "
+        f"routes that differ {flips:.3%}"
+        + (f" (tol {tol})" if flips == 0.0 else " (printed: a route differs)"))
+    if flips == 0.0 and max(rel_prefill, rel_wave) > tol:
+        raise AssertionError(f"paged Kimi-K2 serving disagrees: {rel_prefill} {rel_wave}")
+    out = dict(layers=L, weight_bytes=weight_bytes, expert_bytes=expert_bytes,
+               launches=counts, paged_launches=pcounts, prefill_ms=prefill_ms,
+               decode_ms_wall=wall / new * 1e3, decode_ms_events=step_ms,
+               decode_step_profile=busy, decode_bound_ms=bound_ms, peak_gib=peak,
+               drop_share=drop, paged_rel_l2=[rel_prefill, rel_wave],
+               paged_wave_ms=a.elapsed_time(e), paged_route_flip_share=flips)
+    del model, pools, got
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4234,6 +4892,13 @@ def main() -> int:
         "train": timed("14a train_hybrid", phase_train_hybrid, K, dev),
         "serve": timed("14bc serve_hybrid", phase_serve_hybrid, K, dev),
     }
+    for name, cases in timed("15 kernels_moe", phase_kernels_moe, dev).items():
+        record["kernels"][name]["moe15"] = cases
+    record["moe15"] = {
+        "train": timed("15ad train_moe", phase_train_moe, K, dev),
+        "serve": timed("15b serve_moe", phase_serve_moe, K, dev),
+        "kimi": timed("15c serve_kimi", phase_serve_kimi, K, dev),
+    }
 
     # launches: each main path's own count, reset to 0 just before that run
     # and read just after (the serving waves of phase 3, the 4 training steps
@@ -4243,8 +4908,10 @@ def main() -> int:
     # churn leg and resumed step of phase 11 (b), (c), the Shape Benchmark's
     # calls of phase 12 (a), the NCCL launcher of phase 12 (b), both
     # processes of phase 12 (c), phase 13's Mamba-2 serving, the Qwen and
-    # MiniCPM launchers and contiguous runs, and the example, and phase 14's
-    # RecurrentGemma training steps and serving); "launches" is their sum
+    # MiniCPM launchers and contiguous runs, and the example, phase 14's
+    # RecurrentGemma training steps and serving, and phase 15's Llama-4-Scout
+    # training steps, engine and contiguous runs and Kimi-K2's contiguous
+    # and paged runs); "launches" is their sum
     kernels = []
     for name, k in record["kernels"].items():
         by_path = {"serve": record["serve"]["launches"][name],
@@ -4265,7 +4932,12 @@ def main() -> int:
                    "contig_minicpm": record["serve13"]["minicpm"]["contiguous"]["launches"][name],
                    "example_llama_f32": record["serve13"]["example"]["launches"][name],
                    "train_hybrid": record["hybrid14"]["train"]["train"]["launches"][name],
-                   "serve_hybrid": record["hybrid14"]["serve"]["launches"][name]}
+                   "serve_hybrid": record["hybrid14"]["serve"]["launches"][name],
+                   "train_moe": record["moe15"]["train"]["train"]["launches"][name],
+                   "serve_moe": record["moe15"]["serve"]["engine"]["launches"][name],
+                   "contig_moe": record["moe15"]["serve"]["contiguous"]["launches"][name],
+                   "contig_kimi": record["moe15"]["kimi"]["launches"][name],
+                   "paged_kimi": record["moe15"]["kimi"]["paged_launches"][name]}
         kernels.append({"name": name, **{key: k[key] for key in (
             "route", "source", "replaces")}, "launches": sum(by_path.values()),
             "launches_by_path": by_path,

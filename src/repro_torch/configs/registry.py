@@ -13,6 +13,8 @@ ARCHS = {
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "wan2.1-1.3b": "repro_torch.configs.wan2_1_mmdit",
 }

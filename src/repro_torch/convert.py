@@ -12,9 +12,11 @@ port's module (``MMDiT`` or ``Transformer``) ``load_state_dict``:
   plan of ``cfg.superblocks()``: unrolled ``lead`` and ``tail`` lists and
   ``blocks.s<i>.*`` stacked over ``n_rep`` superblocks; layer ``len(lead)
   + r * len(pattern) + i`` of the port is ``blocks.s<i>`` entry r, and the
-  lists take the layers before and after (attention, local-attention,
-  RG-LRU and Mamba-2 blocks, whose ``mixer.*`` leaves map like any other,
-  each in its own dtype: the RG-LRU's ``lam`` stays f32);
+  lists take the layers before and after (Kimi-K2's dense first layer
+  leads its MoE layers); every kind's leaves map alike, each in its own
+  dtype (the RG-LRU's ``lam`` and the MoE ``router`` stay f32; the
+  experts' ``moe.w1`` / ``w3`` [E, d, f] and ``w2`` [E, f, d] are stacked
+  to [n_rep, E, ...] like any other leaf);
 * every weight keeps its ``[d_in, d_out]`` layout: the port applies
   projections as ``x @ w`` exactly as the JAX model does, so nothing is
   transposed.

@@ -27,7 +27,8 @@ gradients in one ``all_reduce`` a step (``MeshEngine``).
 Without ``--adaptive`` every step is one fixed ``--batch`` x ``--seq``
 microbatch.  The mmdit trains on diffusion latents, the LMs (the dense
 ``tinyllama-1.1b``, the default as in the reference launcher, and
-``llama3.2-1b``; the ssm ``mamba2-2.7b``) on unpacked synthetic token
+``llama3.2-1b``; the ssm ``mamba2-2.7b``; the MoE ``llama4-scout-17b-a16e``
+and ``kimi-k2-1t-a32b``) on unpacked synthetic token
 streams (``make_lm_batch``) of the same shapes.  On the card the loader's
 thread draws batches on a side stream (``on_side_stream``), off the stream
 the engine times.  It prints the final loss and tokens/s.

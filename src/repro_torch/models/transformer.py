@@ -1,9 +1,11 @@
-"""Decoder-only LM: global-attention, local-attention, RG-LRU and Mamba-2
-blocks, trained, served over a paged KV cache (global-attention blocks) or
-served from contiguous per-layer caches (every kind).
+"""Decoder-only LM: global-attention, MoE, local-attention, RG-LRU and
+Mamba-2 blocks, trained, served over a paged KV cache (global-attention
+and MoE blocks) or served from contiguous per-layer caches (every kind).
 
 The counterpart of ``repro.models.transformer`` for global-attention
-transformer blocks (``"attn"``), Griffin's sliding-window attention blocks
+transformer blocks (``"attn"``), MoE blocks (``"moe"``: ``norm1``,
+``attn``, ``norm2`` and the routed ``moe`` of ``models.moe`` in place of
+the MLP), Griffin's sliding-window attention blocks
 (``"local"``: the attention block's parameters, ``local_attention``) and
 RG-LRU blocks (``"rglru"``: ``norm1``, the recurrent ``mixer``, ``norm2``
 and the MLP), and SSD mixer blocks (``"ssm"``: ``norm1`` and ``mixer``, no
@@ -21,8 +23,10 @@ Entry points:
   collecting each layer's decode cache (prefill); packed windows pass
   ``segment_ids`` (attention scoped to each document, RoPE restarting at
   each), and a sequence-parallel shard passes its ring ``seq_group`` and
-  the whole window's ``positions``;
-* :func:`lm_loss` — the chunked next-token cross-entropy (training);
+  the whole window's ``positions``; ``return_aux`` adds the MoE layers'
+  summed router loss;
+* :func:`lm_loss` — the chunked next-token cross-entropy plus the router
+  loss (training);
 * :func:`prefill` and :func:`decode_step` — contiguous serving: prompts
   of one length through ``forward``, their caches grown to a capacity
   (:func:`init_cache` gives zero ones), then one new token per row at a
@@ -45,10 +49,14 @@ layer, ``[num_pages + 1, page_size, Hkv, dh]``, the last page a scratch
 sink) are updated in place, where the JAX model builds new arrays with
 ``dynamic_update_slice`` and ``.at[].set``: the decode steps return the
 caches and pools they were given (a recurrent layer's cache is new each
-step).  Paged serving takes ``"attn"`` blocks only, as the reference's
-``_paged_kinds`` takes global-attention kinds only, and sequence
-parallelism global attention only.  The kinds not ported (MoE, cross)
-raise: they come with their slices of the port.
+step).  Paged serving takes ``"attn"`` and ``"moe"`` blocks only, as the
+reference's ``_paged_kinds`` takes global-attention kinds only, and
+sequence parallelism the same two at the block level.  The MoE blocks
+route with capacity in the full-sequence forward (training, prefill) and
+without drops in the decode steps (``no_drop``), as the reference does,
+in one dispatch group (the reference's ``policy.n_dispatch_groups``
+without a policy; the port has none).  The kind not ported (cross)
+raises: it comes with its slice of the port.
 """
 
 from __future__ import annotations
@@ -75,12 +83,13 @@ from .layers import (
     segment_relative_positions,
 )
 from .attention import decode_attention, local_attention, repeat_kv
+from .moe import MoE, apply_moe
 from .rglru import RGLRU, apply_rglru, apply_rglru_decode, rglru_cache_init
 from .ssm import SSM, apply_ssm, apply_ssm_decode, ssm_cache_init
 
-KINDS = ("attn", "ssm", "local", "rglru")  # the block kinds ported so far
-PAGED_KINDS = ("attn",)  # the kinds paged serving takes
-SP_KINDS = ("attn", "moe")  # the kinds sequence parallelism takes (MoE is not ported)
+KINDS = ("attn", "moe", "ssm", "local", "rglru")  # the block kinds ported so far
+PAGED_KINDS = ("attn", "moe")  # the kinds paged serving takes
+SP_KINDS = ("attn", "moe")  # the kinds sequence parallelism takes
 
 
 def _ops(ops: str):
@@ -95,15 +104,15 @@ def _model_kinds(cfg: ModelConfig) -> list[str]:
     bad = sorted({k for k in kinds if k not in KINDS})
     if bad:
         raise ValueError(
-            f"the port runs global- and local-attention, RG-LRU and Mamba-2 "
-            f"blocks only ({KINDS}); config {cfg.name} has {bad}"
+            f"the port runs global-attention, MoE, local-attention, RG-LRU and "
+            f"Mamba-2 blocks only ({KINDS}); config {cfg.name} has {bad}"
         )
     return kinds
 
 
 def paged_kinds(cfg: ModelConfig) -> list[str]:
     """The layer plan of paged serving (the reference's ``_paged_kinds``),
-    refusing every kind but global attention."""
+    refusing every kind but global attention and MoE."""
     kinds = _model_kinds(cfg)
     bad = sorted({k for k in kinds if k not in PAGED_KINDS})
     if bad:
@@ -148,6 +157,19 @@ class Block(nn.Module):
         self.mlp = MLP(gen, cfg.d_model, cfg.d_ff, dtype, device)
 
 
+class MoEBlock(nn.Module):
+    """One MoE block's parameters (``block_params`` for ``"moe"``): the
+    attention half of :class:`Block`, and the routed ``moe`` in place of the
+    MLP."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype, device):
+        super().__init__()
+        self.norm1 = Norm(cfg.d_model, device, cfg.norm)
+        self.attn = Attention(cfg, gen, dtype, device)
+        self.norm2 = Norm(cfg.d_model, device, cfg.norm)
+        self.moe = MoE(cfg.d_model, cfg.moe, gen, dtype, device)
+
+
 class SSMBlock(nn.Module):
     """One Mamba-2 block's parameters (``block_params`` for ``"ssm"``):
     ``norm1`` and the ``mixer``; the block has no MLP half."""
@@ -170,7 +192,8 @@ class RGLRUBlock(nn.Module):
         self.mlp = MLP(gen, cfg.d_model, cfg.d_ff, dtype, device)
 
 
-BLOCKS = {"attn": Block, "local": Block, "ssm": SSMBlock, "rglru": RGLRUBlock}
+BLOCKS = {"attn": Block, "moe": MoEBlock, "local": Block, "ssm": SSMBlock,
+          "rglru": RGLRUBlock}
 
 
 class Transformer(nn.Module):
@@ -197,11 +220,14 @@ class Transformer(nn.Module):
         return self.embed.device
 
     def forward(self, tokens, *, collect_cache: bool = False, ops: str = "kernel",
-                remat: bool = False, segment_ids=None, positions=None, seq_group=None):
+                remat: bool = False, segment_ids=None, positions=None, seq_group=None,
+                return_aux: bool = False):
         """Token ids [B, S] -> ``(hidden [B, S, d] after the final norm,
-        caches)``: with ``collect_cache``, one decode cache per layer
-        (``{"k", "v"}`` [B, S, Hkv, dh], k after RoPE, for an attention
-        layer; a local layer's ring; the RG-LRU's ``{"h", "conv"}``; the
+        caches)``, or with ``return_aux`` ``(hidden, aux, caches)``, aux the
+        f32 sum of the MoE layers' router losses (0 without MoE layers):
+        with ``collect_cache``, one decode cache per layer
+        (``{"k", "v"}`` [B, S, Hkv, dh], k after RoPE, for an attention or
+        MoE layer; a local layer's ring; the RG-LRU's ``{"h", "conv"}``; the
         SSM's ``{"conv", "state"}``), else None.  ``remat``
         recomputes each block in the backward (``torch.utils.checkpoint``,
         the reference's per-superblock ``jax.checkpoint``), as training
@@ -226,18 +252,22 @@ class Transformer(nn.Module):
             positions = (segment_relative_positions(segment_ids) if segment_ids is not None
                          else torch.arange(tokens.shape[1], device=x.device))
         caches = [] if collect_cache else None
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for bp, kind in zip(self.blocks, self.kinds):
             if remat:
-                x, cache = checkpoint(apply_block, bp, x, cfg, positions, K, kind,
-                                      segment_ids=segment_ids, seq_group=seq_group,
-                                      use_reentrant=False)
+                x, a, cache = checkpoint(apply_block, bp, x, cfg, positions, K, kind,
+                                         segment_ids=segment_ids, seq_group=seq_group,
+                                         use_reentrant=False)
             else:
-                x, cache = apply_block(bp, x, cfg, positions, K, kind,
-                                       collect_cache=collect_cache, segment_ids=segment_ids,
-                                       seq_group=seq_group)
+                x, a, cache = apply_block(bp, x, cfg, positions, K, kind,
+                                          collect_cache=collect_cache,
+                                          segment_ids=segment_ids, seq_group=seq_group)
+            if a is not None:
+                aux = aux + a
             if collect_cache:
                 caches.append(cache)
-        return apply_norm(self.final_norm, x, cfg.norm, cfg.norm_eps, K), caches
+        h = apply_norm(self.final_norm, x, cfg.norm, cfg.norm_eps, K)
+        return (h, aux, caches) if return_aux else (h, caches)
 
 
 # --------------------------------------------------------------------------
@@ -282,13 +312,16 @@ def _self_attn_full(bp: Attention, x, cfg: ModelConfig, positions, K, *, local: 
     return ctx.reshape(b, s, cfg.n_heads * cfg.head_dim) @ bp.wo, (k, v)
 
 
-def apply_block(bp: Block | SSMBlock | RGLRUBlock, x, cfg: ModelConfig, positions, K,
-                kind: str = "attn", *, collect_cache: bool = False, segment_ids=None,
+def apply_block(bp: Block | MoEBlock | SSMBlock | RGLRUBlock, x, cfg: ModelConfig, positions,
+                K, kind: str = "attn", *, collect_cache: bool = False, segment_ids=None,
                 seq_group=None):
     """One block over a full sequence (or a ring shard of one, with
-    ``seq_group``).  Returns ``(x, cache or None)``.  As in the reference,
+    ``seq_group``).  Returns ``(x, aux, cache or None)``, aux the MoE
+    layer's router loss (None for the other kinds).  As in the reference,
     ``segment_ids`` reach the attention kinds only: in a packed window the
-    RG-LRU's and the SSM's conv and recurrence run across documents."""
+    RG-LRU's and the SSM's conv and recurrence run across documents, and
+    the MoE routes each token alone (its capacity counts every token of
+    the group, padding included)."""
     if seq_group is not None and kind not in SP_KINDS:
         raise ValueError(
             f"sequence parallelism does not support {kind!r} blocks "
@@ -298,8 +331,8 @@ def apply_block(bp: Block | SSMBlock | RGLRUBlock, x, cfg: ModelConfig, position
     if kind == "ssm":
         if collect_cache:
             out, cache = apply_ssm(bp.mixer, h, cfg.ssm, K, return_cache=True)
-            return x + out, cache
-        return x + apply_ssm(bp.mixer, h, cfg.ssm, K), None
+            return x + out, None, cache
+        return x + apply_ssm(bp.mixer, h, cfg.ssm, K), None, None
     cache = None
     if kind == "rglru":
         if collect_cache:
@@ -313,7 +346,10 @@ def apply_block(bp: Block | SSMBlock | RGLRUBlock, x, cfg: ModelConfig, position
             cache = _make_attn_cache(k, v, kind, cfg)
     x = x + out
     h2 = apply_norm(bp.norm2, x, cfg.norm, cfg.norm_eps, K)
-    return x + apply_mlp(bp.mlp, h2), cache
+    if kind == "moe":
+        out2, aux = apply_moe(bp.moe, h2, cfg.moe)
+        return x + out2, aux, cache
+    return x + apply_mlp(bp.mlp, h2), None, cache
 
 
 def _make_attn_cache(k, v, kind: str, cfg: ModelConfig) -> dict:
@@ -347,14 +383,17 @@ def lm_loss(model: Transformer, tokens, labels, *, loss_chunk: int = 512, ops: s
     [B, S] (``repro.models.transformer.lm_loss``): the forward with each
     block recomputed in the backward, then :func:`chunked_softmax_xent`
     over chunks of ``min(loss_chunk, S)`` positions against the tied
-    embedding.  ``segment_ids``, ``positions`` and ``seq_group`` as in
-    :meth:`Transformer.forward`; on a ``LocalRing`` the k shards are
-    stacked along the batch axis, so the mean over all their tokens is the
-    mean of the k shard means.  The ported kinds carry no auxiliary loss
-    (MoE's router loss comes with MoE)."""
-    h, _ = model(tokens, ops=ops, remat=remat, segment_ids=segment_ids, positions=positions,
-                 seq_group=seq_group)
-    return chunked_softmax_xent(h, model.embed, labels, chunk=min(loss_chunk, tokens.shape[1]))
+    embedding, plus ``router_aux_weight`` times the MoE layers' summed
+    router loss where the config has MoE.  ``segment_ids``, ``positions``
+    and ``seq_group`` as in :meth:`Transformer.forward`; on a
+    ``LocalRing`` the k shards are stacked along the batch axis, so the
+    mean over all their tokens is the mean of the k shard means."""
+    h, aux, _ = model(tokens, ops=ops, remat=remat, segment_ids=segment_ids,
+                      positions=positions, seq_group=seq_group, return_aux=True)
+    ce = chunked_softmax_xent(h, model.embed, labels, chunk=min(loss_chunk, tokens.shape[1]))
+    if model.cfg.moe is None:
+        return ce
+    return ce + model.cfg.moe.router_aux_weight * aux
 
 
 def decays(cfg: ModelConfig):
@@ -381,12 +420,12 @@ def decays(cfg: ModelConfig):
 
 def kind_cache_init(kind: str, batch: int, cap: int, cfg: ModelConfig, *, device) -> dict:
     """One layer's zero decode cache: k and v [B, cap, Hkv, dh] in the
-    model's dtype (``"attn"``), an empty ring of ``cfg.local_window`` slots
+    model's dtype (``"attn"`` and ``"moe"``), an empty ring of ``cfg.local_window`` slots
     (``"local"``: every ``pos`` -1), or the recurrent state and conv rows
     of an RG-LRU (``"rglru"``) or SSM (``"ssm"``) layer."""
     dt = DTYPES[cfg.dtype]
-    if kind in ("attn", "local"):
-        n = cap if kind == "attn" else cfg.local_window
+    if kind in ("attn", "moe", "local"):
+        n = cfg.local_window if kind == "local" else cap
         shape = (batch, n, cfg.n_kv_heads, cfg.head_dim)
         c = {"k": torch.zeros(shape, dtype=dt, device=device),
              "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -408,12 +447,12 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, *, device=None) -> list:
 
 
 def _pad_attn_caches(caches: list, cfg: ModelConfig, cap: int) -> list:
-    """Grow the global-attention layers' k and v along the sequence to
-    ``cap`` (never shorter: a longer prompt keeps its length); local rings
-    keep their window."""
+    """Grow the global-attention (and MoE) layers' k and v along the
+    sequence to ``cap`` (never shorter: a longer prompt keeps its length);
+    local rings keep their window."""
     out = []
     for c, kind in zip(caches, cfg.layer_kinds()):
-        s = c["k"].shape[1] if kind == "attn" else cap
+        s = c["k"].shape[1] if kind in ("attn", "moe") else cap
         if s < cap:
             pad = (0, 0, 0, 0, 0, cap - s)
             c = {"k": F.pad(c["k"], pad), "v": F.pad(c["v"], pad)}
@@ -424,20 +463,22 @@ def _pad_attn_caches(caches: list, cfg: ModelConfig, cap: int) -> list:
 def prefill(model: Transformer, tokens, cache_cap: int, *, ops: str = "kernel"):
     """Run the prompts tokens [B, S] (one length: the logits are at the
     last position of every row).  Returns ``(logits [B, V] f32, caches)``,
-    the attention caches grown to ``cache_cap`` positions."""
+    the attention caches grown to ``cache_cap`` positions.  The MoE layers
+    route the B * S tokens with capacity, as in training."""
     h, caches = model(tokens, collect_cache=True, ops=ops)
     return last_token_logits(h[:, -1], model.embed), _pad_attn_caches(caches, model.cfg,
                                                                       cache_cap)
 
 
-def apply_block_decode(bp: Block | SSMBlock | RGLRUBlock, x, cfg: ModelConfig, cache: dict,
-                       pos: int, K, kind: str = "attn"):
+def apply_block_decode(bp: Block | MoEBlock | SSMBlock | RGLRUBlock, x, cfg: ModelConfig,
+                       cache: dict, pos: int, K, kind: str = "attn"):
     """One block for one new token per row at position ``pos``.  Returns
-    ``(x, cache)``: an attention layer's k and v are written at ``pos`` in
-    place before attending over ``pos + 1`` positions; a local layer's at
-    slot ``pos mod w`` of its ring, in place, with ``pos`` recorded there,
-    before attending over the slots that hold one of the last w positions;
-    a recurrent layer's cache is new."""
+    ``(x, cache)``: an attention (or MoE) layer's k and v are written at
+    ``pos`` in place before attending over ``pos + 1`` positions; a local
+    layer's at slot ``pos mod w`` of its ring, in place, with ``pos``
+    recorded there, before attending over the slots that hold one of the
+    last w positions; a recurrent layer's cache is new.  An MoE layer
+    routes the B new tokens without drops."""
     h = apply_norm(bp.norm1, x, cfg.norm, cfg.norm_eps, K)
     if kind == "ssm":
         out, cache = apply_ssm_decode(bp.mixer, h, cache, cfg.ssm, K)
@@ -445,17 +486,17 @@ def apply_block_decode(bp: Block | SSMBlock | RGLRUBlock, x, cfg: ModelConfig, c
     if kind == "rglru":
         out, cache = apply_rglru_decode(bp.mixer, h, cache, cfg)
         x = x + out
-    elif kind in ("attn", "local"):
+    elif kind in ("attn", "moe", "local"):
         b = x.shape[0]
         q, k, v = _project_qkv(bp.attn, h, cfg, K)
         posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, posv, cfg.rope_theta)
         k = apply_rope(k, posv, cfg.rope_theta)
         kc, vc = cache["k"], cache["v"]
-        slot = pos if kind == "attn" else pos % cfg.local_window
+        slot = pos % cfg.local_window if kind == "local" else pos
         kc[:, slot] = k[:, 0].to(kc.dtype)
         vc[:, slot] = v[:, 0].to(vc.dtype)
-        if kind == "attn":
+        if kind != "local":
             valid = torch.arange(kc.shape[1], device=x.device) <= pos
         else:
             pos_arr = cache["pos"]
@@ -468,6 +509,8 @@ def apply_block_decode(bp: Block | SSMBlock | RGLRUBlock, x, cfg: ModelConfig, c
     else:
         raise ValueError(kind)
     h2 = apply_norm(bp.norm2, x, cfg.norm, cfg.norm_eps, K)
+    if kind == "moe":
+        return x + apply_moe(bp.moe, h2, cfg.moe, no_drop=True)[0], cache
     return x + apply_mlp(bp.mlp, h2), cache
 
 
@@ -482,7 +525,7 @@ def decode_step(model: Transformer, caches: list, token, pos: int, *, ops: str =
     if isinstance(pos, torch.Tensor):
         raise TypeError("decode_step takes pos as a Python int (the host never reads it back)")
     for c, kind in zip(caches, model.kinds):
-        if kind == "attn" and not 0 <= pos < c["k"].shape[1]:
+        if kind in ("attn", "moe") and not 0 <= pos < c["k"].shape[1]:
             raise ValueError(f"decode_step: position {pos} is outside the attention cache's "
                              f"{c['k'].shape[1]} positions")
     K = _ops(ops)
@@ -545,8 +588,11 @@ def scatter_caches_into_pools(caches: list, pools: list, cfg: ModelConfig, page_
     return pools
 
 
-def apply_block_paged_decode(bp: Block, x, cfg: ModelConfig, pool: dict, page_table, kv_lens, K):
-    """One block for one new token per decode slot, KV in paged pools.
+def apply_block_paged_decode(bp: Block | MoEBlock, x, cfg: ModelConfig, pool: dict, page_table,
+                             kv_lens, K, kind: str = "attn"):
+    """One block for one new token per decode slot, KV in paged pools; an
+    MoE layer routes the slots' tokens without drops (inactive slots
+    included: with no drop they cannot displace an active slot's token).
 
     Every slot carries its own position (``kv_lens[b]``, the tokens already
     cached).  The new token's k and v go into its slot's current page
@@ -570,6 +616,8 @@ def apply_block_paged_decode(bp: Block, x, cfg: ModelConfig, pool: dict, page_ta
     ctx = K.paged_attention(q[:, 0].contiguous(), kc, vc, page_table, kv_lens + 1)
     x = x + ctx.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ bp.attn.wo
     h2 = apply_norm(bp.norm2, x, cfg.norm, cfg.norm_eps, K)
+    if kind == "moe":
+        return x + apply_moe(bp.moe, h2, cfg.moe, no_drop=True)[0]
     return x + apply_mlp(bp.mlp, h2)
 
 
@@ -581,8 +629,8 @@ def paged_decode_step(model: Transformer, pools: list, page_table, kv_lens, toke
     K = _ops(ops)
     cfg = model.cfg
     x = model.embed[token.long()]
-    for bp, pool in zip(model.blocks, pools):
-        x = apply_block_paged_decode(bp, x, cfg, pool, page_table, kv_lens, K)
+    for bp, kind, pool in zip(model.blocks, model.kinds, pools):
+        x = apply_block_paged_decode(bp, x, cfg, pool, page_table, kv_lens, K, kind)
     x = apply_norm(model.final_norm, x, cfg.norm, cfg.norm_eps, K)
     return last_token_logits(x[:, -1], model.embed), pools
 
@@ -597,7 +645,8 @@ def paged_prefill(model: Transformer, tokens, true_len, page_table, pools: list,
     Padding rows run causally after the real tokens, so real tokens never
     attend them; their KV lands wherever the page table points (scratch for
     entries past a request's allocation) and is masked by ``kv_lens``
-    forever after.
+    forever after.  The MoE layers route every row of the padded width with
+    capacity, padding included, as the reference does.
     """
     paged_kinds(model.cfg)
     ps = pools[0]["k"].shape[1]

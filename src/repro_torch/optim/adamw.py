@@ -10,7 +10,13 @@ Parameters, gradients and moments are dicts keyed by parameter name
   the ``decay`` predicate (default ``p.ndim >= 2``; the MMDiT passes its
   stacked-layout rule, :func:`repro_torch.models.mmdit.decays`);
 * moments are stored in ``state_dtype``; the update runs in f32 and the
-  parameter is cast back to its dtype.
+  parameter is cast back to its dtype;
+* a leaf of more than ``CHUNK_THRESHOLD_ELEMS`` values is updated a block
+  of leading-axis rows at a time, as the reference maps its update over
+  the leading axis: each element's arithmetic is the same, and the f32
+  temporaries are a block's (256 MiB each), not the leaf's (an MoE
+  layer's ``w1`` of 671 M values, an embedding of 1 G).  Its squares are
+  summed into the global norm by block too (that sum's order differs).
 
 Unlike the JAX version, the update is in place: the parameters and moments
 of the arguments are overwritten (and returned), so a 1.3B model's state is
@@ -25,6 +31,10 @@ from typing import Callable
 import torch
 
 from .schedule import get_schedule
+
+#: leaves above this many values are updated by blocks of leading-axis rows
+#: (the reference's ``CHUNK_THRESHOLD_ELEMS``)
+CHUNK_THRESHOLD_ELEMS = 64 * 2**20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +62,17 @@ def init_opt_state(params: dict, config: OptimizerConfig) -> dict:
     }
 
 
+def _blocks(t: torch.Tensor):
+    """``t`` whole, or for a leaf above the threshold, views of blocks of
+    its leading-axis rows holding at most the threshold's values each."""
+    if t.numel() <= CHUNK_THRESHOLD_ELEMS or t.ndim < 2 or t.shape[0] <= 1:
+        return [t]
+    rows = max(1, CHUNK_THRESHOLD_ELEMS // (t.numel() // t.shape[0]))
+    return list(torch.split(t, rows))
+
+
 def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in tree.values()))
+    return torch.sqrt(sum(b.float().square().sum() for g in tree.values() for b in _blocks(g)))
 
 
 def _ndim_decays(name: str, p) -> bool:
@@ -73,15 +92,17 @@ def adamw_update(params: dict, grads: dict, opt_state: dict, step: int,
     bc1 = 1.0 - config.beta1**stepf
     bc2 = 1.0 - config.beta2**stepf
     for name, p in params.items():
-        m, v = opt_state["m"][name], opt_state["v"][name]
-        gf = grads[name].float() * clip
-        mf = config.beta1 * m.float() + (1 - config.beta1) * gf
-        vf = config.beta2 * v.float() + (1 - config.beta2) * gf * gf
-        delta = (mf / bc1) / (torch.sqrt(vf / bc2) + config.eps)
-        pf = p.float()
-        if decay(name, p):
-            delta = delta + config.weight_decay * pf
-        p.copy_(pf - lr * delta)
-        m.copy_(mf)
-        v.copy_(vf)
+        decays = decay(name, p)
+        for pb, gb, m, v in zip(_blocks(p), _blocks(grads[name]), _blocks(opt_state["m"][name]),
+                                _blocks(opt_state["v"][name])):
+            gf = gb.float() * clip
+            mf = config.beta1 * m.float() + (1 - config.beta1) * gf
+            vf = config.beta2 * v.float() + (1 - config.beta2) * gf * gf
+            delta = (mf / bc1) / (torch.sqrt(vf / bc2) + config.eps)
+            pf = pb.float()
+            if decays:
+                delta = delta + config.weight_decay * pf
+            pb.copy_(pf - lr * delta)
+            m.copy_(mf)
+            v.copy_(vf)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

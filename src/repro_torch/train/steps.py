@@ -1,6 +1,6 @@
 """Step functions of the port: the counterpart of ``repro.train.steps`` for
-training the mmdit, dense, ssm and hybrid (RecurrentGemma) families and
-for serving the mmdit and the LMs.
+training the mmdit, dense, moe, ssm and hybrid (RecurrentGemma) families
+and for serving the mmdit and the LMs.
 
 Diffusion serving needs a denoise step (one velocity evaluation, the unit
 of diffusion sampling); LM serving a paged prefill and a paged decode wave
@@ -40,7 +40,7 @@ NoiseHook = Callable[[int, int, dict], "tuple[torch.Tensor, torch.Tensor] | None
 
 
 #: the families the port trains
-TRAINED = ("mmdit", "dense", "ssm", "hybrid")
+TRAINED = ("mmdit", "dense", "moe", "ssm", "hybrid")
 
 
 def _mmdit_only(cfg: ModelConfig, what: str) -> None:
@@ -93,8 +93,9 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
     (``latents``, ``text`` and optional ``segment_ids`` /
     ``text_segment_ids``), ``rng`` a ``torch.Generator`` and ``noise`` an
     injected ``(t, eps)``; for the LM, ``lm_loss`` of ``tokens`` against
-    ``labels``, scoped per document by the optional ``segment_ids`` of a
-    packed batch (no draws: ``rng`` and ``noise`` are unused)."""
+    ``labels`` (the router loss included), scoped per document by the
+    optional ``segment_ids`` of a packed batch (no draws: ``rng`` and
+    ``noise`` are unused)."""
     _trained(cfg, "make_loss_fn")
     if cfg.family != "mmdit":
         def lm_loss_fn(model, batch, rng, noise=None):

@@ -5,7 +5,7 @@ port's train state ``{"model", "opt", "step"}`` is stored as the JAX tree
 ``{"params", "opt", "step"}`` (the MMDiT's blocks stacked, the LM's
 ``blocks/s<i>`` stacked and its ``tail/<i>`` one a layer), bf16 leaves as
 ``uint16_bits``.  Every value must come back bitwise, either way, on the
-Wan-2.1, Llama-3.2 and Mamba-2 smoke configurations; the two manifests must
+Wan-2.1, Llama-3.2, Mamba-2 and Kimi-K2 smoke configurations; the two manifests must
 name the same keys, shapes, dtypes and stored markers.  The store's own
 contract (retention, the age-gated sweep, retries, mismatch errors, run
 state) is checked as the JAX package's tests check it.
@@ -24,12 +24,14 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from repro.checkpoint import store as jstore  # noqa: E402
+from repro.configs import kimi_k2_1t_a32b as jax_kimi  # noqa: E402
 from repro.configs import llama3_2_1b as jax_llama  # noqa: E402
 from repro.configs import mamba2_2_7b as jax_mamba  # noqa: E402
 from repro.configs import wan2_1_mmdit as jax_wan  # noqa: E402
 from repro.optim import adamw as jax_adamw  # noqa: E402
 from repro.train.steps import init_state as jax_init_state  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
+from repro_torch.configs import kimi_k2_1t_a32b as torch_kimi  # noqa: E402
 from repro_torch.configs import llama3_2_1b as torch_llama  # noqa: E402
 from repro_torch.configs import mamba2_2_7b as torch_mamba  # noqa: E402
 from repro_torch.configs import wan2_1_mmdit as torch_wan  # noqa: E402
@@ -39,16 +41,18 @@ from repro_torch.train.steps import init_state  # noqa: E402
 
 #: (JAX config module, port config module, overrides).  The Llama case has
 #: 3 layers of the pattern (attn, attn): one stacked superblock and a tail
-#: layer (``lead`` is empty for every kind the port runs: only MoE's
-#: first dense layers lead)
+#: layer.  Kimi-K2's smoke model leads with its first dense layer (an
+#: unstacked ``lead/0``) before two stacked MoE layers, and keeps its AdamW
+#: moments in bf16 (``opt_state_dtype``)
 CASES = {
     "wan": (jax_wan, torch_wan, {}),
     "wan-bf16": (jax_wan, torch_wan, {"dtype": "bfloat16"}),
     "llama-tail": (jax_llama, torch_llama, {"n_layers": 3, "pattern": ("attn", "attn")}),
     "llama-bf16": (jax_llama, torch_llama, {"dtype": "bfloat16"}),
     "mamba2": (jax_mamba, torch_mamba, {}),
+    "kimi": (jax_kimi, torch_kimi, {}),
 }
-OPT = dict(peak_lr=1e-3, schedule="constant", warmup=0)
+OPT = dict(peak_lr=1e-3, schedule="constant", warmup=0)  # state_dtype: the config's
 
 
 def _cfgs(case):
@@ -60,7 +64,8 @@ def _cfgs(case):
 def _port_state(cfg, seed: int, step: int):
     """The port's train state with moments drawn from ``seed`` (init's are
     zero: a restore into zeros would prove nothing)."""
-    state = init_state(cfg, adamw.OptimizerConfig(**OPT), seed=seed, device="cpu")
+    state = init_state(cfg, adamw.OptimizerConfig(**OPT, state_dtype=cfg.opt_state_dtype),
+                       seed=seed, device="cpu")
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for moment in ("m", "v"):
@@ -70,8 +75,12 @@ def _port_state(cfg, seed: int, step: int):
     return state
 
 
+def _jax_opt(jcfg):
+    return jax_adamw.OptimizerConfig(**OPT, state_dtype=jcfg.opt_state_dtype)
+
+
 def _jax_state(jcfg, seed: int, step: int):
-    state = jax_init_state(jax.random.PRNGKey(seed), jcfg, jax_adamw.OptimizerConfig(**OPT))
+    state = jax_init_state(jax.random.PRNGKey(seed), jcfg, _jax_opt(jcfg))
     rng = np.random.default_rng(seed)
     state["opt"] = jax.tree.map(
         lambda a: jnp.asarray(rng.standard_normal(a.shape).astype(np.float32)).astype(a.dtype),
@@ -81,8 +90,7 @@ def _jax_state(jcfg, seed: int, step: int):
 
 
 def _jax_like(jcfg):
-    return jax.eval_shape(lambda: jax_init_state(jax.random.PRNGKey(0), jcfg,
-                                                 jax_adamw.OptimizerConfig(**OPT)))
+    return jax.eval_shape(lambda: jax_init_state(jax.random.PRNGKey(0), jcfg, _jax_opt(jcfg)))
 
 
 def _bits(a) -> np.ndarray:

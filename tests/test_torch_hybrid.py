@@ -467,7 +467,7 @@ def test_sequence_parallelism_refuses_the_hybrid_kinds(hybrid, kind):
         steps.make_sp_loss_fn(cfg, LocalRing(2))
 
 
-@pytest.mark.parametrize("kind", ["moe", "cross"])
+@pytest.mark.parametrize("kind", ["cross"])
 def test_unported_kinds_are_still_refused(kind):
     cfg = dataclasses.replace(torch_rg.smoke_config(), pattern=("rglru", kind))
     with pytest.raises(ValueError, match="RG-LRU and Mamba-2 blocks only"):
