@@ -206,6 +206,39 @@ Phases, any failure of which exits non-zero with no result line:
    steps (ms against the weights bound, one profiled), then the paged
    prefill of the same prompts and one paged wave against the contiguous
    prefill and first step (0.25), exact launch counts for both.
+16. MusicGen-large (the audio family: LayerNorm, MHA 32 x 64) and
+   Llama-3.2-Vision-90B (a cross-attention layer every fifth, over 4096
+   image tokens): first K4 rows at d 8192 (the row kernels' largest width:
+   training rows [8192, 8192], a 4 x 1024 prefill, a decode step of 4), K5
+   and K6 on the training rows (K6 also bitwise against a second run), K7
+   non-causal GQA 64/8 x 128 over 4096 image tokens at the training
+   windows (q [2, 4096]) and the prefill (q [4, 1024]), K8 and K9 at the
+   training windows, K7-K9 causal at MusicGen's [4, 2048, 32, 64], and K12
+   at MusicGen's wave (group 1, dh 64) against their plain versions,
+   timed; (a) MusicGen-large at full width and depth (48 layers, bf16): 4
+   ``Trainer`` steps (3 of B 4 x S 2048, one of 4 packed windows): exact
+   launch counts (K7 2L, K8 L, K9 L a microbatch; the LayerNorm is plain,
+   so no norm kernel), step ms, tokens/s, peak memory; (e) int8
+   compression with error feedback on one microbatch's gradients (every
+   leaf within half its scale, the residual exact, the wire bytes),
+   timed; then 8 layers in f32, the kernel loss and every gradient against
+   ``ops="plain"`` on unpacked and packed rows (1e-4, 5e-2); (b) the 48
+   layers serve 8 requests through a recording ``ServeEngine``, each then
+   through contiguous prefill and decode teacher-forced (5e-2), and a
+   contiguous prefill of 4 x 1024 and 32 greedy steps against
+   ``ops="plain"`` (5e-2): exact launch counts, prefill, wave and step ms,
+   one wave profiled against the weights bound; (c) Llama-3.2-Vision at
+   one superblock (4 "attn" + 1 "cross" layers, every gate at 0.5): 4
+   ``Trainer`` steps of B 2 x S 4096 over memory [2, 4096, 8192]: exact
+   launch counts (the dense LM's; the cross layer counts as an attention
+   layer), step ms, tokens/s, peak memory; then in f32 the kernel loss and
+   every gradient against ``ops="plain"``; (d) 6 superblocks (30 of 100
+   layers) prefill 4 x 1024 tokens over 4 x 4096 image tokens and decode
+   32 greedy steps: exact launch counts, prefill ms, decode ms against the
+   weights bound, one step profiled, the cross layers' decode attention
+   and ``repeat_kv`` timed alone; logits against ``ops="plain"``
+   teacher-forced (5e-2); then one superblock in f32, 32 decode steps
+   against one forward (1e-4).
 
 Phase 2 also holds K4 on model rows (x [1, 2048, 2048] and [8, 1, 2048]
 bf16) and K12 (the decode wave of phase 6; 64 slots with kv_lens up to
@@ -231,10 +264,11 @@ launcher of phase 10 (a), the churn leg and resumed step of phase 11 (b),
 (c), the Shape Benchmark's calls, the NCCL launcher and the gloo processes
 of phase 12, and phase 13's Mamba-2 serving, Qwen2.5-14B's and
 MiniCPM-2B's launchers and contiguous runs, and the example, phase
-14's RecurrentGemma training steps and serving, and phase 15's
+14's RecurrentGemma training steps and serving, phase 15's
 Llama-4-Scout training steps, engine and contiguous runs and Kimi-K2's
-contiguous and paged runs (``launches_by_path``); ``launches`` is their
-sum.
+contiguous and paged runs, and phase 16's MusicGen training steps, engine
+and contiguous runs and Llama-3.2-Vision's training steps and contiguous
+serving (``launches_by_path``); ``launches`` is their sum.
 
 Each phase's wall seconds go to the log and to the record (``phase_s``).
 Prints the kernels' JSON record on the line before the last and, as the
@@ -1812,14 +1846,15 @@ LM_PER_CALL = {  # launches of one prefill and one decode wave, per layer L
 
 
 def check_lm_counts(counts: dict, eng, n_layers: int, what: str,
-                    extra: dict | None = None) -> tuple[int, int]:
+                    extra: dict | None = None, per_call=LM_PER_CALL) -> tuple[int, int]:
     """Each kernel's count against the engine's prefills and waves (plus
-    ``extra`` launches expected besides)."""
+    ``extra`` launches expected besides), ``per_call`` the launches of one
+    prefill and one wave."""
     prefills = sum(len(it["prefills"]) for it in eng.iterations)
     waves = sum(1 for it in eng.iterations if it["decodes"])
     want = dict(extra or {})
     for kind, n in (("prefill", prefills), ("wave", waves)):
-        for name, per in LM_PER_CALL[kind](n_layers).items():
+        for name, per in per_call[kind](n_layers).items():
             want[name] = want.get(name, 0) + n * per
     for name, n in counts.items():
         if n != want.get(name, 0):
@@ -3351,6 +3386,9 @@ CONTIG_PER_CALL = {  # launches of one contiguous prefill and one decode step, p
     # RG-LRU and local blocks: norm1 and norm2 a layer, the final norm
     "hybrid": {"prefill": lambda L: {"rms_fwd": 2 * L + 1},
                "step": lambda L: {"rms_fwd": 2 * L + 1}},
+    # MusicGen's attention blocks: the LayerNorm is plain, the decode
+    # attention too
+    "layernorm": {"prefill": lambda L: {"flash_fwd": L}, "step": lambda L: {}},
 }
 
 
@@ -3907,17 +3945,89 @@ def phase_kernels_hybrid(dev) -> dict:
     return out
 
 
-def hybrid_packed_batch(cfg, dev, seed: int = 14) -> dict:
-    """One microbatch of HYB_B packed windows of HYB_S tokens holding
-    documents of 300-3000 tokens (segment ids, -1 on any padding)."""
+def hybrid_packed_batch(cfg, dev, seed: int = 14, *, windows: int = HYB_B,
+                        window: int = HYB_S) -> dict:
+    """One microbatch of ``windows`` packed windows of ``window`` tokens
+    (HYB_B of HYB_S by default) holding documents of 300 to min(3000,
+    window) tokens (segment ids, -1 on any padding)."""
     from repro_torch.data.pipeline import materialize_packed_windows, to_device
 
-    lengths = np.random.default_rng(seed).integers(300, 3001, size=16)
-    mbs = materialize_packed_windows(lengths, window=HYB_S, vocab=cfg.vocab, batch_windows=HYB_B,
-                                     seed=seed)
-    if mbs[0]["tokens"].shape[0] != HYB_B:
+    lengths = np.random.default_rng(seed).integers(300, min(3000, window) + 1, size=16)
+    mbs = materialize_packed_windows(lengths, window=window, vocab=cfg.vocab,
+                                     batch_windows=windows, seed=seed)
+    if mbs[0]["tokens"].shape[0] != windows:
         raise AssertionError("the documents packed into fewer windows than a microbatch holds")
     return to_device({k: mbs[0][k] for k in ("tokens", "labels", "segment_ids")}, dev)
+
+
+def lm_train_run(K, cfg, opt, state, batches, per, what: str) -> dict:
+    """``len(batches)`` ``Trainer`` steps on ``EmulatedEngine``, one
+    microbatch each, launch counts reset just before and checked exactly
+    after (``per``): losses, step ms (CUDA events), tokens/s, peak memory."""
+    import types
+
+    from repro_torch.train.engine import EmulatedEngine
+    from repro_torch.train.loop import Trainer
+
+    b, s = batches[0]["tokens"].shape
+    bucket = types.SimpleNamespace(batch_size=b, seq_len=s, tokens=b * s)
+    stream = iter([[(bucket, x)] for x in batches])
+    n = len(batches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    state, hist = Trainer(cfg, opt, engine=EmulatedEngine(cfg, opt)).run(
+        state, stream, n, rng=1, log_every=1)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not np.isfinite(hist.losses).all():
+        raise AssertionError(f"{what}: a loss is not finite: {hist.losses}")
+    bad = [nm for nm, prm in state["model"].named_parameters() if not torch.isfinite(prm).all()]
+    if bad or state["step"] != n:
+        raise AssertionError(f"{what}: parameters not finite after the updates: {bad[:5]}")
+    check_counts(counts, sum(hist.microbatches), cfg.n_layers, what, per)
+    steady = [i for i in range(n) if i not in hist.compile_steps]
+    if not steady:
+        raise AssertionError(f"{what}: every step ran a new batch signature: no steady step")
+    step_ms = [1e3 * t for t in hist.step_times]
+    steady_ms = float(np.mean([step_ms[i] for i in steady]))
+    for i, (ms, tok) in enumerate(zip(step_ms, hist.tokens)):
+        log(f"  step {i}: {tok} tokens, {ms:.1f} ms, loss {hist.losses[i]:.4f}"
+            f"{'  (first signature)' if i in hist.compile_steps else ''}")
+    log(f"  steady step {steady_ms:.1f} ms (steps {steady}), {hist.throughput:,.0f} tokens/s, "
+        f"peak memory {peak:.2f} GiB, events {hist.events}")
+    return dict(losses=hist.losses, step_ms=step_ms, tokens=hist.tokens, events=hist.events,
+                steady_steps=steady, steady_step_ms=steady_ms, tokens_per_s=hist.throughput,
+                peak_gib=peak, launches=counts, per_microbatch=per(cfg.n_layers))
+
+
+def grad_check(model, batch, what: str) -> dict:
+    """The kernel loss and every gradient against ``ops="plain"`` on one
+    batch (its memory too): loss within HYB_LOSS_TOL, every gradient's rel-L2
+    within HYB_GRAD_TOL (phase 14's gates)."""
+    from repro_torch.models.transformer import lm_loss
+
+    res = {}
+    for ops in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        loss = lm_loss(model, batch["tokens"], batch["labels"], memory=batch.get("memory"),
+                       ops=ops, segment_ids=batch.get("segment_ids"))
+        loss.backward()
+        res[ops] = (loss.item(), {n: prm.grad for n, prm in model.named_parameters()})
+        for prm in model.parameters():
+            prm.grad = None
+    loss_rel = abs(res["kernel"][0] - res["plain"][0]) / abs(res["plain"][0])
+    rels = {n: rel_l2(res["kernel"][1][n], gp) for n, gp in res["plain"][1].items()}
+    worst = max(rels, key=rels.get)
+    log(f"  {what}: loss {res['kernel'][0]:.6f} kernel vs {res['plain'][0]:.6f} plain (rel "
+        f"{loss_rel:.2e}, tol {HYB_LOSS_TOL}); largest gradient rel-L2 {rels[worst]:.3e} "
+        f"({worst}, tol {HYB_GRAD_TOL})")
+    if not (np.isfinite(res["kernel"][0]) and loss_rel <= HYB_LOSS_TOL
+            and rels[worst] <= HYB_GRAD_TOL):
+        raise AssertionError(f"{what}: kernel training gradients disagree with the plain versions'")
+    return dict(what=what, loss_kernel=res["kernel"][0], loss_plain=res["plain"][0],
+                loss_rel=loss_rel, worst_grad=worst, worst_grad_rel_l2=rels[worst])
 
 
 def phase_train_hybrid(K, dev) -> dict:
@@ -3927,17 +4037,12 @@ def phase_train_hybrid(K, dev) -> dict:
     launch counts, step time, tokens/s and peak memory; then at 3 layers the
     kernel loss and every gradient against ``ops="plain"`` on both kinds of
     batch."""
-    import types
-
     from repro_torch.configs.registry import get_config, get_optimizer
     from repro_torch.data.synthetic import make_lm_batch
-    from repro_torch.models.transformer import Transformer, lm_loss
+    from repro_torch.models.transformer import Transformer
     from repro_torch.optim.adamw import OptimizerConfig
-    from repro_torch.train.engine import EmulatedEngine
-    from repro_torch.train.loop import Trainer
     from repro_torch.train.steps import init_state
 
-    out = {}
     full = get_config(HYB_ARCH)
     cfg = dataclasses.replace(full, n_layers=HYB_TRAIN_LAYERS)
     opt = OptimizerConfig(peak_lr=get_optimizer(HYB_ARCH).peak_lr, schedule="constant",
@@ -3956,71 +4061,22 @@ def phase_train_hybrid(K, dev) -> dict:
         f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s; steps 0-2 B "
         f"{HYB_B} x S {HYB_S} unpacked, step 3 {HYB_B} packed windows of {HYB_S} ({docs} "
         f"documents of 300-3000 tokens, {pad} padding slots)")
-    bucket = types.SimpleNamespace(batch_size=HYB_B, seq_len=HYB_S, tokens=HYB_B * HYB_S)
     batches = [make_lm_batch(int(rng.integers(2**31)), HYB_B, HYB_S, cfg.vocab, cfg, dev)
                for _ in range(HYB_STEPS - 1)] + [packed]
-    stream = iter([[(bucket, b)] for b in batches])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
-    state, hist = Trainer(cfg, opt, engine=EmulatedEngine(cfg, opt)).run(
-        state, stream, HYB_STEPS, rng=1, log_every=1)
-    torch.cuda.synchronize()
-    counts = K.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    if not np.isfinite(hist.losses).all():
-        raise AssertionError(f"a loss is not finite: {hist.losses}")
-    bad = [n for n, prm in state["model"].named_parameters() if not torch.isfinite(prm).all()]
-    if bad or state["step"] != HYB_STEPS:
-        raise AssertionError(f"parameters not finite after the updates: {bad[:5]}")
-    check_counts(counts, sum(hist.microbatches), cfg.n_layers, "training", per_microbatch_hybrid)
-    steady = [i for i in range(HYB_STEPS) if i not in hist.compile_steps]
-    if not steady:
-        raise AssertionError("every step ran a new batch signature: no steady step")
-    step_ms = [1e3 * t for t in hist.step_times]
-    steady_ms = float(np.mean([step_ms[i] for i in steady]))
-    for i, (ms, tok) in enumerate(zip(step_ms, hist.tokens)):
-        log(f"  step {i}: {tok} tokens, {ms:.1f} ms, loss {hist.losses[i]:.4f}"
-            f"{'  (first signature)' if i in hist.compile_steps else ''}")
-    log(f"  steady step {steady_ms:.1f} ms (steps {steady}), {hist.throughput:,.0f} tokens/s, "
-        f"peak memory {peak:.2f} GiB, events {hist.events}")
-    out["train"] = dict(
-        n_params=n_params, documents=docs, padding=pad, losses=hist.losses, step_ms=step_ms,
-        tokens=hist.tokens, events=hist.events, steady_steps=steady, steady_step_ms=steady_ms,
-        tokens_per_s=hist.throughput, peak_gib=peak, launches=counts,
-        per_microbatch=per_microbatch_hybrid(cfg.n_layers),
-    )
+    out = {"train": lm_train_run(K, cfg, opt, state, batches, per_microbatch_hybrid, "training")}
+    out["train"].update(n_params=n_params, documents=docs, padding=pad)
     state["opt"] = None
-    del state, hist, stream, batches
+    del state, batches
     torch.cuda.empty_cache()
 
     # one superblock at full width: kernel loss and gradients against the
     # plain versions', unpacked rows and the packed windows
     cfg3 = dataclasses.replace(full, n_layers=3)
     model = Transformer(cfg3, seed=1, device=dev)
-    out["grad_check"] = []
-    for what, batch in (("unpacked B 1 x S 4096", make_lm_batch(5, 1, HYB_S, cfg3.vocab, cfg3, dev)),
-                        (f"packed {HYB_B} x {HYB_S}", packed)):
-        res = {}
-        for ops in ("kernel", "plain"):
-            model.zero_grad(set_to_none=True)
-            loss = lm_loss(model, batch["tokens"], batch["labels"], ops=ops,
-                           segment_ids=batch.get("segment_ids"))
-            loss.backward()
-            res[ops] = (loss.item(), {n: prm.grad.clone() for n, prm in model.named_parameters()})
-        loss_rel = abs(res["kernel"][0] - res["plain"][0]) / abs(res["plain"][0])
-        rels = {n: rel_l2(res["kernel"][1][n], gp) for n, gp in res["plain"][1].items()}
-        worst = max(rels, key=rels.get)
-        log(f"  3 layers, full width, bf16, {what}: loss {res['kernel'][0]:.6f} kernel vs "
-            f"{res['plain'][0]:.6f} plain (rel {loss_rel:.2e}, tol {HYB_LOSS_TOL}); largest "
-            f"gradient rel-L2 {rels[worst]:.3e} ({worst}, tol {HYB_GRAD_TOL})")
-        if not (np.isfinite(res["kernel"][0]) and loss_rel <= HYB_LOSS_TOL
-                and rels[worst] <= HYB_GRAD_TOL):
-            raise AssertionError("kernel training gradients disagree with the plain versions'")
-        out["grad_check"].append(dict(batch=what, loss_kernel=res["kernel"][0],
-                                      loss_plain=res["plain"][0], loss_rel=loss_rel,
-                                      worst_grad=worst, worst_grad_rel_l2=rels[worst]))
-        del res
+    out["grad_check"] = [
+        grad_check(model, make_lm_batch(5, 1, HYB_S, cfg3.vocab, cfg3, dev),
+                   "3 layers, full width, bf16, unpacked B 1 x S 4096"),
+        grad_check(model, packed, f"3 layers, full width, bf16, packed {HYB_B} x {HYB_S}")]
     del model, packed
     torch.cuda.empty_cache()
     return out
@@ -4544,11 +4600,12 @@ def moe_engine(K, model, n_requests: int, *, max_seq: int):
     return eng, wall
 
 
-def engine_vs_contiguous(K, eng, n_layers: int) -> dict:
+def engine_vs_contiguous(K, eng, n_layers: int, kind: str = "attn") -> dict:
     """Each of the engine's requests through contiguous prefill and decode,
     teacher-forced on the engine's tokens: the logits' rel-L2 against the
-    engine's and the greedy disagreements a request, exact launch counts,
-    the host's ms a decode step, one step profiled."""
+    engine's and the greedy disagreements a request, exact launch counts
+    (``CONTIG_PER_CALL[kind]``), the host's ms a decode step, one step
+    profiled."""
     from repro_torch.train.steps import make_decode_step, make_prefill_step
 
     model, cfg = eng.model, eng.cfg
@@ -4579,7 +4636,7 @@ def engine_vs_contiguous(K, eng, n_layers: int) -> dict:
     last = (caches, forced[r.max_new - 2], r.prompt_len + r.max_new - 2)
     torch.cuda.synchronize()
     counts = K.launch_counts()
-    check_exact(counts, contig_want("attn", n_layers, len(per_req), steps),
+    check_exact(counts, contig_want(kind, n_layers, len(per_req), steps),
                 f"contiguous: {len(per_req)} prefills, {steps} decode steps")
     busy = device_busy(lambda: decode(model, *last))
     return dict(launches=counts, requests=per_req, decode_ms_wall=step_s / steps * 1e3,
@@ -4787,6 +4844,633 @@ def phase_serve_kimi(K, dev) -> dict:
     return out
 
 
+MG_ARCH, VLM_ARCH = "musicgen-large", "llama-3.2-vision-90b"
+MG_B, MG_S, MG_STEPS = 4, 2048, 4  # phase 16 (a): 3 unpacked steps at 48 layers, then one packed
+MG_F32_LAYERS = 8  # phase 16 (a): the f32 check, kernels against plain
+MG_ENGINE_REQUESTS = 8  # phase 16 (b)
+MG_SERVE_B, MG_SERVE_S, MG_SERVE_NEW = 4, 1024, 32  # phase 16 (b): contiguous prompts, steps
+VLM_TRAIN_LAYERS = 5  # phase 16 (c): one superblock, 4 "attn" + 1 "cross" (5.33 B parameters)
+VLM_B, VLM_S, VLM_STEPS = 2, 4096, 4  # phase 16 (c): B 2 x S 4096 over 4096 image tokens
+VLM_GATE = 0.5  # every cross layer's gate: at init (0) the cross path adds nothing
+VLM_SERVE_LAYERS = 30  # phase 16 (d): 6 of the 20 superblocks, 53.4 GB of bf16 weights
+VLM_SERVE_B, VLM_SERVE_S, VLM_SERVE_NEW = 4, 1024, 32  # phase 16 (d): prompts, decode steps
+VLM_F32_B, VLM_F32_S, VLM_F32_NEW = 2, 1024, 32  # phase 16 (d): f32 at one superblock
+MG_PER_CALL = {  # MusicGen's paged prefill and wave, per layer L: its LayerNorm is plain
+    "prefill": lambda L: {"flash_fwd": L},
+    "wave": lambda L: {"paged_decode": L},
+}
+
+
+def per_microbatch_audio(n_layers: int) -> dict[str, int]:
+    """Launches of one MusicGen training microbatch of n_layers attention
+    blocks with per-block recompute: K7 twice a block (forward, then again
+    in the backward), K8 and K9 once.  Its LayerNorms are plain PyTorch, as
+    the reference's are jnp: no norm kernel runs."""
+    L = n_layers
+    return {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+
+
+def set_gates(model, value: float) -> int:
+    """Every cross layer's gate to ``value``; returns the number of cross
+    layers."""
+    n = 0
+    with torch.no_grad():
+        for bp, kind in zip(model.blocks, model.kinds):
+            if kind == "cross":
+                bp.attn.gate.fill_(value)
+                n += 1
+    return n
+
+
+def phase_kernels_vlm(dev) -> dict:
+    """Phase 16, the kernels at the new shapes against their plain versions,
+    timed: K4 rows at Llama-3.2-Vision's d 8192 (the row kernels' largest
+    width: training rows [8192, 8192], a 4 x 1024 prefill, a decode step of
+    4), K5 and K6 on the training rows (K6 also bitwise against a second
+    run); K7 non-causal GQA 64/8 x 128 over 4096 image tokens at the
+    training windows (q [2, 4096]) and the prefill (q [4, 1024]), K8 and K9
+    at the training windows; K7, K8 and K9 causal at MusicGen's [4, 2048,
+    32, 64]; K12 at MusicGen's wave (group 1, dh 64, 32 kv heads)."""
+    from repro_torch.kernels.flash_attention.flash import (
+        BOUND_TILE, BWD_TILES, flash_bwd_dkv, flash_bwd_dq, flash_fwd, live_tile_pairs,
+    )
+    from repro_torch.kernels.flash_attention.paged import paged_decode
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_delta_ref, attention_ref, paged_attention_ref,
+    )
+    from repro_torch.kernels.fused_rmsnorm.ref import rms_bwd_ref, rms_norm_ref
+    from repro_torch.kernels.fused_rmsnorm.rmsnorm import rms_bwd_dw, rms_bwd_dx, rms_fwd
+    from repro_torch.launch.time_paged import paged_case, paged_work
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    rng = np.random.default_rng(16)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(dtype)
+
+    def report(name, t):
+        log(f"  {name}: ms {t['ms']:.4f}  plain {t['plain_ms']:.4f}  library "
+            f"{'none' if t['library_ms'] is None else format(t['library_ms'], '.4f')}  bound "
+            f"{t['bound_ms']:.4f} ({t['bound_by']}, {t['bytes'] / 1e6:.3f} MB, "
+            f"{t['flops'] / 1e9:.3f} GFLOP)  share {t['bound_ms'] / t['ms']:.1%}")
+
+    d, rows = 8192, VLM_B * VLM_S
+    out = {"rms_fwd": {}, "rms_bwd_dx": {}, "rms_bwd_dw": {}, "flash_fwd": {},
+           "flash_bwd_dq": {}, "flash_bwd_dkv": {}, "paged_decode": {}}
+    log(f"K4 rms_fwd (rows) bf16 at d {d}: training rows [{rows}, {d}], prefill [4, 1024, {d}], "
+        f"decode [4, 1, {d}]")
+    for nm, shape in (("vlm_train", (rows, d)), ("vlm_prefill", (4, 1024, d)),
+                      ("vlm_decode", (4, 1, d))):
+        x, w = randn(*shape, dtype=torch.bfloat16, scale=2.0, shift=0.3), randn(d, scale=0.1, shift=1.0)
+        (y, r), (yr, rr) = rms_fwd(x, w), rms_norm_ref(x, w)
+        torch.cuda.synchronize()
+        err = max_err(y, yr)
+        check(f"K4 rows y {nm}", err, TOL["norm_bf16"])
+        check(f"K4 rows rstd {nm}", max_err(r, rr), TOL["stat"])
+        wl = w.to(x.dtype)
+        t = dict(shape=list(shape), max_abs_err=err, ms=device_ms(lambda: rms_fwd(x, w), 50),
+                 plain_ms=device_ms(lambda: rms_norm_ref(x, w), 10),
+                 # yardstick only, never on the port's path: the library norm
+                 library_ms=device_ms(lambda: F.rms_norm(x, (d,), wl, 1e-6), 50),
+                 bytes=2 * x.numel() * 2 + x.numel() // d * 4 + d * 4, flops=4 * x.numel())
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], F32_FLOPS)
+        out["rms_fwd"][nm] = t
+        report(f"K4 rows {nm}", t)
+        del x, y, yr
+
+    log(f"K5 rms_bwd_dx, K6 rms_bwd_dw (rows)  dy, x [{rows}, {d}] bf16, w [{d}] f32, rstd of the "
+        f"plain forward")
+    xs, ws = randn(rows, d, dtype=torch.bfloat16, scale=2.0, shift=0.3), randn(d, scale=0.1, shift=1.0)
+    rs = rms_norm_ref(xs, ws)[1]
+    dys = randn(rows, d, dtype=torch.bfloat16)
+    dxr, dwr = rms_bwd_ref(dys, xs, ws, rs)
+    k5_err = check_rel(f"K5 rows dx [{rows}, {d}]", rms_bwd_dx(dys, xs, ws, rs), dxr,
+                       BWD_TOL["grad_bf16"])
+    dw = rms_bwd_dw(dys, xs, rs)
+    k6_err = check_rel(f"K6 rows dw [{rows}, {d}]", dw, dwr, BWD_TOL["sum_f32"])
+    if not torch.equal(dw, rms_bwd_dw(dys, xs, rs)):
+        raise AssertionError(f"K6 on rows is not bitwise deterministic at d {d}")
+    # yardstick only, never on the port's path: the library norm's backward
+    leaves = [xs.detach().requires_grad_(), ws.bfloat16().detach().requires_grad_()]
+    yl = F.rms_norm(leaves[0], (d,), leaves[1], 1e-6)
+    plain_ms = device_ms(lambda: rms_bwd_ref(dys, xs, ws, rs), 5)
+    for name, fn, err, lib, nbytes, flops in (
+            ("rms_bwd_dx", lambda: rms_bwd_dx(dys, xs, ws, rs), k5_err, leaves[:1],
+             3 * rows * d * 2 + rows * 4 + d * 4, 6 * rows * d),
+            ("rms_bwd_dw", lambda: rms_bwd_dw(dys, xs, rs), k6_err, leaves[1:],
+             2 * rows * d * 2 + rows * 4 + d * 4, 3 * rows * d)):
+        t = dict(shape=[rows, d], max_abs_err=err, ms=device_ms(fn, 20), plain_ms=plain_ms,
+                 library_ms=cuda_ms(lambda: torch.autograd.grad(yl, lib, dys, retain_graph=True),
+                                    10),
+                 bytes=nbytes, flops=flops)
+        t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
+        out[name]["vlm_train"] = t
+        report(f"{'K5' if name == 'rms_bwd_dx' else 'K6'} rows vlm_train", t)
+    del xs, dys, leaves, yl, dxr, dwr
+
+    def attn_case(nm, b, sq, skv, hq, hkv, dh, causal, bwd):
+        """K7 (and with ``bwd`` K8, K9) at one shape; q, k, v views of a
+        fused projection (self-attention) or of q and kv projections
+        (cross-attention, ``sq != skv`` or not causal), bf16."""
+        if causal:
+            qkv = randn(b, sq, (hq + 2 * hkv) * dh, dtype=torch.bfloat16)
+            q = qkv[..., : hq * dh].reshape(b, sq, hq, dh)
+            kv = qkv[..., hq * dh :]
+        else:
+            q = randn(b, sq, hq * dh, dtype=torch.bfloat16).reshape(b, sq, hq, dh)
+            kv = randn(b, skv, 2 * hkv * dh, dtype=torch.bfloat16)
+        k = kv[..., : hkv * dh].reshape(b, skv, hkv, dh)
+        v = kv[..., hkv * dh :].reshape(b, skv, hkv, dh)
+        shape = (f"q [{b}, {sq}, {hq}, {dh}], k, v [{b}, {skv}, {hkv}, {dh}], "
+                 f"{'causal' if causal else 'non-causal'}, bf16")
+        log(f"K7 flash_fwd {nm}: {shape}")
+        (o, lse), (o_r, lse_r) = flash_fwd(q, k, v, causal=causal), attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = max_err(o, o_r)
+        check(f"K7 {nm} out", err, TOL["attn_bf16"])
+        check(f"K7 {nm} lse", max_err(lse, lse_r), TOL["lse_bf16"])
+        del o, o_r
+        tiles = live_tile_pairs(sq, skv, causal=causal) * hq * b
+        mm = 2 * BOUND_TILE ** 2 * dh
+        tq = [t_.detach().transpose(1, 2) for t_ in (q, k, v)]
+        t = dict(shape=shape, max_abs_err=err, ms=device_ms(lambda: flash_fwd(q, k, v, causal=causal), 20),
+                 plain_ms=device_ms(lambda: attention_ref(q, k, v, causal=causal), 3),
+                 # yardstick only, never on the port's path: the library's attention
+                 library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                     *tq, is_causal=causal, enable_gqa=hq != hkv), 20),
+                 bytes=2 * q.numel() * 2 + 2 * k.numel() * 2 + b * hq * sq * 4,
+                 flops=tiles * 2 * mm, live_tile_pairs=tiles)
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], BF16_FLOPS)
+        out["flash_fwd"][nm] = t
+        report(f"K7 {nm}", t)
+        if not bwd:
+            return
+        do = randn(b, sq, hq, dh, dtype=torch.bfloat16)
+        o32, lse = flash_fwd(q, k, v, causal=causal, out_dtype=torch.float32)
+        dq, delta = flash_bwd_dq(q, k, v, o32, do, lse, causal=causal)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+        want = attention_bwd_ref(q, k, v, do, lse, attention_delta_ref(do, o32), causal=causal)
+        torch.cuda.synchronize()
+        errs = [check_l2(f"K8/K9 {nm} {w}", a_, b_, BWD_TOL["flash_bf16"])
+                for w, a_, b_ in zip(("dq", "dk", "dv"), (dq, dk, dv), want)]
+        del dq, dk, dv, want
+        t8 = cuda_ms(lambda: flash_bwd_dq(q, k, v, o32, do, lse, causal=causal), 5)
+        t9 = cuda_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal), 5)
+        t_p = cuda_ms(lambda: attention_bwd_ref(q, k, v, do, lse, delta, causal=causal), 1)
+        # yardstick only, never on the port's path: the library's attention backward
+        lv = [t_.requires_grad_() for t_ in tq]
+        o_l = F.scaled_dot_product_attention(*lv, is_causal=causal, enable_gqa=hq != hkv)
+        t_l = cuda_ms(lambda: torch.autograd.grad(o_l, lv, do.transpose(1, 2), retain_graph=True), 3)
+        del o_l, lv
+        rows_q, rows_kv, stats = q.numel() * 2, k.numel() * 2, b * hq * sq * 4
+        by8 = 2 * rows_q + 2 * rows_kv + rows_q * 2 + 2 * stats + rows_q  # q do, k v, out32, lse delta, dq
+        by9 = 2 * rows_q + 2 * rows_kv + 2 * stats + 2 * rows_kv  # q do, k v, lse delta, dk dv
+        for w, t_k, n_mm, by in (("dq", t8, 3, by8), ("dkv", t9, 4, by9)):
+            qt, kt = BWD_TILES[w]
+            bms, bby = bound(by, tiles * n_mm * mm, BF16_FLOPS)
+            run = live_tile_pairs(sq, skv, causal=causal, q_tile=qt, kv_tile=kt) * b * hq * qt * kt \
+                // BOUND_TILE ** 2
+            out[f"flash_bwd_{w}"][nm] = dict(
+                ms=t_k, plain_ms=t_p, bound_ms=bms, bound_by=bby, library_ms=t_l,
+                max_abs_err=max(errs), shape=shape, live_tile_pairs=tiles, run_tile_pairs=run,
+                bytes=by, flops=tiles * n_mm * mm, tflops_per_s=tiles * n_mm * mm / (t_k * 1e-3) / 1e12)
+            log(f"  K{8 if w == 'dq' else 9} {nm} ms {t_k:.4f}  bound {bms:.4f} ({bby}, "
+                f"{bms / t_k:.1%})  {tiles} live 64x64 tiles, its tiles run {run}")
+        log(f"  plain (dq, dk, dv) {t_p:.4f}  library (SDPA backward) {t_l:.4f}")
+
+    attn_case("vlm_cross_train", VLM_B, VLM_S, 4096, 64, 8, 128, False, True)
+    attn_case("vlm_cross_prefill", VLM_SERVE_B, VLM_SERVE_S, 4096, 64, 8, 128, False, False)
+    attn_case("musicgen_train", MG_B, MG_S, MG_S, 32, 32, 64, True, True)
+
+    hq = hkv = 32
+    lens = [int(x) for x in rng.integers(64, MG_SERVE_S + MG_SERVE_NEW + 1, size=4)]
+    log(f"K12 paged_decode at the MusicGen wave: q [4, {hq}, 64] (group 1), pages of 16 "
+        f"[.., 16, {hkv}, 64] bf16, 256 entries a table row, kv_lens {lens}")
+    q, kp, vp, tables, kv_lens = paged_case(dev, g, rng, lens, hq, hkv, 64, LM_PAGE,
+                                            torch.bfloat16, pages_max=256, spare=64)
+    args = (q, kp, vp, tables[0], kv_lens)
+    o, o_r = paged_decode(*args), paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    err = max_err(o, o_r)
+    check("K12 musicgen wave out", err, TOL["attn_bf16"])
+    check_slots("K12 musicgen wave out", o, o_r, TOL["attn_bf16_slot"])
+    nbytes, flops = paged_work(*args)
+    t = dict(shape=f"q [4, {hq}, 64], pool {list(kp.shape)}, kv_lens {lens}",
+             max_abs_err=err, ms=device_ms(lambda: paged_decode(*args), 50),
+             plain_ms=device_ms(lambda: paged_attention_ref(*args), 3), library_ms=None,
+             bytes=nbytes, flops=flops)
+    t["bound_ms"], t["bound_by"] = bound(nbytes, flops, F32_FLOPS)
+    out["paged_decode"]["musicgen_wave"] = t
+    report("K12 musicgen_wave", t)
+    return out
+
+
+def compression_check(grads: dict) -> dict:
+    """Phase 16 (e): ``compress_int8`` with error feedback on one gradient
+    dict on the card: a first step (the residual from 0) and its
+    decompression, then a second step and its decompression, timed, whose
+    every leaf is checked: the int8 values times their scale
+    within half a scale of the gradient plus the carried residual (and the
+    f32 rounding of the quotient and the product, 2^-22 of the leaf's
+    largest magnitude), and the new residual exactly what they miss; the
+    wire bytes of each format."""
+    from repro_torch.distributed.compression import (
+        WIRE_BYTES, compress_int8, decompress_int8, init_error_feedback, wire_bytes,
+    )
+
+    n = sum(t.numel() for t in grads.values())
+    ef = init_error_feedback(grads)
+    q, s, ef = compress_int8(grads, ef)
+    # untimed, as the first step: the allocator's first blocks of each size
+    decompress_int8(q, s, torch.float32)
+    torch.cuda.synchronize()
+    a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    a.record()
+    q, s, ef2 = compress_int8(grads, ef)
+    b.record()
+    deq = decompress_int8(q, s, torch.float32)
+    c.record()
+    c.synchronize()
+    ms, dec_ms = a.elapsed_time(b), b.elapsed_time(c)
+    worst = 0.0
+    for name, gr in grads.items():
+        gf = gr.float() + ef[name]
+        err = float((deq[name] - gf).abs().max())
+        worst = max(worst, err / float(s[name]))
+        lim = 0.5 * float(s[name]) + float(gf.abs().max()) * 2.0**-22
+        if err > lim:
+            raise AssertionError(f"compression: {name} is off by {err}, above half its scale "
+                                 f"{float(s[name])} and f32 rounding ({lim})")
+        if not torch.equal(ef2[name], gf - q[name].float() * s[name]):
+            raise AssertionError(f"compression: {name}'s residual is not what the int8 misses")
+        if q[name].dtype != torch.int8 or int(q[name].abs().max()) > 127:
+            raise AssertionError(f"compression: {name} is not int8 within +-127")
+    sizes = {m: wire_bytes(grads, m) for m in WIRE_BYTES}
+    if sizes != {m: n * per for m, per in WIRE_BYTES.items()}:
+        raise AssertionError(f"compression: wire bytes {sizes} for {n} values")
+    # each value: the bf16 gradient and the f32 residual read, the int8 value
+    # and the new residual written; the scales are one f32 a leaf
+    nbytes = n * (2 + 4 + 1 + 4)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"(e) compress_int8 with error feedback on {len(grads)} gradients of {n / 1e9:.3f} B "
+        f"values: {ms:.2f} ms ({nbytes / ms / 1e6:.0f} GB/s; the bytes it must move bound it at "
+        f"{bound_ms:.2f} ms), decompress {dec_ms:.2f} ms; the largest error {worst:.4f} of its "
+        f"leaf's scale (bound 0.5); wire bytes {sizes}")
+    return dict(values=n, leaves=len(grads), ms=ms, decompress_ms=dec_ms, bound_ms=bound_ms,
+                worst_err_of_scale=worst, wire_bytes=sizes)
+
+
+def phase_train_musicgen(K, dev) -> dict:
+    """Phase 16 (a), (e): MusicGen-large training at full width and depth
+    (48 layers, bf16, f32 AdamW moments): 4 ``Trainer`` steps on
+    ``EmulatedEngine`` (3 of B 4 x S 2048 unpacked rows, one of 4 packed
+    windows), exact launch counts (K7 2L, K8 L, K9 L, no norm kernel), step
+    ms, tokens/s, peak memory, one microbatch's gradient profiled; (e) int8
+    compression with error feedback on that microbatch's gradients; then 8
+    layers in f32, the kernel loss and every gradient against
+    ``ops="plain"``."""
+    from repro_torch.configs.registry import get_config, get_optimizer
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.steps import init_state, make_pool_grad_step
+
+    cfg = get_config(MG_ARCH)
+    opt = OptimizerConfig(peak_lr=get_optimizer(MG_ARCH).peak_lr, schedule="constant",
+                          warmup=0, total_steps=MG_STEPS)
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["model"].parameters())
+    rng = np.random.default_rng(16)
+    packed = hybrid_packed_batch(cfg, dev, seed=16, windows=MG_B, window=MG_S)
+    docs = int((packed["segment_ids"].max(dim=1).values + 1).sum())
+    log(f"(a) Trainer on EmulatedEngine, {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim} (MHA), d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.norm}, bf16, {n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s; "
+        f"steps 0-2 B {MG_B} x S {MG_S} unpacked, step 3 {MG_B} packed windows of {MG_S} "
+        f"({docs} documents)")
+    batches = [make_lm_batch(int(rng.integers(2**31)), MG_B, MG_S, cfg.vocab, cfg, dev)
+               for _ in range(MG_STEPS - 1)] + [packed]
+    out = {"train": lm_train_run(K, cfg, opt, state, batches, per_microbatch_audio, "training")}
+    out["train"].update(n_params=n_params, documents=docs)
+    state["opt"] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_step = make_pool_grad_step(cfg)
+    busy = device_busy(lambda: grad_step(state["model"], batches[0], 0, 0))
+    log(f"  one microbatch's gradient (B {MG_B} x S {MG_S}) profiled: device busy "
+        f"{busy['busy_ms']:.1f} ms of {busy['window_ms']:.1f} (idle {busy['idle_share']:.1%}); by "
+        f"family {json.dumps({k: round(v, 2) for k, v in busy['device_ms_by_family'].items()})}")
+    out["train"]["grad_profile"] = busy
+    _, grads = grad_step(state["model"], batches[0], 0, 0)
+    out["compression"] = compression_check(grads)
+    del state, batches, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, n_layers=MG_F32_LAYERS, dtype="float32")
+    model = Transformer(cfg32, seed=1, device=dev)
+    out["grad_check"] = [grad_check(model, make_lm_batch(5, 1, MG_S, cfg.vocab, cfg32, dev),
+                                    f"{MG_F32_LAYERS} layers, full width, f32, B 1 x S {MG_S}"),
+                         grad_check(model, packed, f"{MG_F32_LAYERS} layers, f32, packed "
+                                                   f"{MG_B} x {MG_S}")]
+    del model, packed
+    torch.cuda.empty_cache()
+    return out
+
+
+def contiguous_run(K, model, tokens, new: int, want: dict, what: str, memory=None) -> dict:
+    """One contiguous prefill of ``tokens`` (the cross layers over
+    ``memory``; after an untimed first one) and ``new`` greedy decode
+    steps, launch counts reset just before and checked exactly (``want``):
+    the logits of every step, the prefill's ms, each step's ms between
+    events and on the host's clock, one step profiled, peak memory.
+    Returns the record, the logits and the last caches."""
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = model.cfg
+    b, s = tokens.shape
+    prefill, decode = make_prefill_step(cfg, s + new), make_decode_step(cfg)
+    # a first prefill at these shapes, untimed: the first call of a shape
+    # pays the library's one-time set-up (on an H100, MusicGen's first
+    # 1024-wide engine prefill took 201 ms, the next ones 40)
+    prefill(model, tokens, memory)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(new + 2)]
+    ev[0].record()
+    logits, caches = prefill(model, tokens, memory)
+    ev[1].record()
+    got = [logits]
+    t0 = time.perf_counter()
+    for i in range(new):
+        logits, caches = decode(model, caches, got[-1].argmax(dim=-1, keepdim=True).int(), s + i)
+        ev[i + 2].record()
+        got.append(logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_exact(counts, want, f"{what}: prefill + {new} decode steps")
+    if not all(bool(torch.isfinite(lg).all()) and lg.shape == (b, cfg.vocab) for lg in got):
+        raise AssertionError(f"{what}: non-finite or misshapen logits")
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    step_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(new)]
+    first = got[0].argmax(dim=-1, keepdim=True).int()
+    # one more step at position s for the profile: it rewrites the cache
+    # row of position s with the same k and v (the logits are kept)
+    busy = device_busy(lambda: decode(model, caches, first, s))
+    log(f"  {what}: prefill {prefill_ms:.1f} ms ({b * s / prefill_ms * 1e3:.0f} tokens/s); decode "
+        f"{wall / new * 1e3:.2f} ms a step on the host's clock ({b * new / wall:.1f} tokens/s), "
+        f"{np.median(step_ms):.2f} ms median between events; one step profiled: device busy "
+        f"{busy['busy_ms']:.3f} ms of {busy['window_ms']:.3f} (idle {busy['idle_share']:.1%}); "
+        f"peak {peak:.2f} GiB; by family "
+        f"{json.dumps({k: round(v, 3) for k, v in busy['device_ms_by_family'].items()})}")
+    rec = dict(launches=counts, prefill_ms=prefill_ms, decode_ms_wall=wall / new * 1e3,
+               decode_ms_events=step_ms, decode_step_profile=busy, peak_gib=peak,
+               prefill_tokens_per_s=b * s / prefill_ms * 1e3, tokens_per_s=b * new / wall)
+    return rec, got, caches
+
+
+def teacher_forced_plain(model, tokens, got, memory=None) -> list:
+    """The logits of ``ops="plain"`` prefill and decode, fed the kernel run's
+    greedy tokens (``got``: its logits a step)."""
+    from repro_torch.models import transformer as T
+
+    s, new = tokens.shape[1], len(got) - 1
+    with torch.inference_mode():
+        lg, c = T.prefill(model, tokens, s + new, memory=memory, ops="plain")
+        plain = [lg]
+        for i in range(new):
+            lg, c = T.decode_step(model, c, got[i].argmax(dim=-1, keepdim=True).int(), s + i,
+                                  ops="plain")
+            plain.append(lg)
+    return [rel_l2(a, p_) for a, p_ in zip(got, plain)]
+
+
+def phase_serve_musicgen(K, dev) -> dict:
+    """Phase 16 (b): MusicGen-large at full width and depth (48 layers,
+    bf16, seed 0) serves 8 requests on a recording ``ServeEngine`` (the
+    serve launcher's stream), each request then through contiguous prefill
+    and decode teacher-forced on the engine's tokens; then a contiguous
+    prefill of 4 x 1024 and 32 greedy decode steps, against ``ops="plain"``
+    teacher-forced: exact launch counts (no norm kernel: the LayerNorm is
+    plain), prefill and wave ms, one wave profiled against the weights
+    bound."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(MG_ARCH)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    model = T.Transformer(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"(b) {cfg.name}: {L} layers, bf16, {weight_bytes / 1e9:.2f} GB of weights, init "
+        f"{time.perf_counter() - t0:.1f} s; {MG_ENGINE_REQUESTS} requests through ServeEngine "
+        f"(max_seq 4096, 4 slots)")
+    torch.cuda.reset_peak_memory_stats()
+    eng, wall = moe_engine(K, model, MG_ENGINE_REQUESTS, max_seq=4096)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    done = sorted(eng.done, key=lambda r: r.rid)
+    prefills, waves = check_lm_counts(counts, eng, L, "engine", per_call=MG_PER_CALL)
+    prefill_ms = {}
+    for _, width, a, b in eng.calls["prefill"]:
+        prefill_ms.setdefault(width, []).append(a.elapsed_time(b))
+    wave_ms = [a.elapsed_time(b) for _, _, a, b in eng.calls["decode"]]
+    wave_slots = [n for n, _, _, _ in eng.calls["decode"]]
+    wargs, rows = eng.widest
+    wave_busy = device_busy(lambda: eng.raw_decode(*wargs))
+    widest_ms = float(np.median([ms for ms, n in zip(wave_ms, wave_slots) if n == len(rows)]))
+    log(f"  prompts {[r.prompt_len for r in done]}, new tokens {[r.max_new for r in done]}; "
+        f"{prefills} prefills, {waves} waves in {wall:.2f} s, peak {peak:.2f} GiB")
+    for width in sorted(prefill_ms):
+        log(f"  prefill width {width}: {', '.join(f'{m:.2f}' for m in prefill_ms[width])} ms")
+    log(f"  waves: median {np.median(wave_ms):.2f} ms; the widest ({len(rows)} slots) median "
+        f"{widest_ms:.2f} ms; one profiled: device busy {wave_busy['busy_ms']:.3f} ms of "
+        f"{wave_busy['window_ms']:.3f} (idle {wave_busy['idle_share']:.1%}); the weights bound a "
+        f"wave at {bound_ms:.2f} ms; by family "
+        f"{json.dumps({k: round(v, 3) for k, v in wave_busy['device_ms_by_family'].items()})}")
+    contig = engine_vs_contiguous(K, eng, L, kind="layernorm")
+    worst = max(q["rel_l2"] for q in contig["requests"])
+    log(f"  contiguous against the engine, teacher-forced: logits rel-L2 a request "
+        f"{[round(q['rel_l2'], 4) for q in contig['requests']]} (tol {SERVE_TOL['dense_bf16']}), "
+        f"greedy disagreements {[q['disagreements'] for q in contig['requests']]}")
+    if worst > SERVE_TOL["dense_bf16"]:
+        raise AssertionError(f"MusicGen contiguous serving disagrees with the engine: {worst}")
+    del eng
+    b, s, new = MG_SERVE_B, MG_SERVE_S, MG_SERVE_NEW
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+    rec, got, caches = contiguous_run(K, model, tokens, new, contig_want("layernorm", L, 1, new),
+                                      f"contiguous {b} x {s}")
+    del caches
+    rel = teacher_forced_plain(model, tokens, got)
+    log(f"  logits rel-L2, kernels vs plain teacher-forced: prefill {rel[0]:.3e}, decode max "
+        f"{max(rel[1:]):.3e} (tol {SERVE_TOL['dense_bf16']})")
+    if max(rel) > SERVE_TOL["dense_bf16"]:
+        raise AssertionError(f"MusicGen kernel serving disagrees with the plain versions: {rel}")
+    rec.update(rel_l2_plain=rel, decode_bound_ms=bound_ms)
+    out = dict(layers=L, weight_bytes=weight_bytes,
+               engine=dict(launches=counts, prefills=prefills, waves=waves, wall_s=wall,
+                           peak_gib=peak, prompts=[r.prompt_len for r in done],
+                           max_new=[r.max_new for r in done],
+                           prefill_ms_by_width={str(k): v for k, v in sorted(prefill_ms.items())},
+                           wave_ms=wave_ms, wave_slots=wave_slots, widest_wave_ms=widest_ms,
+                           widest_wave_profile=wave_busy, weights_bound_ms=bound_ms),
+               contiguous=contig, prefill_decode=rec)
+    del model, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_vlm(K, dev) -> dict:
+    """Phase 16 (c): Llama-3.2-Vision-90B training at full width and one
+    superblock (4 "attn" layers and 1 "cross", bf16, f32 AdamW moments,
+    every gate at 0.5): 4 ``Trainer`` steps of B 2 x S 4096 over 4096 image
+    tokens of memory, exact launch counts (the dense LM's: the cross layer
+    counts as an attention layer), step ms, tokens/s, peak memory; then the
+    same depth in f32, the kernel loss and every gradient against
+    ``ops="plain"``."""
+    from repro_torch.configs.registry import get_config, get_optimizer
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.steps import init_state
+
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=VLM_TRAIN_LAYERS)
+    opt = OptimizerConfig(peak_lr=get_optimizer(VLM_ARCH).peak_lr, schedule="constant",
+                          warmup=0, total_steps=VLM_STEPS)
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, seed=0, device=dev)
+    n_cross = set_gates(state["model"], VLM_GATE)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["model"].parameters())
+    rng = np.random.default_rng(16)
+    log(f"(c) Trainer on EmulatedEngine, {cfg.name}: {cfg.n_layers} of {full.n_layers} layers "
+        f"({cfg.layer_kinds()}), d {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} over "
+        f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16, {n_params / 1e9:.3f} B params, "
+        f"{n_cross} gate(s) at {VLM_GATE}, init {time.perf_counter() - t0:.1f} s; 4 steps of B "
+        f"{VLM_B} x S {VLM_S}, memory [{VLM_B}, {cfg.n_image_tokens}, {cfg.d_model}] bf16")
+    batches = [make_lm_batch(int(rng.integers(2**31)), VLM_B, VLM_S, cfg.vocab, cfg, dev)
+               for _ in range(VLM_STEPS)]
+    out = {"train": lm_train_run(K, cfg, opt, state, batches, per_microbatch_dense, "training")}
+    out["train"].update(n_params=n_params, gates=[bp.attn.gate.item() for bp, k in zip(
+        state["model"].blocks, state["model"].kinds) if k == "cross"])
+    state["opt"] = None
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = Transformer(cfg32, seed=1, device=dev)
+    set_gates(model, VLM_GATE)
+    batch = make_lm_batch(5, 1, 1024, cfg.vocab, cfg32, dev)
+    out["grad_check"] = grad_check(model, batch, f"{cfg.n_layers} layers, full width, f32, B 1 x "
+                                                 f"S 1024 over {cfg.n_image_tokens} image tokens")
+    del model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_vlm(K, dev) -> dict:
+    """Phase 16 (d): Llama-3.2-Vision-90B at full width and 6 of its 20
+    superblocks (30 of 100 layers, bf16, seed 0, every gate at 0.5) prefills
+    4 prompts of 1024 tokens over 4 x 4096 image tokens and decodes 32
+    greedy steps contiguously: exact launch counts (K4 rows 2L+1 a call, K7
+    L a prefill), prefill ms, decode ms a step against the weights bound,
+    one step profiled, the cross layers' repeat_kv and decode attention
+    timed alone; the logits against ``ops="plain"`` teacher-forced; then
+    one superblock in f32, 32 decode steps against one forward."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import decode_attention, repeat_kv
+
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=VLM_SERVE_LAYERS)
+    L, b, s, new = cfg.n_layers, VLM_SERVE_B, VLM_SERVE_S, VLM_SERVE_NEW
+    t0 = time.perf_counter()
+    model = T.Transformer(cfg, seed=0, device=dev)
+    n_cross = set_gates(model, VLM_GATE)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"(d) {cfg.name}: {L} of {full.n_layers} layers ({n_cross} cross), bf16, "
+        f"{weight_bytes / 1e9:.2f} GB of weights (the decode step's bound {bound_ms:.2f} ms), "
+        f"init {time.perf_counter() - t0:.1f} s; {b} prompts of {s} over {cfg.n_image_tokens} "
+        f"image tokens each, {new} decode steps")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+    memory = torch.randn((b, cfg.n_image_tokens, cfg.d_model), generator=gen, device=dev,
+                         dtype=torch.float32).to(model.embed.dtype)
+    rec, got, caches = contiguous_run(K, model, tokens, new, contig_want("attn", L, 1, new),
+                                      f"contiguous {b} x {s}", memory=memory)
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches for t in c.values())
+
+    # the cross layers' decode attention, and its repeat_kv alone, on a
+    # cross layer's cache: the reference's repeat_kv of every step
+    i = model.kinds.index("cross")
+    kc, vc = caches[i]["k"], caches[i]["v"]
+    g = cfg.n_heads // cfg.n_kv_heads
+    q = torch.randn((b, 1, cfg.n_heads, cfg.head_dim), generator=gen, device=dev).to(kc.dtype)
+    valid = torch.ones(kc.shape[1], dtype=torch.bool, device=dev)
+    rep_ms = cuda_ms(lambda: (repeat_kv(kc, g), repeat_kv(vc, g)), 10)
+    attn_ms = cuda_ms(lambda: decode_attention(q, repeat_kv(kc, g), repeat_kv(vc, g), valid), 10)
+    step_ms = float(np.median(rec["decode_ms_events"]))
+    log(f"  caches {cache_bytes / 1e9:.3f} GB; a cross layer's decode attention over "
+        f"{kc.shape[1]} image tokens {attn_ms:.3f} ms, its repeat_kv of k and v to {cfg.n_heads} "
+        f"heads ([{b}, {kc.shape[1]}, {cfg.n_heads}, {cfg.head_dim}] each) {rep_ms:.3f} ms; "
+        f"{n_cross} cross layers: {n_cross * attn_ms:.2f} ms ({n_cross * rep_ms:.2f} ms repeat_kv) "
+        f"of a {step_ms:.2f} ms step ({n_cross * attn_ms / step_ms:.1%}, repeat_kv "
+        f"{n_cross * rep_ms / step_ms:.1%})")
+    del caches, kc, vc
+    rel = teacher_forced_plain(model, tokens, got, memory)
+    log(f"  logits rel-L2, kernels vs plain teacher-forced: prefill {rel[0]:.3e}, decode max "
+        f"{max(rel[1:]):.3e} (tol {SERVE_TOL['dense_bf16']})")
+    if max(rel) > SERVE_TOL["dense_bf16"]:
+        raise AssertionError(f"Llama-3.2-Vision kernel serving disagrees with plain: {rel}")
+    rec.update(layers=L, weight_bytes=weight_bytes, decode_bound_ms=bound_ms,
+               cache_bytes=cache_bytes, rel_l2_plain=rel, cross_layers=n_cross,
+               cross_decode_attention_ms=attn_ms, cross_repeat_kv_ms=rep_ms,
+               cross_share=n_cross * attn_ms / step_ms, repeat_kv_share=n_cross * rep_ms / step_ms)
+    del model, got, memory
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32 at one superblock: decoding against the forward
+    cfg32 = dataclasses.replace(full, n_layers=VLM_TRAIN_LAYERS, dtype="float32")
+    b, s, new = VLM_F32_B, VLM_F32_S, VLM_F32_NEW
+    m2 = T.Transformer(cfg32, seed=0, device=dev)
+    set_gates(m2, VLM_GATE)
+    mem32 = torch.randn((b, cfg.n_image_tokens, cfg.d_model), generator=gen, device=dev)
+    with torch.inference_mode():
+        lg, c2 = T.prefill(m2, tokens[:b], s + new, memory=mem32)
+        got2 = [lg]
+        for j in range(new):
+            lg, c2 = T.decode_step(m2, c2, got2[-1].argmax(dim=-1, keepdim=True).int(), s + j)
+            got2.append(lg)
+        ext = torch.cat([tokens[:b], *[x.argmax(dim=-1, keepdim=True).int() for x in got2[:new]]],
+                        dim=1)
+        h2, _ = m2(ext, memory=mem32)
+        oracle = (h2[:, s - 1 :] @ m2.embed.T).float()
+    rel32 = [rel_l2(a, oracle[:, j]) for j, a in enumerate(got2)]
+    log(f"  f32, {cfg32.n_layers} layers: {new} decode steps from {b} prompts of {s} against the "
+        f"forward over {s + new} tokens, rel-L2 prefill {rel32[0]:.3e}, decode max "
+        f"{max(rel32[1:]):.3e} (tol {SERVE_TOL['f32']:.0e})")
+    if max(rel32) > SERVE_TOL["f32"]:
+        raise AssertionError(f"Llama-3.2-Vision f32 decode disagrees with the forward: {rel32}")
+    rec["f32"] = dict(layers=cfg32.n_layers, decode_steps=new, rel_l2_forward=rel32)
+    del m2, c2, h2, oracle, got2, mem32
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4899,6 +5583,14 @@ def main() -> int:
         "serve": timed("15b serve_moe", phase_serve_moe, K, dev),
         "kimi": timed("15c serve_kimi", phase_serve_kimi, K, dev),
     }
+    for name, cases in timed("16 kernels_vlm", phase_kernels_vlm, dev).items():
+        record["kernels"][name]["vlm16"] = cases
+    record["vlm16"] = {
+        "train_musicgen": timed("16ae train_musicgen", phase_train_musicgen, K, dev),
+        "serve_musicgen": timed("16b serve_musicgen", phase_serve_musicgen, K, dev),
+        "train_vlm": timed("16c train_vlm", phase_train_vlm, K, dev),
+        "serve_vlm": timed("16d serve_vlm", phase_serve_vlm, K, dev),
+    }
 
     # launches: each main path's own count, reset to 0 just before that run
     # and read just after (the serving waves of phase 3, the 4 training steps
@@ -4909,10 +5601,13 @@ def main() -> int:
     # calls of phase 12 (a), the NCCL launcher of phase 12 (b), both
     # processes of phase 12 (c), phase 13's Mamba-2 serving, the Qwen and
     # MiniCPM launchers and contiguous runs, and the example, phase 14's
-    # RecurrentGemma training steps and serving, and phase 15's Llama-4-Scout
+    # RecurrentGemma training steps and serving, phase 15's Llama-4-Scout
     # training steps, engine and contiguous runs and Kimi-K2's contiguous
-    # and paged runs); "launches" is their sum
+    # and paged runs, and phase 16's MusicGen training steps, engine and
+    # contiguous runs and Llama-3.2-Vision's training steps and contiguous
+    # serving); "launches" is their sum
     kernels = []
+    vlm16 = record["vlm16"]
     for name, k in record["kernels"].items():
         by_path = {"serve": record["serve"]["launches"][name],
                    "train": record["train"]["train"]["launches"][name],
@@ -4937,7 +5632,14 @@ def main() -> int:
                    "serve_moe": record["moe15"]["serve"]["engine"]["launches"][name],
                    "contig_moe": record["moe15"]["serve"]["contiguous"]["launches"][name],
                    "contig_kimi": record["moe15"]["kimi"]["launches"][name],
-                   "paged_kimi": record["moe15"]["kimi"]["paged_launches"][name]}
+                   "paged_kimi": record["moe15"]["kimi"]["paged_launches"][name],
+                   "train_musicgen": vlm16["train_musicgen"]["train"]["launches"][name],
+                   "serve_musicgen": vlm16["serve_musicgen"]["engine"]["launches"][name],
+                   "contig_musicgen_engine":
+                       vlm16["serve_musicgen"]["contiguous"]["launches"][name],
+                   "contig_musicgen": vlm16["serve_musicgen"]["prefill_decode"]["launches"][name],
+                   "train_vlm": vlm16["train_vlm"]["train"]["launches"][name],
+                   "contig_vlm": vlm16["serve_vlm"]["launches"][name]}
         kernels.append({"name": name, **{key: k[key] for key in (
             "route", "source", "replaces")}, "launches": sum(by_path.values()),
             "launches_by_path": by_path,

@@ -280,8 +280,10 @@ def _write(parts, value):
     for idx, leaf in parts:
         v = value if idx is None else value[idx]
         if isinstance(leaf, torch.Tensor):
+            # np.ascontiguousarray gives a 0-d entry (a stacked scalar
+            # leaf's, e.g. a cross layer's gate) one axis: keep its shape
             leaf.copy_(v if isinstance(v, torch.Tensor)
-                       else torch.from_numpy(np.ascontiguousarray(v)))
+                       else torch.from_numpy(np.ascontiguousarray(v).reshape(np.shape(v))))
             out.append(leaf)
         elif isinstance(leaf, (int, float)) and not isinstance(v, torch.Tensor):
             out.append(type(leaf)(v))

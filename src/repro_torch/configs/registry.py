@@ -16,6 +16,8 @@ ARCHS = {
     "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
+    "llama-3.2-vision-90b": "repro_torch.configs.llama3_2_vision_90b",
     "wan2.1-1.3b": "repro_torch.configs.wan2_1_mmdit",
 }
 

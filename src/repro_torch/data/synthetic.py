@@ -67,13 +67,17 @@ def make_lm_batch(seed: int, batch: int, seq_len: int, vocab: int, cfg: ModelCon
     signal), the reference's construction: ``base`` uniform over the
     vocabulary, each token replaced by its predecessor in ``base`` with
     probability 1/2, and ``labels = roll(tokens, -1)``.  ``tokens`` and
-    ``labels`` [B, S] int32, drawn on ``device`` from ``seed``.  The VLM's
-    image memory is not ported."""
-    if cfg.family == "vlm":
-        raise ValueError("make_lm_batch: the VLM's image memory is not ported")
+    ``labels`` [B, S] int32, drawn on ``device`` from ``seed``.  A VLM's
+    batch also holds ``memory`` [B, n_image_tokens, d], the stub image
+    frontend's patch embeddings: N(0, 1) drawn in f32 from the same
+    generator after the tokens and cast to the configuration's dtype."""
     gen = torch.Generator(device=device).manual_seed(seed)
     base = torch.randint(0, vocab, (batch, seq_len), generator=gen, device=device)
     shifted = torch.roll(base, 1, dims=1)
     mask = torch.rand((batch, seq_len), generator=gen, device=device) < 0.5
     tokens = torch.where(mask, shifted, base).to(torch.int32)
-    return {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    out = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    if cfg.family == "vlm":
+        out["memory"] = torch.randn((batch, cfg.n_image_tokens, cfg.d_model), generator=gen,
+                                    dtype=torch.float32, device=device).to(DTYPES[cfg.dtype])
+    return out

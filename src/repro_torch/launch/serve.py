@@ -12,8 +12,10 @@ CPU at the smoke size.  LM requests stream through
 the ``a + b·B·S^p`` cost model, paged KV-cache pool); mmdit configs route
 denoise sampling through :class:`repro_torch.serve.DiffusionServeEngine`
 on the same scheduler.  Paged serving takes global-attention and MoE LMs
-only: a model with other block kinds (Mamba-2, RecurrentGemma) is refused, as the
-reference's engine refuses it; those serve contiguously
+(MusicGen-large among them) only: a model with other block kinds
+(Mamba-2, RecurrentGemma, Llama-3.2-Vision's cross layers) is refused
+before it is built, as the reference's engine refuses it; those serve
+contiguously
 (``train.steps.make_prefill_step`` / ``make_decode_step``).  The cost model here is a synthetic seed (no fitted
 telemetry on a demo host).
 """

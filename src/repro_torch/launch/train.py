@@ -28,8 +28,10 @@ Without ``--adaptive`` every step is one fixed ``--batch`` x ``--seq``
 microbatch.  The mmdit trains on diffusion latents, the LMs (the dense
 ``tinyllama-1.1b``, the default as in the reference launcher, and
 ``llama3.2-1b``; the ssm ``mamba2-2.7b``; the MoE ``llama4-scout-17b-a16e``
-and ``kimi-k2-1t-a32b``) on unpacked synthetic token
-streams (``make_lm_batch``) of the same shapes.  On the card the loader's
+and ``kimi-k2-1t-a32b``; the audio ``musicgen-large``; the vlm
+``llama-3.2-vision-90b``, whose batches carry the stub frontend's image
+``memory``) on unpacked synthetic token streams (``make_lm_batch``) of the
+same shapes.  On the card the loader's
 thread draws batches on a side stream (``on_side_stream``), off the stream
 the engine times.  It prints the final loss and tokens/s.
 

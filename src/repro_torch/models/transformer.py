@@ -1,6 +1,7 @@
-"""Decoder-only LM: global-attention, MoE, local-attention, RG-LRU and
-Mamba-2 blocks, trained, served over a paged KV cache (global-attention
-and MoE blocks) or served from contiguous per-layer caches (every kind).
+"""Decoder-only LM: global-attention, MoE, local-attention, RG-LRU,
+Mamba-2 and cross-attention blocks, trained, served over a paged KV cache
+(global-attention and MoE blocks) or served from contiguous per-layer
+caches (every kind).
 
 The counterpart of ``repro.models.transformer`` for global-attention
 transformer blocks (``"attn"``), MoE blocks (``"moe"``: ``norm1``,
@@ -8,8 +9,11 @@ transformer blocks (``"attn"``), MoE blocks (``"moe"``: ``norm1``,
 the MLP), Griffin's sliding-window attention blocks
 (``"local"``: the attention block's parameters, ``local_attention``) and
 RG-LRU blocks (``"rglru"``: ``norm1``, the recurrent ``mixer``, ``norm2``
-and the MLP), and SSD mixer blocks (``"ssm"``: ``norm1`` and ``mixer``, no
-MLP half): the same parameters under the same names (one
+and the MLP), SSD mixer blocks (``"ssm"``: ``norm1`` and ``mixer``, no
+MLP half), and Llama-3.2-Vision's cross-attention blocks (``"cross"``:
+``norm1``, an ``attn`` of ``wq``, ``wkv``, ``wo`` and a tanh ``gate``
+over the image ``memory``, ``norm2`` and the MLP): the same parameters
+under the same names (one
 ``blocks.<i>`` module per layer, run in one Python loop, where the JAX
 model scans the stacked superblocks), the same arithmetic, and the fused
 operators routed through ``repro_torch.kernels``, which picks the CUDA
@@ -24,7 +28,8 @@ Entry points:
   ``segment_ids`` (attention scoped to each document, RoPE restarting at
   each), and a sequence-parallel shard passes its ring ``seq_group`` and
   the whole window's ``positions``; ``return_aux`` adds the MoE layers'
-  summed router loss;
+  summed router loss; a model with cross-attention layers takes the
+  image ``memory`` [B, n_image_tokens, d] in the model's dtype;
 * :func:`lm_loss` — the chunked next-token cross-entropy plus the router
   loss (training);
 * :func:`prefill` and :func:`decode_step` — contiguous serving: prompts
@@ -39,7 +44,8 @@ Entry points:
   slot's current page before the paged attention.
 
 Caches are one dict per layer, in a list: ``{"k", "v"}`` [B, cap, Hkv,
-dh] for an attention layer; a local layer's ring ``{"k", "v"}`` [B, w,
+dh] for an attention layer (a cross layer's holds the memory's k and v,
+[B, n_image_tokens, Hkv, dh], and keeps its length); a local layer's ring ``{"k", "v"}`` [B, w,
 Hkv, dh] with ``"pos"`` [w] int32 (the position each slot holds, -1 where
 empty; position t lives in slot t mod w); ``{"h", "conv"}`` for an RG-LRU
 layer and ``{"conv", "state"}`` for a Mamba-2 layer
@@ -55,8 +61,12 @@ sequence parallelism the same two at the block level.  The MoE blocks
 route with capacity in the full-sequence forward (training, prefill) and
 without drops in the decode steps (``no_drop``), as the reference does,
 in one dispatch group (the reference's ``policy.n_dispatch_groups``
-without a policy; the port has none).  The kind not ported (cross)
-raises: it comes with its slice of the port.
+without a policy; the port has none).  A cross layer attends from every
+position to every image token (non-causal, no segment ids, also in a
+packed window, as the reference), and decodes against the cached memory
+with kv repeated to every query head.  Where the reference would promote
+f32 memory against bf16 weights, the port requires the memory in the
+model's dtype, and a cross layer called without memory raises by name.
 """
 
 from __future__ import annotations
@@ -87,7 +97,7 @@ from .moe import MoE, apply_moe
 from .rglru import RGLRU, apply_rglru, apply_rglru_decode, rglru_cache_init
 from .ssm import SSM, apply_ssm, apply_ssm_decode, ssm_cache_init
 
-KINDS = ("attn", "moe", "ssm", "local", "rglru")  # the block kinds ported so far
+KINDS = ("attn", "moe", "ssm", "local", "rglru", "cross")  # the block kinds of the port
 PAGED_KINDS = ("attn", "moe")  # the kinds paged serving takes
 SP_KINDS = ("attn", "moe")  # the kinds sequence parallelism takes
 
@@ -99,13 +109,14 @@ def _ops(ops: str):
 
 
 def _model_kinds(cfg: ModelConfig) -> list[str]:
-    """The layer plan, refusing the kinds not ported."""
+    """The layer plan, refusing unknown kinds."""
     kinds = cfg.layer_kinds()
     bad = sorted({k for k in kinds if k not in KINDS})
     if bad:
         raise ValueError(
-            f"the port runs global-attention, MoE, local-attention, RG-LRU and "
-            f"Mamba-2 blocks only ({KINDS}); config {cfg.name} has {bad}"
+            f"the port runs global-attention, MoE, local-attention, RG-LRU, "
+            f"Mamba-2 and cross-attention blocks only ({KINDS}); config {cfg.name} "
+            f"has {bad}"
         )
     return kinds
 
@@ -143,6 +154,24 @@ class Attention(nn.Module):
         if cfg.qk_norm:
             self.qnorm = nn.Parameter(torch.ones(dh, dtype=torch.float32, device=device))
             self.knorm = nn.Parameter(torch.ones(dh, dtype=torch.float32, device=device))
+
+
+class CrossAttention(nn.Module):
+    """Cross-attention parameters (``_attn_params(cross=True)``): ``wq``
+    [d, h dh], ``wkv`` [d, 2 hkv dh] (applied to the image memory), ``wo``
+    [h dh, d], and the f32 scalar ``gate`` of the tanh-gated residual, 0 at
+    init (so the layer adds nothing until the gate moves)."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype, device):
+        super().__init__()
+        if cfg.qk_norm:
+            raise ValueError("cross-attention layers hold no q/k norm gains (the reference's "
+                             "_cross_attn_full never applies them)")
+        d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.wq = dense_init(gen, d, h * dh, dtype, device)
+        self.wkv = dense_init(gen, d, 2 * hkv * dh, dtype, device)
+        self.gate = nn.Parameter(torch.zeros((), dtype=torch.float32, device=device))
+        self.wo = dense_init(gen, h * dh, d, dtype, device)
 
 
 class Block(nn.Module):
@@ -192,8 +221,21 @@ class RGLRUBlock(nn.Module):
         self.mlp = MLP(gen, cfg.d_model, cfg.d_ff, dtype, device)
 
 
+class CrossBlock(nn.Module):
+    """One cross-attention block's parameters (``block_params`` for
+    ``"cross"``): ``norm1``, the :class:`CrossAttention`, ``norm2`` and the
+    MLP."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, dtype, device):
+        super().__init__()
+        self.norm1 = Norm(cfg.d_model, device, cfg.norm)
+        self.attn = CrossAttention(cfg, gen, dtype, device)
+        self.norm2 = Norm(cfg.d_model, device, cfg.norm)
+        self.mlp = MLP(gen, cfg.d_model, cfg.d_ff, dtype, device)
+
+
 BLOCKS = {"attn": Block, "moe": MoEBlock, "local": Block, "ssm": SSMBlock,
-          "rglru": RGLRUBlock}
+          "rglru": RGLRUBlock, "cross": CrossBlock}
 
 
 class Transformer(nn.Module):
@@ -219,7 +261,7 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def forward(self, tokens, *, collect_cache: bool = False, ops: str = "kernel",
+    def forward(self, tokens, *, memory=None, collect_cache: bool = False, ops: str = "kernel",
                 remat: bool = False, segment_ids=None, positions=None, seq_group=None,
                 return_aux: bool = False):
         """Token ids [B, S] -> ``(hidden [B, S, d] after the final norm,
@@ -227,8 +269,11 @@ class Transformer(nn.Module):
         f32 sum of the MoE layers' router losses (0 without MoE layers):
         with ``collect_cache``, one decode cache per layer
         (``{"k", "v"}`` [B, S, Hkv, dh], k after RoPE, for an attention or
-        MoE layer; a local layer's ring; the RG-LRU's ``{"h", "conv"}``; the
-        SSM's ``{"conv", "state"}``), else None.  ``remat``
+        MoE layer; a cross layer's memory k and v [B, n_image_tokens, Hkv,
+        dh]; a local layer's ring; the RG-LRU's ``{"h", "conv"}``; the
+        SSM's ``{"conv", "state"}``), else None.  ``memory`` [B,
+        n_image_tokens, d], in the model's dtype, is what the cross layers
+        attend to (the VLM's image patch embeddings).  ``remat``
         recomputes each block in the backward (``torch.utils.checkpoint``,
         the reference's per-superblock ``jax.checkpoint``), as training
         does.
@@ -256,10 +301,10 @@ class Transformer(nn.Module):
         for bp, kind in zip(self.blocks, self.kinds):
             if remat:
                 x, a, cache = checkpoint(apply_block, bp, x, cfg, positions, K, kind,
-                                         segment_ids=segment_ids, seq_group=seq_group,
-                                         use_reentrant=False)
+                                         memory=memory, segment_ids=segment_ids,
+                                         seq_group=seq_group, use_reentrant=False)
             else:
-                x, a, cache = apply_block(bp, x, cfg, positions, K, kind,
+                x, a, cache = apply_block(bp, x, cfg, positions, K, kind, memory=memory,
                                           collect_cache=collect_cache,
                                           segment_ids=segment_ids, seq_group=seq_group)
             if a is not None:
@@ -312,16 +357,40 @@ def _self_attn_full(bp: Attention, x, cfg: ModelConfig, positions, K, *, local: 
     return ctx.reshape(b, s, cfg.n_heads * cfg.head_dim) @ bp.wo, (k, v)
 
 
-def apply_block(bp: Block | MoEBlock | SSMBlock | RGLRUBlock, x, cfg: ModelConfig, positions,
-                K, kind: str = "attn", *, collect_cache: bool = False, segment_ids=None,
-                seq_group=None):
+def _cross_attn_full(bp: CrossAttention, x, memory, cfg: ModelConfig, K):
+    """Attention from every position of x to every row of ``memory`` (non-
+    causal, no segment ids): q from x, k and v views of ``memory @ wkv``.
+    Returns ``(tanh(gate) * out [B, S, d], (k, v))``, the tanh taken in f32
+    and cast to the output's dtype."""
+    if memory is None:
+        raise ValueError(f"config {cfg.name}: a cross-attention layer needs the image memory "
+                         f"[B, n_image_tokens, d] (memory=)")
+    if memory.dtype != bp.wkv.dtype:
+        raise ValueError(f"config {cfg.name}: the memory must come in the model's dtype "
+                         f"{bp.wkv.dtype}, got {memory.dtype}")
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, s, _ = x.shape
+    n = memory.shape[1]
+    q = (x @ bp.wq).reshape(b, s, h, dh)
+    kv = memory @ bp.wkv
+    k = kv[..., : hkv * dh].reshape(b, n, hkv, dh)
+    v = kv[..., hkv * dh :].reshape(b, n, hkv, dh)
+    ctx = K.attention(q, k, v, causal=False)
+    out = ctx.reshape(b, s, h * dh) @ bp.wo
+    return torch.tanh(bp.gate).to(out.dtype) * out, (k, v)
+
+
+def apply_block(bp: Block | MoEBlock | SSMBlock | RGLRUBlock | CrossBlock, x, cfg: ModelConfig,
+                positions, K, kind: str = "attn", *, memory=None, collect_cache: bool = False,
+                segment_ids=None, seq_group=None):
     """One block over a full sequence (or a ring shard of one, with
     ``seq_group``).  Returns ``(x, aux, cache or None)``, aux the MoE
     layer's router loss (None for the other kinds).  As in the reference,
-    ``segment_ids`` reach the attention kinds only: in a packed window the
-    RG-LRU's and the SSM's conv and recurrence run across documents, and
+    ``segment_ids`` reach the self-attention kinds only: in a packed window
+    the RG-LRU's and the SSM's conv and recurrence run across documents,
     the MoE routes each token alone (its capacity counts every token of
-    the group, padding included)."""
+    the group, padding included), and a cross layer's positions all see
+    the whole ``memory``."""
     if seq_group is not None and kind not in SP_KINDS:
         raise ValueError(
             f"sequence parallelism does not support {kind!r} blocks "
@@ -339,6 +408,10 @@ def apply_block(bp: Block | MoEBlock | SSMBlock | RGLRUBlock, x, cfg: ModelConfi
             out, cache = apply_rglru(bp.mixer, h, cfg, return_cache=True)
         else:
             out = apply_rglru(bp.mixer, h, cfg)
+    elif kind == "cross":
+        out, (k, v) = _cross_attn_full(bp.attn, h, memory, cfg, K)
+        if collect_cache:
+            cache = {"k": k, "v": v}
     else:
         out, (k, v) = _self_attn_full(bp.attn, h, cfg, positions, K, local=kind == "local",
                                       segment_ids=segment_ids, seq_group=seq_group)
@@ -377,18 +450,19 @@ def _make_attn_cache(k, v, kind: str, cfg: ModelConfig) -> dict:
 # --------------------------------------------------------------------------
 
 
-def lm_loss(model: Transformer, tokens, labels, *, loss_chunk: int = 512, ops: str = "kernel",
-            remat: bool = True, segment_ids=None, positions=None, seq_group=None):
+def lm_loss(model: Transformer, tokens, labels, *, memory=None, loss_chunk: int = 512,
+            ops: str = "kernel", remat: bool = True, segment_ids=None, positions=None,
+            seq_group=None):
     """Mean next-token cross-entropy of ``tokens`` [B, S] against ``labels``
     [B, S] (``repro.models.transformer.lm_loss``): the forward with each
     block recomputed in the backward, then :func:`chunked_softmax_xent`
     over chunks of ``min(loss_chunk, S)`` positions against the tied
     embedding, plus ``router_aux_weight`` times the MoE layers' summed
-    router loss where the config has MoE.  ``segment_ids``, ``positions``
-    and ``seq_group`` as in :meth:`Transformer.forward`; on a
+    router loss where the config has MoE.  ``memory``, ``segment_ids``,
+    ``positions`` and ``seq_group`` as in :meth:`Transformer.forward`; on a
     ``LocalRing`` the k shards are stacked along the batch axis, so the
     mean over all their tokens is the mean of the k shard means."""
-    h, aux, _ = model(tokens, ops=ops, remat=remat, segment_ids=segment_ids,
+    h, aux, _ = model(tokens, memory=memory, ops=ops, remat=remat, segment_ids=segment_ids,
                       positions=positions, seq_group=seq_group, return_aux=True)
     ce = chunked_softmax_xent(h, model.embed, labels, chunk=min(loss_chunk, tokens.shape[1]))
     if model.cfg.moe is None:
@@ -420,12 +494,13 @@ def decays(cfg: ModelConfig):
 
 def kind_cache_init(kind: str, batch: int, cap: int, cfg: ModelConfig, *, device) -> dict:
     """One layer's zero decode cache: k and v [B, cap, Hkv, dh] in the
-    model's dtype (``"attn"`` and ``"moe"``), an empty ring of ``cfg.local_window`` slots
+    model's dtype (``"attn"`` and ``"moe"``; ``max(n_image_tokens, 1)``
+    rows for ``"cross"``), an empty ring of ``cfg.local_window`` slots
     (``"local"``: every ``pos`` -1), or the recurrent state and conv rows
     of an RG-LRU (``"rglru"``) or SSM (``"ssm"``) layer."""
     dt = DTYPES[cfg.dtype]
-    if kind in ("attn", "moe", "local"):
-        n = cfg.local_window if kind == "local" else cap
+    if kind in ("attn", "moe", "local", "cross"):
+        n = {"local": cfg.local_window, "cross": max(cfg.n_image_tokens, 1)}.get(kind, cap)
         shape = (batch, n, cfg.n_kv_heads, cfg.head_dim)
         c = {"k": torch.zeros(shape, dtype=dt, device=device),
              "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -449,7 +524,7 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, *, device=None) -> list:
 def _pad_attn_caches(caches: list, cfg: ModelConfig, cap: int) -> list:
     """Grow the global-attention (and MoE) layers' k and v along the
     sequence to ``cap`` (never shorter: a longer prompt keeps its length);
-    local rings keep their window."""
+    local rings keep their window, cross layers their memory's rows."""
     out = []
     for c, kind in zip(caches, cfg.layer_kinds()):
         s = c["k"].shape[1] if kind in ("attn", "moe") else cap
@@ -460,25 +535,29 @@ def _pad_attn_caches(caches: list, cfg: ModelConfig, cap: int) -> list:
     return out
 
 
-def prefill(model: Transformer, tokens, cache_cap: int, *, ops: str = "kernel"):
+def prefill(model: Transformer, tokens, cache_cap: int, *, memory=None, ops: str = "kernel"):
     """Run the prompts tokens [B, S] (one length: the logits are at the
-    last position of every row).  Returns ``(logits [B, V] f32, caches)``,
-    the attention caches grown to ``cache_cap`` positions.  The MoE layers
-    route the B * S tokens with capacity, as in training."""
-    h, caches = model(tokens, collect_cache=True, ops=ops)
+    last position of every row), the cross layers over ``memory``.
+    Returns ``(logits [B, V] f32, caches)``, the attention caches grown to
+    ``cache_cap`` positions.  The MoE layers route the B * S tokens with
+    capacity, as in training."""
+    h, caches = model(tokens, memory=memory, collect_cache=True, ops=ops)
     return last_token_logits(h[:, -1], model.embed), _pad_attn_caches(caches, model.cfg,
                                                                       cache_cap)
 
 
-def apply_block_decode(bp: Block | MoEBlock | SSMBlock | RGLRUBlock, x, cfg: ModelConfig,
-                       cache: dict, pos: int, K, kind: str = "attn"):
+def apply_block_decode(bp: Block | MoEBlock | SSMBlock | RGLRUBlock | CrossBlock, x,
+                       cfg: ModelConfig, cache: dict, pos: int, K, kind: str = "attn"):
     """One block for one new token per row at position ``pos``.  Returns
     ``(x, cache)``: an attention (or MoE) layer's k and v are written at
     ``pos`` in place before attending over ``pos + 1`` positions; a local
     layer's at slot ``pos mod w`` of its ring, in place, with ``pos``
     recorded there, before attending over the slots that hold one of the
-    last w positions; a recurrent layer's cache is new.  An MoE layer
-    routes the B new tokens without drops."""
+    last w positions; a cross layer projects q only and attends over every
+    row of its cached memory k and v (kv repeated to every query head, as
+    the reference's ``repeat_kv``), its cache unchanged; a recurrent
+    layer's cache is new.  An MoE layer routes the B new tokens without
+    drops."""
     h = apply_norm(bp.norm1, x, cfg.norm, cfg.norm_eps, K)
     if kind == "ssm":
         out, cache = apply_ssm_decode(bp.mixer, h, cache, cfg.ssm, K)
@@ -506,6 +585,15 @@ def apply_block_decode(bp: Block | MoEBlock | SSMBlock | RGLRUBlock, x, cfg: Mod
         g = cfg.n_heads // cfg.n_kv_heads
         ctx = decode_attention(q, repeat_kv(kc, g), repeat_kv(vc, g), valid)
         x = x + ctx.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ bp.attn.wo
+    elif kind == "cross":
+        b, hq, dh = x.shape[0], cfg.n_heads, cfg.head_dim
+        q = (h @ bp.attn.wq).reshape(b, 1, hq, dh)
+        kc, vc = cache["k"], cache["v"]
+        g = hq // cfg.n_kv_heads
+        valid = torch.ones(kc.shape[1], dtype=torch.bool, device=x.device)
+        ctx = decode_attention(q, repeat_kv(kc, g), repeat_kv(vc, g), valid)
+        out = ctx.reshape(b, 1, hq * dh) @ bp.attn.wo
+        x = x + torch.tanh(bp.attn.gate).to(out.dtype) * out
     else:
         raise ValueError(kind)
     h2 = apply_norm(bp.norm2, x, cfg.norm, cfg.norm_eps, K)

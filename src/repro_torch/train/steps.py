@@ -1,6 +1,7 @@
 """Step functions of the port: the counterpart of ``repro.train.steps`` for
-training the mmdit, dense, moe, ssm and hybrid (RecurrentGemma) families
-and for serving the mmdit and the LMs.
+training the mmdit, dense, moe, ssm, hybrid (RecurrentGemma), audio
+(MusicGen) and vlm (Llama-3.2-Vision) families and for serving the mmdit
+and the LMs.
 
 Diffusion serving needs a denoise step (one velocity evaluation, the unit
 of diffusion sampling); LM serving a paged prefill and a paged decode wave
@@ -9,7 +10,7 @@ step (one batch of equal-length prompts at one position; every LM kind,
 and the yardstick paged serving is held to).
 Training needs the state, the loss (the rectified-flow loss, or the LM
 loss of ``tokens`` against ``labels``, packed windows with their
-``segment_ids``), the pool microbatch's gradient step, the one-batch train
+``segment_ids``, a VLM's batches with their image ``memory``), the pool microbatch's gradient step, the one-batch train
 step, and the sequence-parallel step of one packed window split over a
 ring of ranks (:func:`make_sp_pool_grad_step`, fed by
 ``data.packing.split_packed_batch`` shards).
@@ -40,7 +41,7 @@ NoiseHook = Callable[[int, int, dict], "tuple[torch.Tensor, torch.Tensor] | None
 
 
 #: the families the port trains
-TRAINED = ("mmdit", "dense", "moe", "ssm", "hybrid")
+TRAINED = ("mmdit", "dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def _mmdit_only(cfg: ModelConfig, what: str) -> None:
@@ -94,12 +95,13 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
     ``text_segment_ids``), ``rng`` a ``torch.Generator`` and ``noise`` an
     injected ``(t, eps)``; for the LM, ``lm_loss`` of ``tokens`` against
     ``labels`` (the router loss included), scoped per document by the
-    optional ``segment_ids`` of a packed batch (no draws: ``rng`` and
-    ``noise`` are unused)."""
+    optional ``segment_ids`` of a packed batch, the cross layers over the
+    batch's ``memory`` (a VLM's; no draws: ``rng`` and ``noise`` are
+    unused)."""
     _trained(cfg, "make_loss_fn")
     if cfg.family != "mmdit":
         def lm_loss_fn(model, batch, rng, noise=None):
-            return T.lm_loss(model, batch["tokens"], batch["labels"],
+            return T.lm_loss(model, batch["tokens"], batch["labels"], memory=batch.get("memory"),
                              segment_ids=batch.get("segment_ids"))
 
         return lm_loss_fn
@@ -240,13 +242,14 @@ def _lm_only(cfg: ModelConfig, what: str) -> None:
 
 def make_prefill_step(cfg: ModelConfig, cache_cap: int) -> Callable:
     """Contiguous prefill without autograd state: run the prompts [B, S]
-    (one length) and return ``(logits at the last position [B, V] f32,
-    caches)``, the attention caches grown to ``cache_cap`` positions."""
+    (one length), a VLM's cross layers over ``memory``, and return
+    ``(logits at the last position [B, V] f32, caches)``, the attention
+    caches grown to ``cache_cap`` positions."""
     _lm_only(cfg, "prefill")
 
-    def prefill_step(model, tokens):
+    def prefill_step(model, tokens, memory=None):
         with torch.inference_mode():
-            return T.prefill(model, tokens, cache_cap)
+            return T.prefill(model, tokens, cache_cap, memory=memory)
 
     return prefill_step
 

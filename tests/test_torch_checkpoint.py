@@ -5,7 +5,8 @@ port's train state ``{"model", "opt", "step"}`` is stored as the JAX tree
 ``{"params", "opt", "step"}`` (the MMDiT's blocks stacked, the LM's
 ``blocks/s<i>`` stacked and its ``tail/<i>`` one a layer), bf16 leaves as
 ``uint16_bits``.  Every value must come back bitwise, either way, on the
-Wan-2.1, Llama-3.2, Mamba-2 and Kimi-K2 smoke configurations; the two manifests must
+Wan-2.1, Llama-3.2, Mamba-2, Kimi-K2, MusicGen and Llama-3.2-Vision smoke
+configurations; the two manifests must
 name the same keys, shapes, dtypes and stored markers.  The store's own
 contract (retention, the age-gated sweep, retries, mismatch errors, run
 state) is checked as the JAX package's tests check it.
@@ -26,14 +27,18 @@ import torch  # noqa: E402
 from repro.checkpoint import store as jstore  # noqa: E402
 from repro.configs import kimi_k2_1t_a32b as jax_kimi  # noqa: E402
 from repro.configs import llama3_2_1b as jax_llama  # noqa: E402
+from repro.configs import llama3_2_vision_90b as jax_vlm  # noqa: E402
 from repro.configs import mamba2_2_7b as jax_mamba  # noqa: E402
+from repro.configs import musicgen_large as jax_musicgen  # noqa: E402
 from repro.configs import wan2_1_mmdit as jax_wan  # noqa: E402
 from repro.optim import adamw as jax_adamw  # noqa: E402
 from repro.train.steps import init_state as jax_init_state  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import kimi_k2_1t_a32b as torch_kimi  # noqa: E402
 from repro_torch.configs import llama3_2_1b as torch_llama  # noqa: E402
+from repro_torch.configs import llama3_2_vision_90b as torch_vlm  # noqa: E402
 from repro_torch.configs import mamba2_2_7b as torch_mamba  # noqa: E402
+from repro_torch.configs import musicgen_large as torch_musicgen  # noqa: E402
 from repro_torch.configs import wan2_1_mmdit as torch_wan  # noqa: E402
 from repro_torch.convert import BF16_BITS, from_jax_params, to_numpy  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -43,7 +48,9 @@ from repro_torch.train.steps import init_state  # noqa: E402
 #: 3 layers of the pattern (attn, attn): one stacked superblock and a tail
 #: layer.  Kimi-K2's smoke model leads with its first dense layer (an
 #: unstacked ``lead/0``) before two stacked MoE layers, and keeps its AdamW
-#: moments in bf16 (``opt_state_dtype``)
+#: moments in bf16 (``opt_state_dtype``).  MusicGen's LayerNorms carry
+#: biases (``norm1.b`` and ``norm2.b`` stacked, ``final_norm.b`` not), and
+#: the VLM's cross layer a scalar f32 ``gate`` stacked to [n_rep]
 CASES = {
     "wan": (jax_wan, torch_wan, {}),
     "wan-bf16": (jax_wan, torch_wan, {"dtype": "bfloat16"}),
@@ -51,6 +58,8 @@ CASES = {
     "llama-bf16": (jax_llama, torch_llama, {"dtype": "bfloat16"}),
     "mamba2": (jax_mamba, torch_mamba, {}),
     "kimi": (jax_kimi, torch_kimi, {}),
+    "musicgen": (jax_musicgen, torch_musicgen, {}),
+    "vlm": (jax_vlm, torch_vlm, {}),
 }
 OPT = dict(peak_lr=1e-3, schedule="constant", warmup=0)  # state_dtype: the config's
 

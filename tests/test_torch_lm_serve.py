@@ -91,8 +91,9 @@ def test_layer_plan_matches(pattern, n_layers):
 
 
 def test_transformer_refuses_unported_kinds():
-    cfg = dataclasses.replace(torch_llama.smoke_config(), pattern=("attn", "cross"))
-    with pytest.raises(ValueError, match="RG-LRU and Mamba-2 blocks only"):
+    """Every kind of the reference is ported; an unknown one is refused."""
+    cfg = dataclasses.replace(torch_llama.smoke_config(), pattern=("attn", "bogus"))
+    with pytest.raises(ValueError, match="Mamba-2 and cross-attention blocks only"):
         T.Transformer(cfg, device="cpu")
 
 
