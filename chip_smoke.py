@@ -239,6 +239,27 @@ Phases, any failure of which exits non-zero with no result line:
    and ``repeat_kv`` timed alone; logits against ``ops="plain"``
    teacher-forced (5e-2); then one superblock in f32, 32 decode steps
    against one forward (1e-4).
+17. the dry run (``repro_torch.launch.dryrun``): (a) ``--all --force``
+   in a subprocess (it runs two subprocesses a production mesh, all at
+   once, with a timeout): 66 cells ``ok`` and 22 ``skipped`` with the
+   reference's reasons, none ``error``; each cell's per-device operations,
+   argument, temp and peak GiB, collective GiB and trace seconds printed,
+   the records copied to ``chiprun_out/dryrun.json``; (b) Llama-3.2-1B at
+   full width and depth (16 layers, bf16, seed 0), ``train_4k`` with its
+   global batch cut from 256 to 2, dry-run on ``make_host_mesh()``, then
+   ``make_train_step(cfg, opt, policy=make_policy(host_mesh, cfg))`` for
+   real through the hand kernels: the predicted ``argument_bytes`` equal
+   to the state's and the batch's bytes on the card, exact launch counts
+   (K4 rows 4L+1, K5 and K6 rows 2L+1, K7 2L, K8 and K9 L), the predicted
+   ``peak_bytes`` within 25% of the step's peak allocation above what the
+   process held before the state (``max_memory_allocated`` over a steady
+   step); the counted operations over the steady step's time printed as
+   TFLOP/s and a share of 989; (c) ``decode_32k`` with its batch cut from
+   128 to 8 (cache capacity 32768): one ``make_decode_step(cfg,
+   policy=...)`` call at ``pos`` 32767 against the dry run of the cell, the
+   same three gates (K4 rows 2L+1).  Both print the trace's temporaries
+   beside what the same step's dispatched ops allocate on the card (the
+   dry run's tracer, one more step) and what the allocator held.
 
 Phase 2 also holds K4 on model rows (x [1, 2048, 2048] and [8, 1, 2048]
 bf16) and K12 (the decode wave of phase 6; 64 slots with kv_lens up to
@@ -268,7 +289,8 @@ MiniCPM-2B's launchers and contiguous runs, and the example, phase
 Llama-4-Scout training steps, engine and contiguous runs and Kimi-K2's
 contiguous and paged runs, and phase 16's MusicGen training steps, engine
 and contiguous runs and Llama-3.2-Vision's training steps and contiguous
-serving (``launches_by_path``); ``launches`` is their sum.
+serving, and phase 17's host-mesh train step and decode step
+(``launches_by_path``); ``launches`` is their sum.
 
 Each phase's wall seconds go to the log and to the record (``phase_s``).
 Prints the kernels' JSON record on the line before the last and, as the
@@ -5471,6 +5493,216 @@ def phase_serve_vlm(K, dev) -> dict:
     return rec
 
 
+DRYRUN_TIMEOUT_S = 600  # phase 17 (a): the --all subprocesses together
+DRY_ARCH = "llama3.2-1b"
+DRY_TRAIN_BATCH = 2  # phase 17 (b): train_4k's global batch of 256, cut
+DRY_DECODE_BATCH = 8  # phase 17 (c): decode_32k's global batch of 128, cut
+DRY_PEAK_BAND = 0.25  # predicted peak_bytes against the card's (PERF.md, phase 17)
+
+
+def phase_dryrun_all() -> dict:
+    """Phase 17 (a): every cell of the dry run on both production meshes,
+    in a subprocess of its own (``--all`` spawns the mesh processes); the
+    records checked against the registry's catalogue."""
+    from repro_torch.configs.registry import SHAPES, arch_ids, cell_supported, get_config
+    from repro_torch.launch import dryrun
+
+    argv = ["--all", "--force", "--timeout", str(DRYRUN_TIMEOUT_S)]
+    code = (f"import sys; sys.path.insert(0, {str(SRC)!r}); "
+            f"from repro_torch.launch.dryrun import main; sys.exit(main({argv!r}))")
+    log_dir = ROOT / "chiprun_out"
+    log_dir.mkdir(exist_ok=True)
+    log(f"(a) python -m repro_torch.launch.dryrun {' '.join(argv)}")
+    t0 = time.perf_counter()
+    with open(log_dir / "dryrun.log", "w") as f:
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, stdout=f,
+                              stderr=subprocess.STDOUT, timeout=DRYRUN_TIMEOUT_S + 60)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the dry run exited {proc.returncode}: "
+                             f"{(log_dir / 'dryrun.log').read_text()[-3000:]}")
+    res = json.loads(dryrun.RESULTS.read_text())
+    (log_dir / "dryrun.json").write_text(json.dumps(res, indent=1))
+    tally, gib, cells = {"ok": 0, "skipped": 0, "error": 0}, 2**30, {}
+    for mesh in dryrun.MESHES:
+        for arch in arch_ids():
+            for name, shape in SHAPES.items():
+                key = dryrun.cell_key(arch, name, mesh)
+                rec = res[key]
+                tally[rec["status"]] = tally.get(rec["status"], 0) + 1
+                ok, why = cell_supported(get_config(arch), shape)
+                if rec["status"] != ("ok" if ok else "skipped") or rec.get("reason", "") != why:
+                    raise AssertionError(f"dry run {key}: {rec['status']} "
+                                         f"{rec.get('reason') or rec.get('error')}, expected "
+                                         f"{'ok' if ok else 'skipped: ' + why}")
+                if not ok:
+                    continue
+                mem = rec["memory"]
+                cells[key] = dict(flops=rec["flops"], arg_gib=mem["argument_bytes"] / gib,
+                                  temp_gib=mem["temp_bytes"] / gib,
+                                  peak_gib=mem["peak_bytes"] / gib,
+                                  coll_gib=rec["collectives"]["total_bytes"] / gib,
+                                  trace_s=rec["trace_s"])
+                log(f"  {key}: flops/dev {rec['flops']:.4e}  arg {cells[key]['arg_gib']:.3f} "
+                    f"temp {cells[key]['temp_gib']:.3f} peak {cells[key]['peak_gib']:.3f} GiB  "
+                    f"coll {cells[key]['coll_gib']:.3f} GiB  trace {rec['trace_s']} s")
+    if tally != {"ok": 66, "skipped": 22, "error": 0}:
+        raise AssertionError(f"dry run: {tally}, expected 66 ok, 22 skipped, 0 error")
+    log(f"  {tally['ok']} ok, {tally['skipped']} skipped (the reference's reasons), "
+        f"{tally['error']} error in {wall:.1f} s")
+    return {"wall_s": wall, "tally": tally, "cells": cells}
+
+
+def _state_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _dispatched_peak(fn) -> int:
+    """The peak bytes the ops dispatched by one call of ``fn`` allocate,
+    by the dry run's tracer (``dryrun.LiveBytes``), on whatever device
+    they run: on the card, what the meta trace would see if it ran there."""
+    from repro_torch.launch.dryrun import LiveBytes
+
+    tracer = LiveBytes()
+    with tracer:
+        fn()
+    torch.cuda.synchronize()
+    return tracer.peak
+
+
+def _peak_gate(what: str, rec: dict, measured: int) -> dict:
+    pred = rec["memory"]["peak_bytes"]
+    ratio = pred / measured
+    log(f"  {what}: predicted peak {pred / 2**30:.3f} GiB (arguments "
+        f"{rec['memory']['argument_bytes'] / 2**30:.3f} + temp "
+        f"{rec['memory']['temp_bytes'] / 2**30:.3f}), the card's {measured / 2**30:.3f} GiB: "
+        f"ratio {ratio:.4f}")
+    if abs(ratio - 1) > DRY_PEAK_BAND:
+        raise AssertionError(f"{what}: predicted peak {pred} bytes is not within "
+                             f"{DRY_PEAK_BAND:.0%} of the card's {measured}")
+    return {"predicted_peak_bytes": pred, "card_peak_bytes": measured, "ratio": ratio}
+
+
+def phase_dryrun_host(K, dev) -> dict:
+    """Phase 17 (b), (c): two host-mesh cells of Llama-3.2-1B dry-run, then
+    run for real on the card under the host mesh's policy."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config, get_optimizer
+    from repro_torch.distributed.sharding import make_policy
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import init_state, make_decode_step, make_train_step
+
+    cfg, opt = get_config(DRY_ARCH), get_optimizer(DRY_ARCH)
+    L = cfg.n_layers
+    mesh = make_host_mesh()
+    out = {}
+    try:
+        policy = make_policy(mesh, cfg)
+        rng = np.random.default_rng(17)
+
+        # (b) train_4k at batch 2
+        rec = dryrun.run_cell(DRY_ARCH, "train_4k", "host", global_batch=DRY_TRAIN_BATCH,
+                              mesh=mesh)
+        log(f"(b) {DRY_ARCH} train_4k on the host mesh, global batch {DRY_TRAIN_BATCH} "
+            f"(256 cut): dry run in {rec['cell_s']} s (trace {rec['trace_s']} s)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        state = init_state(cfg, opt, seed=0, device=dev)
+        tok = rng.integers(0, cfg.vocab, (DRY_TRAIN_BATCH, 4096)).astype(np.int32)
+        batch = {"tokens": torch.from_numpy(tok).to(dev),
+                 "labels": torch.from_numpy(np.roll(tok, -1, axis=1)).to(dev)}
+        held = _state_bytes(list(state["model"].parameters()) + list(state["opt"]["m"].values())
+                            + list(state["opt"]["v"].values()) + list(batch.values()))
+        log(f"  argument_bytes: predicted {rec['memory']['argument_bytes']:,}, on the card "
+            f"{held:,}")
+        if held != rec["memory"]["argument_bytes"]:
+            raise AssertionError("(b) argument_bytes differ from the card's")
+        step = make_train_step(cfg, opt, policy=policy)
+        state, m0 = step(state, batch, None)  # warm-up: the first signature
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m1 = step(state, batch, None)
+        e1.record()
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        ms = e0.elapsed_time(e1)
+        raw = torch.cuda.max_memory_allocated()
+        for m in (m0, m1):
+            if not torch.isfinite(m["loss"]):
+                raise AssertionError(f"(b) the loss is not finite: {m}")
+        check_counts(counts, 1, L, "(b) host-mesh train step", per_microbatch_dense)
+        gate = _peak_gate("(b)", rec, raw - base)
+        disp = _dispatched_peak(lambda: step(state, batch, None))
+        log(f"  (b) temporaries: the meta trace's {rec['memory']['temp_bytes'] / 2**30:.3f} GiB, "
+            f"the ops dispatched on the card {disp / 2**30:.3f}, the allocator's "
+            f"{(raw - base - held) / 2**30:.3f}")
+        tflops = rec["flops"] / (ms * 1e-3) / 1e12
+        log(f"  steady step {ms:.1f} ms, loss {float(m0['loss']):.4f} -> {float(m1['loss']):.4f};"
+            f" counted {rec['flops']:.4e} operations: {tflops:.1f} TFLOP/s, "
+            f"{tflops / (BF16_FLOPS / 1e12):.1%} of 989 (max_memory_allocated "
+            f"{raw / 2**30:.3f} GiB, {base / 2**30:.3f} of it held before the state)")
+        out["train"] = dict(record=rec, card_argument_bytes=held, step_ms=ms, launches=counts,
+                            tflops_per_s=tflops, peak_share=tflops / (BF16_FLOPS / 1e12),
+                            max_memory_allocated=raw, held_before=base,
+                            card_dispatched_temp=disp, **gate)
+        del state, batch, step, m0, m1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) decode_32k at batch 8, pos the cache's last slot
+        cap = 32768
+        rec = dryrun.run_cell(DRY_ARCH, "decode_32k", "host", global_batch=DRY_DECODE_BATCH,
+                              mesh=mesh)
+        log(f"(c) {DRY_ARCH} decode_32k on the host mesh, batch {DRY_DECODE_BATCH} (128 cut), "
+            f"capacity {cap}: dry run in {rec['cell_s']} s")
+        base = torch.cuda.memory_allocated()
+        model = T.Transformer(cfg, seed=0, device=dev)
+        caches = T.init_cache(cfg, DRY_DECODE_BATCH, cap, device=dev)
+        token = torch.from_numpy(rng.integers(0, cfg.vocab, (DRY_DECODE_BATCH, 1)).astype(
+            np.int32)).to(dev)
+        held = _state_bytes(list(model.parameters()) + [t for c in caches for t in c.values()]
+                            + [token])
+        log(f"  argument_bytes: predicted {rec['memory']['argument_bytes']:,}, on the card "
+            f"{held:,}")
+        if held != rec["memory"]["argument_bytes"]:
+            raise AssertionError("(c) argument_bytes differ from the card's")
+        decode = make_decode_step(cfg, policy=policy)
+        decode(model, caches, token, cap - 1)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        e0.record()
+        logits, caches = decode(model, caches, token, cap - 1)
+        e1.record()
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        raw = torch.cuda.max_memory_allocated()
+        if logits.shape != (DRY_DECODE_BATCH, cfg.vocab) or not torch.isfinite(logits).all():
+            raise AssertionError(f"(c) logits {tuple(logits.shape)} not finite or misshapen")
+        check_exact(counts, contig_want("attn", L, 0, 1), "(c) host-mesh decode step")
+        gate = _peak_gate("(c)", rec, raw - base)
+        log(f"  decode step {e0.elapsed_time(e1):.2f} ms (max_memory_allocated "
+            f"{raw / 2**30:.3f} GiB, {base / 2**30:.3f} of it held before the model)")
+        disp = _dispatched_peak(lambda: decode(model, caches, token, cap - 1))
+        log(f"  (c) temporaries: the meta trace's {rec['memory']['temp_bytes'] / 2**30:.3f} GiB, "
+            f"the ops dispatched on the card {disp / 2**30:.3f}, the allocator's "
+            f"{(raw - base - held) / 2**30:.3f}")
+        out["decode"] = dict(record=rec, card_argument_bytes=held, step_ms=e0.elapsed_time(e1),
+                             launches=counts, max_memory_allocated=raw, held_before=base,
+                             card_dispatched_temp=disp, **gate)
+        del model, caches, token, logits
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -5591,6 +5823,10 @@ def main() -> int:
         "train_vlm": timed("16c train_vlm", phase_train_vlm, K, dev),
         "serve_vlm": timed("16d serve_vlm", phase_serve_vlm, K, dev),
     }
+    record["dryrun17"] = {
+        "all": timed("17a dryrun_all", phase_dryrun_all),
+        **timed("17bc dryrun_host", phase_dryrun_host, K, dev),
+    }
 
     # launches: each main path's own count, reset to 0 just before that run
     # and read just after (the serving waves of phase 3, the 4 training steps
@@ -5605,7 +5841,8 @@ def main() -> int:
     # training steps, engine and contiguous runs and Kimi-K2's contiguous
     # and paged runs, and phase 16's MusicGen training steps, engine and
     # contiguous runs and Llama-3.2-Vision's training steps and contiguous
-    # serving); "launches" is their sum
+    # serving, and phase 17's host-mesh train and decode steps); "launches"
+    # is their sum
     kernels = []
     vlm16 = record["vlm16"]
     for name, k in record["kernels"].items():
@@ -5639,7 +5876,9 @@ def main() -> int:
                        vlm16["serve_musicgen"]["contiguous"]["launches"][name],
                    "contig_musicgen": vlm16["serve_musicgen"]["prefill_decode"]["launches"][name],
                    "train_vlm": vlm16["train_vlm"]["train"]["launches"][name],
-                   "contig_vlm": vlm16["serve_vlm"]["launches"][name]}
+                   "contig_vlm": vlm16["serve_vlm"]["launches"][name],
+                   "dry_train_host": record["dryrun17"]["train"]["launches"][name],
+                   "dry_decode_host": record["dryrun17"]["decode"]["launches"][name]}
         kernels.append({"name": name, **{key: k[key] for key in (
             "route", "source", "replaces")}, "launches": sum(by_path.values()),
             "launches_by_path": by_path,

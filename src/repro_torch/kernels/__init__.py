@@ -4,7 +4,10 @@ Models call these six functions.  The device of the tensor chooses:
 
 * a CPU tensor goes to the plain PyTorch version (``plain.py``),
 * a CUDA tensor goes to the hand-written Hopper kernel, which launches or
-  raises.
+  raises,
+* a ``meta`` tensor (the dry run's trace) goes to the kernel's shape
+  function (``meta.py``): its outputs as empty ``meta`` tensors, and its
+  operations counted in ``meta.flops()``; a kernel without one raises.
 
 Where autograd records the call (grad enabled and an input that requires
 grad), the operator runs as its ``torch.autograd.Function`` (``ops.py`` of
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from . import plain
+from . import meta, plain
 from .flash_attention import ops as flash_ops
 from .flash_attention.flash import flash_bwd_dkv, flash_bwd_dq, flash_fwd
 from .flash_attention.paged import paged_decode
@@ -67,14 +70,6 @@ KERNELS = {
 }
 
 
-def _on_card(x) -> bool:
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel for tensors on {x.device}")
-
-
 def _recorded(*tensors) -> bool:
     """Whether autograd records a call on these tensors."""
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
@@ -82,12 +77,11 @@ def _recorded(*tensors) -> bool:
 
 def adaln_modulate(x, scale, shift, eps: float = 1e-6):
     """Fused LayerNorm-Modulate (paper §3.3).  x: [B, S, D]; scale/shift: [B, D]."""
-    card = _on_card(x)
     if _recorded(x, scale, shift):
         return adaln_ops.adaln_modulate(x, scale, shift, eps)
-    if card:
-        return adaln_fwd(x, scale, shift, eps)[0]
-    return plain.adaln_modulate(x, scale, shift, eps)
+    if x.device.type == "cpu":
+        return plain.adaln_modulate(x, scale, shift, eps)
+    return meta.on_device(adaln_fwd, x)(x, scale, shift, eps)[0]
 
 
 def _forward_only(name: str, *tensors) -> None:
@@ -100,33 +94,30 @@ def _forward_only(name: str, *tensors) -> None:
 
 def rms_norm(x, w, eps: float = 1e-6):
     """RMSNorm over the last axis (the LM's norm1, norm2 and final_norm)."""
-    card = _on_card(x)
     if _recorded(x, w):
         return rms_ops.rms_norm(x, w, eps)
-    if card:
-        return rms_fwd(x, w, eps)[0]
-    return plain.rms_norm(x, w, eps)
+    if x.device.type == "cpu":
+        return plain.rms_norm(x, w, eps)
+    return meta.on_device(rms_fwd, x)(x, w, eps)[0]
 
 
 def gated_rms_norm(x, w, g, eps: float = 1e-6):
     """``rms_norm(x, w) * silu(g)`` over the last axis — the paper's
     Gate+Norm fusion (Mamba-2's norm before the out-projection)."""
-    card = _on_card(x)
     if _recorded(x, w, g):
         return rms_ops.gated_rms_norm(x, w, g, eps)
-    if card:
-        return gated_rms_fwd(x, w, g, eps)[0]
-    return plain.gated_rms_norm(x, w, g, eps)
+    if x.device.type == "cpu":
+        return plain.gated_rms_norm(x, w, g, eps)
+    return meta.on_device(gated_rms_fwd, x)(x, w, g, eps)[0]
 
 
 def qk_norm(q, k, wq, wk, eps: float = 1e-6):
     """Joint per-head q/k RMSNorm — paper's QNorm+KNorm fusion (one launch)."""
-    card = _on_card(q)
     if _recorded(q, k, wq, wk):
         return rms_ops.qk_norm(q, k, wq, wk, eps)
-    if card:
-        return qk_rms_fwd(q, k, wq, wk, eps)[:2]
-    return plain.qk_norm(q, k, wq, wk, eps)
+    if q.device.type == "cpu":
+        return plain.qk_norm(q, k, wq, wk, eps)
+    return meta.on_device(qk_rms_fwd, q)(q, k, wq, wk, eps)[:2]
 
 
 def attention(q, k, v, *, causal: bool, q_segment_ids=None,
@@ -139,18 +130,17 @@ def attention(q, k, v, *, causal: bool, q_segment_ids=None,
     shards of one packed window and runs the ring (K11): its hops run K7-K9
     and the merge kernels on the card, their plain versions on the CPU.
     """
-    card = _on_card(q)
-    if seq_group is not None:
+    if seq_group is not None:  # the ring has no shape function: it refuses meta
         return ring_attention(q, k, v, q_segment_ids, kv_segment_ids, group=seq_group,
                               causal=causal, scale=scale)
     if _recorded(q, k, v):
         return flash_ops.attention(q, k, v, causal=causal, q_segment_ids=q_segment_ids,
                                    kv_segment_ids=kv_segment_ids, scale=scale)
-    if card:
-        return flash_fwd(q, k, v, q_segment_ids, kv_segment_ids,
-                         causal=causal, scale=scale)[0]
-    return plain.attention(q, k, v, causal=causal, q_segment_ids=q_segment_ids,
-                           kv_segment_ids=kv_segment_ids, scale=scale)
+    if q.device.type == "cpu":
+        return plain.attention(q, k, v, causal=causal, q_segment_ids=q_segment_ids,
+                               kv_segment_ids=kv_segment_ids, scale=scale)
+    return meta.on_device(flash_fwd, q)(q, k, v, q_segment_ids, kv_segment_ids,
+                                        causal=causal, scale=scale)[0]
 
 
 def paged_attention(q, k_pages, v_pages, page_table, kv_lens, *, scale: float | None = None):
@@ -161,10 +151,10 @@ def paged_attention(q, k_pages, v_pages, page_table, kv_lens, *, scale: float | 
     at a scratch page); kv_lens: [B] int32 (0: an inactive slot, exact
     zeros).
     """
-    if _on_card(q):
-        _forward_only("paged_attention", q, k_pages, v_pages)
-        return paged_decode(q, k_pages, v_pages, page_table, kv_lens, scale=scale)
-    return plain.paged_attention(q, k_pages, v_pages, page_table, kv_lens, scale=scale)
+    if q.device.type == "cpu":
+        return plain.paged_attention(q, k_pages, v_pages, page_table, kv_lens, scale=scale)
+    _forward_only("paged_attention", q, k_pages, v_pages)
+    return meta.on_device(paged_decode, q)(q, k_pages, v_pages, page_table, kv_lens, scale=scale)
 
 
 def launch_counts() -> dict[str, int]:
@@ -182,6 +172,7 @@ __all__ = [
     "attention",
     "gated_rms_norm",
     "launch_counts",
+    "meta",
     "paged_attention",
     "plain",
     "qk_norm",

@@ -4,14 +4,16 @@
 The forward keeps only ``(x, scale, mu, rstd)`` as residuals (the paper's
 graph collapse); the backward computes ``dx`` through K2 and ``(dscale,
 dshift)`` through K3, cast to ``scale.dtype`` as ``ops.py:75`` does.  The
-device of ``x`` picks the kernels (CUDA) or their plain versions (CPU), so
-the CPU tests run the same residuals and casts as the card.
+device of ``x`` picks the kernels (CUDA), their shape functions (``meta``,
+``kernels.meta``) or their plain versions (CPU), so the CPU tests run the
+same residuals and casts as the card.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..meta import on_device, pick
 from .adaln import adaln_bwd_dmod, adaln_bwd_dx, adaln_fwd
 from .ref import adaln_bwd_dmod_ref, adaln_bwd_dx_ref, adaln_modulate_ref
 
@@ -19,7 +21,7 @@ from .ref import adaln_bwd_dmod_ref, adaln_bwd_dx_ref, adaln_modulate_ref
 class AdaLNModulate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, shift, eps):
-        fwd = adaln_fwd if x.device.type == "cuda" else adaln_modulate_ref
+        fwd = pick(adaln_fwd, adaln_modulate_ref, x)
         y, mu, rstd = fwd(x, scale, shift, eps)
         ctx.save_for_backward(x, scale, mu, rstd)
         return y
@@ -28,9 +30,9 @@ class AdaLNModulate(torch.autograd.Function):
     def backward(ctx, dy):
         x, scale, mu, rstd = ctx.saved_tensors
         dy = dy.contiguous()
-        if x.device.type == "cuda":
-            dx = adaln_bwd_dx(dy, x, mu, rstd, scale)
-            dscale, dshift = adaln_bwd_dmod(dy, x, mu, rstd)
+        if x.device.type != "cpu":
+            dx = on_device(adaln_bwd_dx, x)(dy, x, mu, rstd, scale)
+            dscale, dshift = on_device(adaln_bwd_dmod, x)(dy, x, mu, rstd)
         else:
             dx = adaln_bwd_dx_ref(dy, x, mu, rstd, scale)
             dscale, dshift = adaln_bwd_dmod_ref(dy, x, mu, rstd)

@@ -17,13 +17,15 @@
   through K6, each ONE launch for both tensors.
 
 dw is cast to the weight's dtype.  The device of the input picks the
-kernels (CUDA) or their plain versions (CPU).
+kernels (CUDA), their shape functions (``meta``, ``kernels.meta``) or
+their plain versions (CPU).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..meta import on_device, pick
 from .ref import (
     gated_bwd_split,
     gated_rms_bwd_ref,
@@ -47,7 +49,7 @@ from .rmsnorm import (
 class RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, eps):
-        y, rstd = (rms_fwd if x.device.type == "cuda" else rms_norm_ref)(x, w, eps)
+        y, rstd = pick(rms_fwd, rms_norm_ref, x)(x, w, eps)
         ctx.save_for_backward(x, w, rstd)
         return y
 
@@ -55,8 +57,9 @@ class RMSNorm(torch.autograd.Function):
     def backward(ctx, dy):
         x, w, rstd = ctx.saved_tensors
         dy = dy.contiguous()
-        if x.device.type == "cuda":
-            dx, dw = rms_bwd_dx(dy, x, w, rstd), rms_bwd_dw(dy, x, rstd)
+        if x.device.type != "cpu":
+            dx = on_device(rms_bwd_dx, x)(dy, x, w, rstd)
+            dw = on_device(rms_bwd_dw, x)(dy, x, rstd)
         else:
             dx, dw = rms_bwd_ref(dy, x, w, rstd)
         return dx, dw.to(w.dtype), None
@@ -65,7 +68,7 @@ class RMSNorm(torch.autograd.Function):
 class GatedRMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, g, eps):
-        fwd = gated_rms_fwd if x.device.type == "cuda" else gated_rms_norm_ref
+        fwd = pick(gated_rms_fwd, gated_rms_norm_ref, x)
         y, rstd = fwd(x, w, g, eps)
         ctx.save_for_backward(x, w, g, rstd)
         return y
@@ -73,19 +76,20 @@ class GatedRMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w, g, rstd = ctx.saved_tensors
-        if x.device.type != "cuda":
+        if x.device.type == "cpu":
             dx, dw, dg = gated_rms_bwd_ref(dy, x, w, g, rstd)
             return dx, dw.to(w.dtype), dg, None
         d_norm, dg = gated_bwd_split(dy, x, w, g, rstd)
         dy_eff = d_norm.to(dy.dtype).contiguous()
-        dx, dw = rms_bwd_dx(dy_eff, x, w, rstd), rms_bwd_dw(dy_eff, x, rstd)
+        dx = on_device(rms_bwd_dx, x)(dy_eff, x, w, rstd)
+        dw = on_device(rms_bwd_dw, x)(dy_eff, x, rstd)
         return dx, dw.to(w.dtype), dg, None
 
 
 class QKNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, wq, wk, eps):
-        fwd = qk_rms_fwd if q.device.type == "cuda" else qk_norm_ref
+        fwd = pick(qk_rms_fwd, qk_norm_ref, q)
         yq, yk, rq, rk = fwd(q, k, wq, wk, eps)
         ctx.save_for_backward(q, k, wq, wk, rq, rk)
         return yq, yk
@@ -95,9 +99,9 @@ class QKNorm(torch.autograd.Function):
         q, k, wq, wk, rq, rk = ctx.saved_tensors
         gq = torch.zeros_like(q) if gq is None else gq.contiguous()
         gk = torch.zeros_like(k) if gk is None else gk.contiguous()
-        if q.device.type == "cuda":
-            dq, dk = qk_rms_bwd_dx(gq, gk, q, k, wq, wk, rq, rk)
-            dwq, dwk = qk_rms_bwd_dw(gq, gk, q, k, rq, rk)
+        if q.device.type != "cpu":
+            dq, dk = on_device(qk_rms_bwd_dx, q)(gq, gk, q, k, wq, wk, rq, rk)
+            dwq, dwk = on_device(qk_rms_bwd_dw, q)(gq, gk, q, k, rq, rk)
         else:
             dq, dk, dwq, dwk = qk_rms_bwd_ref(gq, gk, q, k, wq, wk, rq, rk)
         return dq, dk, dwq.to(wq.dtype), dwk.to(wk.dtype), None

@@ -1,20 +1,28 @@
-"""Process-group set-up for step-plan execution: the counterpart of
-``repro.launch.mesh.make_data_mesh``.
+"""Meshes and process groups: the counterpart of ``repro.launch.mesh``.
 
-The reference builds a pure data-parallel device mesh inside one process.
-The port runs one process a rank: :func:`make_data_group` joins this
-process to a ``torch.distributed`` group of ``world_size`` ranks, from
-arguments only (it reads no environment variable), and returns the
-:class:`DataGroup` that ``distributed.plan_exec.PlanExecutor``,
-``train.engine.MeshEngine`` and ``Trainer(mesh=)`` consume.  The
-reference's production and host meshes belong with the dry run and are
-not ported.
+* :func:`make_production_mesh` — the dry run's ``("data", "model")``
+  16x16 or ``("pod", "data", "model")`` 2x16x16 ``DeviceMesh``, over a
+  fake process group of 256 or 512 ranks in this one process (rank 0; its
+  collectives move nothing), as the reference lays its mesh over host
+  placeholder devices.  The group is the process's default group, so the
+  production mesh needs a process of its own.
+* :func:`make_host_mesh` — a (1, 1) ``("data", "model")`` mesh on this
+  process's one device (the card unless the caller asks for the CPU), over
+  a real one-rank group.
+* :func:`make_data_group` — step-plan execution (the reference's
+  ``make_data_mesh``).  The reference builds a pure data-parallel device
+  mesh inside one process; the port runs one process a rank and joins
+  this process to a ``torch.distributed`` group of ``world_size`` ranks,
+  from arguments only (it reads no environment variable), returning the
+  :class:`DataGroup` that ``distributed.plan_exec.PlanExecutor``,
+  ``train.engine.MeshEngine`` and ``Trainer(mesh=)`` consume.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 from typing import Any
 
 import torch
@@ -23,6 +31,59 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 
 BACKENDS = ("nccl", "gloo")
+
+#: the production meshes: (shape, axis names) by ``multi_pod``
+PRODUCTION = {
+    False: ((16, 16), ("data", "model")),
+    True: ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh as a ``DeviceMesh`` of CPU placeholders over a
+    fake process group of ``prod(shape)`` ranks, this process rank 0
+    (``torch.testing._internal.distributed.fake_pg``): DTensors on it
+    place and redistribute ``meta`` tensors, recording their collectives,
+    and move no data.  Starts the group unless this process already has
+    that fake group; any other default group raises."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = PRODUCTION[bool(multi_pod)]
+    n = math.prod(shape)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != n:
+            raise RuntimeError(
+                f"the production mesh needs a process of its own: this one has a "
+                f"{dist.get_backend()} group of {dist.get_world_size()} ranks"
+            )
+    else:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+
+
+def make_host_mesh(device=None):
+    """A (1, 1) ``("data", "model")`` mesh on this process's one device,
+    CUDA unless ``device`` names another (raising without a GPU).  Starts a
+    one-rank group (nccl on the card, gloo on the CPU) unless this process
+    is already in a one-rank group."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    device = resolve_device(device)
+    if dist.is_initialized():
+        if dist.get_world_size() != 1:
+            raise RuntimeError(f"the host mesh is one device; this process is in a group of "
+                               f"{dist.get_world_size()}")
+    else:
+        if device.type == "cuda":
+            if device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1)
+    return DeviceMesh(device.type, torch.zeros((1, 1), dtype=torch.int),
+                      mesh_dim_names=("data", "model"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,4 +138,7 @@ def make_data_group(*, rank: int, world_size: int, store: str, backend: str, dev
                      device=device)
 
 
-__all__ = ["BACKENDS", "DataGroup", "make_data_group"]
+__all__ = [
+    "BACKENDS", "DataGroup", "PRODUCTION", "make_data_group", "make_host_mesh",
+    "make_production_mesh",
+]

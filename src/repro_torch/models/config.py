@@ -2,7 +2,8 @@
 dataclasses, field for field, so a configuration reads the same in both
 packages, with the layer plan (``layer_kinds``, ``superblocks``) the LM
 resolves its blocks and the JAX parameter tree's stacking from
-(:func:`lm_layers`), and the SSM widths (``d_inner``, ``ssm_heads``).
+(:func:`lm_layers`), whether the plan is ``subquadratic`` (the dry run's
+``long_500k`` cells), and the SSM widths (``d_inner``, ``ssm_heads``).
 Only the validation the ported paths rely on is kept.
 """
 
@@ -104,6 +105,13 @@ class ModelConfig:
                 return kinds, [], 0, []  # not a cycle: everything unrolled
         trailing = body[n_rep * len(pat) :]
         return kinds[:lead], pat, n_rep, trailing
+
+    @property
+    def subquadratic(self) -> bool:
+        """True if no block kind needs a full O(S^2)/O(S)-KV global attention
+        — the archs eligible for the long_500k shape."""
+        quadratic = {"attn", "moe", "cross"}
+        return not any(k in quadratic for k in self.layer_kinds())
 
     @property
     def d_inner(self) -> int:

@@ -21,18 +21,35 @@ from repro_torch import kernels
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
+def init_generator(seed: int, device) -> torch.Generator | None:
+    """The generator a model's weights are drawn from, seeded; None on the
+    ``meta`` device, where a model is built from shapes and nothing is
+    drawn (the dry run)."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def draw(gen: torch.Generator | None, shape, device, scale: float, dtype) -> torch.Tensor:
+    """N(0, 1) * ``scale`` drawn in f32 from ``gen`` and stored in
+    ``dtype``; on ``meta`` an empty tensor of that shape and dtype."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * scale).to(dtype)
+
+
+def dense_init(gen: torch.Generator | None, d_in: int, d_out: int, dtype, device,
                scale: float | None = None) -> nn.Parameter:
     """N(0, 1) * d_in^-0.5 (or ``scale``) weights, drawn in f32 from ``gen``."""
     s = scale if scale is not None else d_in**-0.5
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=device)
-    return nn.Parameter((w * s).to(dtype))
+    return nn.Parameter(draw(gen, (d_in, d_out), device, s, dtype))
 
 
-def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device) -> nn.Parameter:
+def embed_init(gen: torch.Generator | None, vocab: int, d: int, dtype, device) -> nn.Parameter:
     """N(0, 1) * 0.02 embeddings, drawn in f32 from ``gen``."""
-    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=device)
-    return nn.Parameter((w * 0.02).to(dtype))
+    return nn.Parameter(draw(gen, (vocab, d), device, 0.02, dtype))
 
 
 class Norm(nn.Module):

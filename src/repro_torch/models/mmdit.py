@@ -34,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import kernels, resolve_device
 
 from .config import ModelConfig
-from .layers import DTYPES, MLP, Norm, apply_mlp, apply_norm, dense_init
+from .layers import DTYPES, MLP, Norm, apply_mlp, apply_norm, dense_init, init_generator
 
 TEXT_DIM = 4096  # umt5-xxl width of the text-encoder states
 
@@ -70,16 +70,19 @@ class Block(nn.Module):
 
 
 def _block(bp: Block, x, txt, mod, cfg: ModelConfig, ops,
-           segment_ids=None, text_segment_ids=None):
+           segment_ids=None, text_segment_ids=None, policy=None):
     """mod: [B, 6, d] modulation signals (shared t-emb + per-block bias).
 
     ``segment_ids`` ([B, S] int32, -1 = padding) scope self-attention;
     ``text_segment_ids`` ([B, S_txt] int32) additionally scope
     cross-attention to each clip's own prompt.  Without them the text
-    stream is shared and cross-attention stays unsegmented.
+    stream is shared and cross-attention stays unsegmented.  ``policy``
+    constrains the residual stream and q, k, v (the reference's hooks).
     """
     b, s, _ = x.shape
     h, dh = cfg.n_heads, cfg.head_dim
+    if policy is not None:
+        x = policy.constrain(x, "resid")
     m = mod + bp.mod_bias[None]
     shift1, scale1, gate1 = m[:, 0], m[:, 1], m[:, 2]
     shift2, scale2, gate2 = m[:, 3], m[:, 4], m[:, 5]
@@ -91,6 +94,10 @@ def _block(bp: Block, x, txt, mod, cfg: ModelConfig, ops,
     k = qkv[..., h * dh : 2 * h * dh].reshape(b, s, h, dh)
     v = qkv[..., 2 * h * dh :].reshape(b, s, h, dh)
     q, k = ops.qk_norm(q, k, bp.qnorm, bp.knorm)
+    if policy is not None:
+        q = policy.constrain(q, "attn_q")
+        k = policy.constrain(k, "attn_kv")
+        v = policy.constrain(v, "attn_kv")
     ctx = ops.attention(
         q, k, v, causal=False,
         q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
@@ -120,7 +127,8 @@ class MMDiT(nn.Module):
     """The Wan-2.1-style MMDiT with weights drawn from ``seed``.
 
     Runs on CUDA unless ``device`` names another device; raises when no GPU
-    is visible and no device is named.
+    is visible and no device is named.  On ``meta`` the parameters have
+    their shapes and dtypes and nothing is drawn.
     """
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None):
@@ -130,7 +138,7 @@ class MMDiT(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = DTYPES[cfg.dtype]
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = init_generator(seed, device)
         d, dt = cfg.d_model, self.dtype
         in_dim = cfg.in_channels * 4  # 1x2x2 latent patchify
         self.x_in = dense_init(gen, in_dim, d, dt, device)
@@ -155,6 +163,7 @@ class MMDiT(nn.Module):
         text_segment_ids=None,  # [B, S_txt] int32: per-clip prompt ids (-1 = pad)
         ops: str = "kernel",  # "plain": the plain versions on any device
         remat: bool = False,  # recompute each block in the backward (training)
+        policy=None,  # sharding hooks (distributed.sharding.ShardingPolicy)
     ):
         if text_segment_ids is not None and segment_ids is None:
             raise ValueError(
@@ -173,9 +182,9 @@ class MMDiT(nn.Module):
         for bp in self.blocks:
             if remat:
                 x = checkpoint(_block, bp, x, txt, mod, cfg, K, segment_ids, text_segment_ids,
-                               use_reentrant=False)
+                               policy, use_reentrant=False)
             else:
-                x = _block(bp, x, txt, mod, cfg, K, segment_ids, text_segment_ids)
+                x = _block(bp, x, txt, mod, cfg, K, segment_ids, text_segment_ids, policy)
         fm = (temb @ self.final_mod).reshape(-1, 2, cfg.d_model).float()
         x = K.adaln_modulate(x, fm[:, 0], fm[:, 1])
         return x @ self.x_out
@@ -202,6 +211,7 @@ def rectified_flow_loss(
     text_segment_ids=None,
     ops: str = "kernel",
     remat: bool = True,
+    policy=None,
 ):
     """Rectified-flow velocity loss with the reference's casts
     (``repro.models.mmdit.rectified_flow_loss``): ``t ~ U[0, 1)``, ``eps ~
@@ -219,5 +229,5 @@ def rectified_flow_loss(
     xt = ((1.0 - tt) * x0.float() + tt * eps.float()).to(x0.dtype)
     v_target = eps.float() - x0.float()
     v_pred = model(xt, text, t, segment_ids=segment_ids, text_segment_ids=text_segment_ids,
-                   ops=ops, remat=remat)
+                   ops=ops, remat=remat, policy=policy)
     return ((v_pred.float() - v_target) ** 2).mean()

@@ -2,8 +2,8 @@
 sort-based capacity dispatch, the expert products as batched matrix
 products, and a shared expert.
 
-Tokens are split into ``n_groups`` dispatch groups (1 without a sharding
-policy, which the port has none of).  Each group routes its own ``t_loc``
+Tokens are split into ``n_groups`` dispatch groups (the sharding policy's
+``n_dispatch_groups``, 1 without a policy).  Each group routes its own ``t_loc``
 tokens: a softmax over the f32 router logits, the top-k experts, weights
 renormalised over the k; the ``t_loc * k`` assignments (flattened as
 ``t * k + j``) are sorted by expert with a stable sort and ranked within
@@ -15,6 +15,9 @@ outputs weighted by their probabilities.  ``no_drop`` sizes ``C`` at
 ``t_loc * k``, the most one expert can receive, so nothing drops (the
 decode paths).  The auxiliary loss is Switch's ``E * sum_e f_e P_e``, with
 ``f`` counted from the top-k choices of every group before any drop.
+With a ``policy``, the token groups, the gathered stream, the expert
+buffer, the experts' operand and output and the combine's gather go
+through ``policy.constrain`` in the reference's shapes.
 
 Every shape is fixed by the input's shape and the config, and nothing is
 read back to the host: no boolean indexing, no ``nonzero``.  The one
@@ -48,6 +51,8 @@ def _expert_init(gen: torch.Generator, shape: tuple[int, int, int], scale: float
     """N(0, 1) * scale weights ``[E, d_in, d_out]``, drawn in f32 from
     ``gen`` a few experts at a time and stored in ``dtype``."""
     w = torch.empty(shape, dtype=dtype, device=device)
+    if w.device.type == "meta":  # shapes only: nothing is drawn
+        return nn.Parameter(w)
     step = max(1, DRAW_VALUES // (shape[1] * shape[2]))
     for i in range(0, shape[0], step):
         n = min(step, shape[0] - i)
@@ -121,10 +126,14 @@ def aux_load_balance_loss(probs, top_e, n_experts: int):
     return n_experts * (f * probs.reshape(-1, n_experts).mean(dim=0)).sum()
 
 
-def apply_moe(p: MoE, x, cfg: MoEConfig, *, n_groups: int = 1, no_drop: bool = False):
+def apply_moe(p: MoE, x, cfg: MoEConfig, *, n_groups: int = 1, policy=None,
+              no_drop: bool = False):
     """x [B, S, d] -> ``(y [B, S, d] in x's dtype, aux f32 scalar)``.
 
     ``n_groups`` must divide B * S; ``no_drop`` keeps every assignment."""
+    def hook(t, kind):
+        return t if policy is None else policy.constrain(t, kind)
+
     b, s, d = x.shape
     if (b * s) % n_groups:
         raise ValueError(f"{b * s} tokens not divisible into {n_groups} groups")
@@ -132,7 +141,7 @@ def apply_moe(p: MoE, x, cfg: MoEConfig, *, n_groups: int = 1, no_drop: bool = F
     e, k = cfg.n_experts, cfg.top_k
     cap = capacity(t_loc, cfg, no_drop=no_drop)
     ec, tk = e * cap, t_loc * k
-    xg = x.reshape(n_groups, t_loc, d)
+    xg = hook(x.reshape(n_groups, t_loc, d), "moe_tokens")
     # the product in x's dtype, then lifted: the router's gradient chain
     # stays in x's dtype, as in the reference
     logits = (xg @ p.router.to(x.dtype)).float()
@@ -140,20 +149,22 @@ def apply_moe(p: MoE, x, cfg: MoEConfig, *, n_groups: int = 1, no_drop: bool = F
 
     # dispatch: assignment t*k + j carries token t; kept ones land in their
     # group's slot, dropped ones in the scratch row n_groups * ec
-    gathered = xg[:, :, None, :].expand(n_groups, t_loc, k, d).reshape(n_groups * tk, d)
+    gathered = hook(xg[:, :, None, :].expand(n_groups, t_loc, k, d).reshape(n_groups, tk, d),
+                    "moe_gathered").reshape(n_groups * tk, d)
     base = torch.arange(n_groups, device=x.device)[:, None] * ec
     dest = torch.where(keep, slot + base, n_groups * ec).reshape(-1)
     buf = x.new_zeros(n_groups * ec + 1, d).index_copy(0, dest, gathered)
 
     # the experts over every group's slots at once: [E, G*C, d] x [E, d, f]
-    bufe = buf[: n_groups * ec].view(n_groups, e, cap, d).transpose(0, 1).reshape(
-        e, n_groups * cap, d)
+    buf = hook(buf[: n_groups * ec].view(n_groups, e, cap, d), "moe_buffer")
+    bufe = hook(buf.transpose(0, 1).reshape(e, n_groups * cap, d), "moe_expert_tokens")
     h = F.silu(torch.matmul(bufe, p.w1)) * torch.matmul(bufe, p.w3)
-    out = torch.matmul(h, p.w2).view(e, n_groups, cap, d).transpose(0, 1).reshape(
-        n_groups * ec, d)
+    out = hook(torch.matmul(h, p.w2).view(e, n_groups, cap, d).transpose(0, 1), "moe_buffer")
+    out = out.reshape(n_groups * ec, d)
 
     # combine: each assignment's output, weighted, summed over k in x's dtype
-    back = out.index_select(0, (slot + base).reshape(-1)).view(n_groups, tk, d)
+    back = hook(out.index_select(0, (slot + base).reshape(-1)).view(n_groups, tk, d),
+                "moe_gathered")
     w = (top_p.reshape(n_groups, tk) * keep).to(x.dtype)
     y = (back * w[..., None]).view(n_groups, t_loc, k, d).sum(dim=2).reshape(b, s, d)
 

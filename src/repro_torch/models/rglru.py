@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
-from .layers import dense_init
+from .layers import dense_init, draw
 from .ssm import _causal_conv
 
 _C = 8.0  # Griffin's fixed temperature on the recurrence gate
@@ -48,8 +48,7 @@ class RGLRU(nn.Module):
         self.w_a = dense_init(gen, d, d, dtype, device)
         self.w_i = dense_init(gen, d, d, dtype, device)
         self.lam = nn.Parameter(torch.linspace(0.5, 4.0, d, dtype=torch.float32, device=device))
-        conv = torch.randn((CONV_WIDTH, d), generator=gen, dtype=torch.float32, device=device)
-        self.conv_w = nn.Parameter((conv * 0.2).to(dtype))
+        self.conv_w = nn.Parameter(draw(gen, (CONV_WIDTH, d), device, 0.2, dtype))
         self.conv_b = nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
         self.out = dense_init(gen, d, d, dtype, device)
 

@@ -33,7 +33,7 @@ from torch import nn
 from repro_torch import kernels
 
 from .config import SSMConfig
-from .layers import dense_init
+from .layers import dense_init, draw
 
 
 class SSM(nn.Module):
@@ -50,8 +50,7 @@ class SSM(nn.Module):
         conv_dim = di + 2 * ds
         f32 = dict(dtype=torch.float32, device=device)
         self.in_proj = dense_init(gen, d_model, 2 * di + 2 * ds + nh, dtype, device)
-        conv = torch.randn((cfg.conv_width, conv_dim), generator=gen, **f32) * 0.2
-        self.conv_w = nn.Parameter(conv.to(dtype))
+        self.conv_w = nn.Parameter(draw(gen, (cfg.conv_width, conv_dim), device, 0.2, dtype))
         self.conv_b = nn.Parameter(torch.zeros(conv_dim, dtype=dtype, device=device))
         self.A_log = nn.Parameter(torch.log(torch.linspace(1.0, 16.0, nh, **f32)))
         self.dt_bias = nn.Parameter(torch.zeros(nh, **f32))

@@ -60,8 +60,11 @@ reference's ``_paged_kinds`` takes global-attention kinds only, and
 sequence parallelism the same two at the block level.  The MoE blocks
 route with capacity in the full-sequence forward (training, prefill) and
 without drops in the decode steps (``no_drop``), as the reference does,
-in one dispatch group (the reference's ``policy.n_dispatch_groups``
-without a policy; the port has none).  A cross layer attends from every
+in ``n_groups`` dispatch groups (the steps pass the sharding policy's
+``n_dispatch_groups``, 1 without a policy).  With a ``policy``, the
+embedding output, each block's normed input and residual update and the
+attention's q, k and v go through ``policy.constrain`` at the reference's
+hook points.  A cross layer attends from every
 position to every image token (non-causal, no segment ids, also in a
 packed window, as the reference), and decodes against the cached memory
 with kv repeated to every query head.  Where the reference would promote
@@ -89,6 +92,7 @@ from .layers import (
     chunked_softmax_xent,
     dense_init,
     embed_init,
+    init_generator,
     last_token_logits,
     segment_relative_positions,
 )
@@ -243,7 +247,8 @@ class Transformer(nn.Module):
     embeddings: ``embed`` is also the LM head).
 
     Runs on CUDA unless ``device`` names another device; raises when no GPU
-    is visible and no device is named.
+    is visible and no device is named.  On ``meta`` the parameters have
+    their shapes and dtypes and nothing is drawn.
     """
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None):
@@ -252,7 +257,7 @@ class Transformer(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = DTYPES[cfg.dtype]
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = init_generator(seed, device)
         self.embed = embed_init(gen, cfg.vocab, cfg.d_model, self.dtype, device)
         self.blocks = nn.ModuleList(BLOCKS[k](cfg, gen, self.dtype, device) for k in self.kinds)
         self.final_norm = Norm(cfg.d_model, device, cfg.norm)
@@ -263,7 +268,7 @@ class Transformer(nn.Module):
 
     def forward(self, tokens, *, memory=None, collect_cache: bool = False, ops: str = "kernel",
                 remat: bool = False, segment_ids=None, positions=None, seq_group=None,
-                return_aux: bool = False):
+                return_aux: bool = False, policy=None, n_groups: int = 1):
         """Token ids [B, S] -> ``(hidden [B, S, d] after the final norm,
         caches)``, or with ``return_aux`` ``(hidden, aux, caches)``, aux the
         f32 sum of the MoE layers' router losses (0 without MoE layers):
@@ -284,7 +289,9 @@ class Transformer(nn.Module):
         parallelism (``seq_group``, a ring of ``kernels.flash_attention
         .ring``) the tokens and ids are contiguous shards of one window and
         ``positions`` must be the whole window's, sliced: recomputed per
-        shard they would restart at the shard boundary."""
+        shard they would restart at the shard boundary.  ``policy`` and
+        ``n_groups``: the sharding hooks and MoE dispatch groups (module
+        docstring)."""
         K = _ops(ops)
         cfg = self.cfg
         if seq_group is not None and positions is None:
@@ -293,6 +300,8 @@ class Transformer(nn.Module):
                 "(per-shard recomputation would restart at the shard boundary)"
             )
         x = self.embed[tokens.long()]
+        if policy is not None:
+            x = policy.constrain(x, "resid")
         if positions is None:
             positions = (segment_relative_positions(segment_ids) if segment_ids is not None
                          else torch.arange(tokens.shape[1], device=x.device))
@@ -302,11 +311,13 @@ class Transformer(nn.Module):
             if remat:
                 x, a, cache = checkpoint(apply_block, bp, x, cfg, positions, K, kind,
                                          memory=memory, segment_ids=segment_ids,
-                                         seq_group=seq_group, use_reentrant=False)
+                                         seq_group=seq_group, policy=policy, n_groups=n_groups,
+                                         use_reentrant=False)
             else:
                 x, a, cache = apply_block(bp, x, cfg, positions, K, kind, memory=memory,
                                           collect_cache=collect_cache,
-                                          segment_ids=segment_ids, seq_group=seq_group)
+                                          segment_ids=segment_ids, seq_group=seq_group,
+                                          policy=policy, n_groups=n_groups)
             if a is not None:
                 aux = aux + a
             if collect_cache:
@@ -337,7 +348,7 @@ def _project_qkv(bp: Attention, x, cfg: ModelConfig, K):
 
 
 def _self_attn_full(bp: Attention, x, cfg: ModelConfig, positions, K, *, local: bool = False,
-                    segment_ids=None, seq_group=None):
+                    segment_ids=None, seq_group=None, policy=None):
     """Causal self-attention over the whole sequence, scoped to each
     document by ``segment_ids``, or over this rank's shard of the ring
     ``seq_group``; with ``local``, Griffin's sliding window of
@@ -346,6 +357,10 @@ def _self_attn_full(bp: Attention, x, cfg: ModelConfig, positions, K, *, local: 
     q, k, v = _project_qkv(bp, x, cfg, K)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if policy is not None:
+        q = policy.constrain(q, "attn_q")
+        k = policy.constrain(k, "attn_kv")
+        v = policy.constrain(v, "attn_kv")
     if local:
         g = cfg.n_heads // cfg.n_kv_heads
         ctx = local_attention(q, repeat_kv(k, g), repeat_kv(v, g), window=cfg.local_window,
@@ -382,7 +397,7 @@ def _cross_attn_full(bp: CrossAttention, x, memory, cfg: ModelConfig, K):
 
 def apply_block(bp: Block | MoEBlock | SSMBlock | RGLRUBlock | CrossBlock, x, cfg: ModelConfig,
                 positions, K, kind: str = "attn", *, memory=None, collect_cache: bool = False,
-                segment_ids=None, seq_group=None):
+                segment_ids=None, seq_group=None, policy=None, n_groups: int = 1):
     """One block over a full sequence (or a ring shard of one, with
     ``seq_group``).  Returns ``(x, aux, cache or None)``, aux the MoE
     layer's router loss (None for the other kinds).  As in the reference,
@@ -397,6 +412,8 @@ def apply_block(bp: Block | MoEBlock | SSMBlock | RGLRUBlock | CrossBlock, x, cf
             f"(global-attention transformer blocks only)"
         )
     h = apply_norm(bp.norm1, x, cfg.norm, cfg.norm_eps, K)
+    if policy is not None:
+        h = policy.constrain(h, "resid")
     if kind == "ssm":
         if collect_cache:
             out, cache = apply_ssm(bp.mixer, h, cfg.ssm, K, return_cache=True)
@@ -414,15 +431,20 @@ def apply_block(bp: Block | MoEBlock | SSMBlock | RGLRUBlock | CrossBlock, x, cf
             cache = {"k": k, "v": v}
     else:
         out, (k, v) = _self_attn_full(bp.attn, h, cfg, positions, K, local=kind == "local",
-                                      segment_ids=segment_ids, seq_group=seq_group)
+                                      segment_ids=segment_ids, seq_group=seq_group,
+                                      policy=policy)
         if collect_cache:
             cache = _make_attn_cache(k, v, kind, cfg)
     x = x + out
     h2 = apply_norm(bp.norm2, x, cfg.norm, cfg.norm_eps, K)
+    aux = None
     if kind == "moe":
-        out2, aux = apply_moe(bp.moe, h2, cfg.moe)
-        return x + out2, aux, cache
-    return x + apply_mlp(bp.mlp, h2), None, cache
+        out2, aux = apply_moe(bp.moe, h2, cfg.moe, n_groups=n_groups, policy=policy)
+    else:
+        out2 = apply_mlp(bp.mlp, h2)
+    if policy is not None:
+        out2 = policy.constrain(out2, "resid")
+    return x + out2, aux, cache
 
 
 def _make_attn_cache(k, v, kind: str, cfg: ModelConfig) -> dict:
@@ -452,18 +474,20 @@ def _make_attn_cache(k, v, kind: str, cfg: ModelConfig) -> dict:
 
 def lm_loss(model: Transformer, tokens, labels, *, memory=None, loss_chunk: int = 512,
             ops: str = "kernel", remat: bool = True, segment_ids=None, positions=None,
-            seq_group=None):
+            seq_group=None, policy=None, n_groups: int = 1):
     """Mean next-token cross-entropy of ``tokens`` [B, S] against ``labels``
     [B, S] (``repro.models.transformer.lm_loss``): the forward with each
     block recomputed in the backward, then :func:`chunked_softmax_xent`
     over chunks of ``min(loss_chunk, S)`` positions against the tied
     embedding, plus ``router_aux_weight`` times the MoE layers' summed
     router loss where the config has MoE.  ``memory``, ``segment_ids``,
-    ``positions`` and ``seq_group`` as in :meth:`Transformer.forward`; on a
+    ``positions``, ``seq_group``, ``policy`` and ``n_groups`` as in
+    :meth:`Transformer.forward`; on a
     ``LocalRing`` the k shards are stacked along the batch axis, so the
     mean over all their tokens is the mean of the k shard means."""
     h, aux, _ = model(tokens, memory=memory, ops=ops, remat=remat, segment_ids=segment_ids,
-                      positions=positions, seq_group=seq_group, return_aux=True)
+                      positions=positions, seq_group=seq_group, return_aux=True, policy=policy,
+                      n_groups=n_groups)
     ce = chunked_softmax_xent(h, model.embed, labels, chunk=min(loss_chunk, tokens.shape[1]))
     if model.cfg.moe is None:
         return ce
@@ -535,19 +559,22 @@ def _pad_attn_caches(caches: list, cfg: ModelConfig, cap: int) -> list:
     return out
 
 
-def prefill(model: Transformer, tokens, cache_cap: int, *, memory=None, ops: str = "kernel"):
+def prefill(model: Transformer, tokens, cache_cap: int, *, memory=None, ops: str = "kernel",
+            policy=None, n_groups: int = 1):
     """Run the prompts tokens [B, S] (one length: the logits are at the
     last position of every row), the cross layers over ``memory``.
     Returns ``(logits [B, V] f32, caches)``, the attention caches grown to
     ``cache_cap`` positions.  The MoE layers route the B * S tokens with
     capacity, as in training."""
-    h, caches = model(tokens, memory=memory, collect_cache=True, ops=ops)
+    h, caches = model(tokens, memory=memory, collect_cache=True, ops=ops, policy=policy,
+                      n_groups=n_groups)
     return last_token_logits(h[:, -1], model.embed), _pad_attn_caches(caches, model.cfg,
                                                                       cache_cap)
 
 
 def apply_block_decode(bp: Block | MoEBlock | SSMBlock | RGLRUBlock | CrossBlock, x,
-                       cfg: ModelConfig, cache: dict, pos: int, K, kind: str = "attn"):
+                       cfg: ModelConfig, cache: dict, pos: int, K, kind: str = "attn", *,
+                       policy=None, n_groups: int = 1):
     """One block for one new token per row at position ``pos``.  Returns
     ``(x, cache)``: an attention (or MoE) layer's k and v are written at
     ``pos`` in place before attending over ``pos + 1`` positions; a local
@@ -598,11 +625,13 @@ def apply_block_decode(bp: Block | MoEBlock | SSMBlock | RGLRUBlock | CrossBlock
         raise ValueError(kind)
     h2 = apply_norm(bp.norm2, x, cfg.norm, cfg.norm_eps, K)
     if kind == "moe":
-        return x + apply_moe(bp.moe, h2, cfg.moe, no_drop=True)[0], cache
+        return x + apply_moe(bp.moe, h2, cfg.moe, n_groups=n_groups, policy=policy,
+                             no_drop=True)[0], cache
     return x + apply_mlp(bp.mlp, h2), cache
 
 
-def decode_step(model: Transformer, caches: list, token, pos: int, *, ops: str = "kernel"):
+def decode_step(model: Transformer, caches: list, token, pos: int, *, ops: str = "kernel",
+                policy=None, n_groups: int = 1):
     """One new token per row: token [B, 1] at position ``pos``, a Python
     int that every row shares.  Returns ``(logits [B, V] f32, caches)``.
 
@@ -621,7 +650,7 @@ def decode_step(model: Transformer, caches: list, token, pos: int, *, ops: str =
     x = model.embed[token.long()]
     new = []
     for bp, kind, c in zip(model.blocks, model.kinds, caches):
-        x, c = apply_block_decode(bp, x, cfg, c, pos, K, kind)
+        x, c = apply_block_decode(bp, x, cfg, c, pos, K, kind, policy=policy, n_groups=n_groups)
         new.append(c)
     x = apply_norm(model.final_norm, x, cfg.norm, cfg.norm_eps, K)
     return last_token_logits(x[:, -1], model.embed), new
@@ -677,7 +706,7 @@ def scatter_caches_into_pools(caches: list, pools: list, cfg: ModelConfig, page_
 
 
 def apply_block_paged_decode(bp: Block | MoEBlock, x, cfg: ModelConfig, pool: dict, page_table,
-                             kv_lens, K, kind: str = "attn"):
+                             kv_lens, K, kind: str = "attn", *, policy=None, n_groups: int = 1):
     """One block for one new token per decode slot, KV in paged pools; an
     MoE layer routes the slots' tokens without drops (inactive slots
     included: with no drop they cannot displace an active slot's token).
@@ -705,12 +734,13 @@ def apply_block_paged_decode(bp: Block | MoEBlock, x, cfg: ModelConfig, pool: di
     x = x + ctx.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ bp.attn.wo
     h2 = apply_norm(bp.norm2, x, cfg.norm, cfg.norm_eps, K)
     if kind == "moe":
-        return x + apply_moe(bp.moe, h2, cfg.moe, no_drop=True)[0]
+        return x + apply_moe(bp.moe, h2, cfg.moe, n_groups=n_groups, policy=policy,
+                             no_drop=True)[0]
     return x + apply_mlp(bp.mlp, h2)
 
 
 def paged_decode_step(model: Transformer, pools: list, page_table, kv_lens, token, *,
-                      ops: str = "kernel"):
+                      ops: str = "kernel", policy=None, n_groups: int = 1):
     """One decode wave over paged pools.  page_table [B, pages_max] int32,
     kv_lens [B] int32, token [B, 1].  Returns ``(logits [B, V] f32,
     pools)``, the pools updated in place."""
@@ -718,13 +748,14 @@ def paged_decode_step(model: Transformer, pools: list, page_table, kv_lens, toke
     cfg = model.cfg
     x = model.embed[token.long()]
     for bp, kind, pool in zip(model.blocks, model.kinds, pools):
-        x = apply_block_paged_decode(bp, x, cfg, pool, page_table, kv_lens, K, kind)
+        x = apply_block_paged_decode(bp, x, cfg, pool, page_table, kv_lens, K, kind,
+                                     policy=policy, n_groups=n_groups)
     x = apply_norm(model.final_norm, x, cfg.norm, cfg.norm_eps, K)
     return last_token_logits(x[:, -1], model.embed), pools
 
 
 def paged_prefill(model: Transformer, tokens, true_len, page_table, pools: list, *,
-                  ops: str = "kernel"):
+                  ops: str = "kernel", policy=None, n_groups: int = 1):
     """Run prompts and scatter their KV into pool pages.
 
     tokens [B, S_pad] padded to a page multiple; true_len [B] the prompt
@@ -741,7 +772,7 @@ def paged_prefill(model: Transformer, tokens, true_len, page_table, pools: list,
     s = tokens.shape[1]
     if s % ps != 0:
         raise ValueError(f"prompt width {s} not a multiple of page_size {ps}")
-    h, caches = model(tokens, collect_cache=True, ops=ops)
+    h, caches = model(tokens, collect_cache=True, ops=ops, policy=policy, n_groups=n_groups)
     scatter_caches_into_pools(caches, pools, model.cfg, page_table, ps)
     b = tokens.shape[0]
     last = h[torch.arange(b, device=h.device), true_len.long() - 1]

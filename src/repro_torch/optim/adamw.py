@@ -17,6 +17,8 @@ Parameters, gradients and moments are dicts keyed by parameter name
   temporaries are a block's (256 MiB each), not the leaf's (an MoE
   layer's ``w1`` of 671 M values, an embedding of 1 G).  Its squares are
   summed into the global norm by block too (that sum's order differs).
+  On ``meta`` tensors (the dry run), where nothing is computed, one block
+  of each shape stands for the rest.
 
 Unlike the JAX version, the update is in place: the parameters and moments
 of the arguments are overwritten (and returned), so a 1.3B model's state is
@@ -68,7 +70,12 @@ def _blocks(t: torch.Tensor):
     if t.numel() <= CHUNK_THRESHOLD_ELEMS or t.ndim < 2 or t.shape[0] <= 1:
         return [t]
     rows = max(1, CHUNK_THRESHOLD_ELEMS // (t.numel() // t.shape[0]))
-    return list(torch.split(t, rows))
+    blocks = list(torch.split(t, rows))
+    if t.device.type == "meta":
+        # shapes only (the dry run's trace): every block but the last has
+        # the first's shape, so one of each shape makes the same temporaries
+        return blocks[:1] + [b for b in blocks[-1:] if b.shape != blocks[0].shape]
+    return blocks
 
 
 def global_norm(tree: dict) -> torch.Tensor:

@@ -15,6 +15,11 @@ step, and the sequence-parallel step of one packed window split over a
 ring of ranks (:func:`make_sp_pool_grad_step`, fed by
 ``data.packing.split_packed_batch`` shards).
 
+Every step maker but the sequence-parallel ones takes the reference's
+``policy`` (``distributed.sharding.ShardingPolicy``): the model calls
+``policy.constrain`` at the reference's hook points, and the MoE layers
+route in ``policy.n_dispatch_groups`` groups (1 without a policy).
+
 Randomness follows the reference's rule with numpy's ``SeedSequence`` in
 place of ``jax.random``: a step key is an integer, and a pool microbatch's
 generator is seeded by :func:`fold_in` ``(step_key, pool_index)`` with the
@@ -88,7 +93,11 @@ def init_state(cfg: ModelConfig, opt: OptimizerConfig, *, seed: int = 0, device=
 # -- train -----------------------------------------------------------------------
 
 
-def make_loss_fn(cfg: ModelConfig) -> Callable:
+def _n_groups(policy) -> int:
+    return policy.n_dispatch_groups if policy is not None else 1
+
+
+def make_loss_fn(cfg: ModelConfig, policy=None) -> Callable:
     """``loss_fn(model, batch, rng, noise=None)``, with blocks recomputed in
     the backward: for the mmdit, the rectified-flow loss of one batch
     (``latents``, ``text`` and optional ``segment_ids`` /
@@ -99,10 +108,12 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
     batch's ``memory`` (a VLM's; no draws: ``rng`` and ``noise`` are
     unused)."""
     _trained(cfg, "make_loss_fn")
+    n_groups = _n_groups(policy)
     if cfg.family != "mmdit":
         def lm_loss_fn(model, batch, rng, noise=None):
             return T.lm_loss(model, batch["tokens"], batch["labels"], memory=batch.get("memory"),
-                             segment_ids=batch.get("segment_ids"))
+                             segment_ids=batch.get("segment_ids"), policy=policy,
+                             n_groups=n_groups)
 
         return lm_loss_fn
 
@@ -111,19 +122,20 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
         return rectified_flow_loss(
             model, batch["latents"], batch["text"], t=t, eps=eps, generator=rng,
             segment_ids=batch.get("segment_ids"),
-            text_segment_ids=batch.get("text_segment_ids"),
+            text_segment_ids=batch.get("text_segment_ids"), policy=policy,
         )
 
     return loss_fn
 
 
-def make_pool_grad_step(cfg: ModelConfig, noise: NoiseHook | None = None) -> Callable:
+def make_pool_grad_step(cfg: ModelConfig, noise: NoiseHook | None = None, *,
+                        policy=None) -> Callable:
     """One pool microbatch's gradient step, shared by every executor:
     ``grad_step(model, batch, step_key, pool_index) -> (loss, grads)`` with
     grads a dict by parameter name in the parameters' dtypes.  The draws
     come from a generator seeded by ``fold_in(step_key, pool_index)``
     unless ``noise`` returns them (mmdit only)."""
-    loss_fn = make_loss_fn(cfg)
+    loss_fn = make_loss_fn(cfg, policy)
     if noise is not None:
         _mmdit_only(cfg, "the noise hook")
 
@@ -196,10 +208,10 @@ def sp_batch(shards: list[dict], group, device) -> dict:
             for name in local[0]}
 
 
-def make_train_step(cfg: ModelConfig, opt: OptimizerConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, opt: OptimizerConfig, policy=None) -> Callable:
     """``train_step(state, batch, rng) -> (state, metrics)``: one batch's
     loss and gradient, then one AdamW update (in place)."""
-    loss_fn = make_loss_fn(cfg)
+    loss_fn = make_loss_fn(cfg, policy)
     decay = decay_rule(cfg)
 
     def train_step(state, batch, rng):
@@ -218,7 +230,7 @@ def make_train_step(cfg: ModelConfig, opt: OptimizerConfig) -> Callable:
 # -- serve -----------------------------------------------------------------------
 
 
-def make_denoise_step(cfg: ModelConfig) -> Callable:
+def make_denoise_step(cfg: ModelConfig, policy=None) -> Callable:
     """MMDiT serving: one velocity evaluation, without autograd state.  The
     optional segment ids scope attention per clip so the continuous-batching
     engine can pad mixed clip lengths into one wave (-1 = padding)."""
@@ -229,7 +241,7 @@ def make_denoise_step(cfg: ModelConfig) -> Callable:
         with torch.inference_mode():
             return model(
                 latents, text, t,
-                segment_ids=segment_ids, text_segment_ids=text_segment_ids,
+                segment_ids=segment_ids, text_segment_ids=text_segment_ids, policy=policy,
             )
 
     return denoise_step
@@ -240,54 +252,61 @@ def _lm_only(cfg: ModelConfig, what: str) -> None:
         raise ValueError(f"{what} needs an LM config, got {cfg.family!r}")
 
 
-def make_prefill_step(cfg: ModelConfig, cache_cap: int) -> Callable:
+def make_prefill_step(cfg: ModelConfig, cache_cap: int, policy=None) -> Callable:
     """Contiguous prefill without autograd state: run the prompts [B, S]
     (one length), a VLM's cross layers over ``memory``, and return
     ``(logits at the last position [B, V] f32, caches)``, the attention
     caches grown to ``cache_cap`` positions."""
     _lm_only(cfg, "prefill")
+    n_groups = _n_groups(policy)
 
     def prefill_step(model, tokens, memory=None):
         with torch.inference_mode():
-            return T.prefill(model, tokens, cache_cap, memory=memory)
+            return T.prefill(model, tokens, cache_cap, memory=memory, policy=policy,
+                             n_groups=n_groups)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig) -> Callable:
+def make_decode_step(cfg: ModelConfig, policy=None) -> Callable:
     """One contiguous decode step without autograd state: token [B, 1] at
     position ``pos`` (a Python int every row shares).  Returns ``(logits
     [B, V] f32, caches)``, the attention caches updated in place."""
     _lm_only(cfg, "decode")
+    n_groups = _n_groups(policy)
 
     def decode_step(model, caches, token, pos: int):
         with torch.inference_mode():
-            return T.decode_step(model, caches, token, pos)
+            return T.decode_step(model, caches, token, pos, policy=policy, n_groups=n_groups)
 
     return decode_step
 
 
-def make_paged_prefill_step(cfg: ModelConfig) -> Callable:
+def make_paged_prefill_step(cfg: ModelConfig, policy=None) -> Callable:
     """Prefill into paged KV pools (continuous-batching serving), without
     autograd state: run the padded prompts, scatter their caches into pool
     pages, and return the logits at each request's true last token."""
     _lm_only(cfg, "paged prefill")
+    n_groups = _n_groups(policy)
 
     def paged_prefill_step(model, tokens, true_len, page_table, pools):
         with torch.inference_mode():
-            return T.paged_prefill(model, tokens, true_len, page_table, pools)
+            return T.paged_prefill(model, tokens, true_len, page_table, pools, policy=policy,
+                                   n_groups=n_groups)
 
     return paged_prefill_step
 
 
-def make_paged_decode_step(cfg: ModelConfig) -> Callable:
+def make_paged_decode_step(cfg: ModelConfig, policy=None) -> Callable:
     """One decode wave over paged pools, without autograd state: every slot
     carries its own position (``kv_lens``), so one step serves requests at
     mixed depths, the iteration unit of continuous batching."""
     _lm_only(cfg, "paged decode")
+    n_groups = _n_groups(policy)
 
     def paged_decode_step(model, pools, page_table, kv_lens, token):
         with torch.inference_mode():
-            return T.paged_decode_step(model, pools, page_table, kv_lens, token)
+            return T.paged_decode_step(model, pools, page_table, kv_lens, token, policy=policy,
+                                       n_groups=n_groups)
 
     return paged_decode_step

@@ -40,6 +40,9 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.distributed.fault_tolerance, repro_torch.train.loop\n"
         "import repro_torch.core.shape_bench, repro_torch.distributed.plan_exec\n"
         "import repro_torch.launch.mesh, repro_torch.examples.serve_lm\n"
+        "import repro_torch.distributed.sharding, repro_torch.launch.specs\n"
+        "import repro_torch.launch.comm_stats, repro_torch.launch.dryrun\n"
+        "import repro_torch.kernels.meta\n"
         "from repro_torch.train.engine import MeshEngine\n"
         "from repro_torch.train.loop import Trainer; Trainer.__init__\n"
         "from repro_torch.distributed.fault_tolerance import RankZeroRunner\n"
@@ -67,8 +70,28 @@ def test_port_calls_no_library_kernel_or_environment(path):
 
 
 @pytest.mark.parametrize("rel", ["core/shape_bench.py", "distributed/plan_exec.py",
-                                 "launch/mesh.py", "train/engine.py", "train/loop.py"])
+                                 "launch/mesh.py", "train/engine.py", "train/loop.py",
+                                 "distributed/sharding.py", "launch/specs.py",
+                                 "launch/comm_stats.py", "launch/dryrun.py", "kernels/meta.py"])
 def test_mesh_and_shape_bench_modules_are_scanned(rel):
-    """The modules of step-plan execution across processes and of the
-    Shape Benchmark are among the sources scanned above."""
+    """The modules of step-plan execution across processes, of the Shape
+    Benchmark and of the dry run are among the sources scanned above."""
     assert PORT / rel in PORT_FILES
+
+
+def test_the_dry_run_sets_no_xla_flags():
+    """The reference's dry run sets ``XLA_FLAGS`` before importing JAX; the
+    port's sets nothing of the environment and imports nothing of JAX."""
+    src = (PORT / "launch" / "dryrun.py").read_text()
+    assert "XLA_FLAGS" not in src and "jax" not in src.replace("ajax", "")
+
+
+def test_every_module_of_the_reference_has_a_counterpart():
+    """Each ``.py`` module of the JAX package has one in the port, under the
+    same path, but ``launch/hlo_stats.py``, whose counterpart is
+    ``launch/comm_stats.py`` (named in its docstring)."""
+    ref = ROOT / "src" / "repro"
+    missing = [str(p.relative_to(ref)) for p in sorted(ref.rglob("*.py"))
+               if not (PORT / p.relative_to(ref)).exists()]
+    assert missing == ["launch/hlo_stats.py"]
+    assert "repro.launch.hlo_stats" in (PORT / "launch" / "comm_stats.py").read_text()
