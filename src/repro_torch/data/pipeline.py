@@ -18,8 +18,10 @@ way to the devices.
 A background prefetch thread keeps ``prefetch`` steps of synthetic batches
 ready so device steps never wait on the host (the paper's shape benchmark
 explicitly excludes data-loading jitter; this is how the real loop does
-too).  ``plan_update()`` lets the closed-loop scheduler swap bucket tables
-mid-training without draining the pipeline.
+too).  While tracing is on (``core.spans``), each step that
+``BucketedLoader``'s producer draws is a ``loader.draw`` span of that
+thread.  ``plan_update()`` lets the closed-loop scheduler swap bucket
+tables mid-training without draining the pipeline.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from repro_torch.core.dispatch import (
     merge_split_worker_steps,
     normalized_weights,
 )
+from repro_torch.core.spans import span
 from repro_torch.data.packing import (
     PackedBucket,
     PackedWindow,
@@ -106,10 +109,11 @@ class BucketedLoader:
             buckets, probs, budget = self._buckets, self._probs, self.budget
         out = []
         acc = 0.0
-        while acc < budget:
-            b = buckets[int(self._rng.choice(len(buckets), p=probs))]
-            out.append((b, self._make_batch(self._rng, b)))
-            acc += self.budget_of(b)
+        with span("loader.draw"):
+            while acc < budget:
+                b = buckets[int(self._rng.choice(len(buckets), p=probs))]
+                out.append((b, self._make_batch(self._rng, b)))
+                acc += self.budget_of(b)
         return out
 
     def _worker(self) -> None:

@@ -14,7 +14,8 @@ and the three fused operators routed through ``repro_torch.kernels``,
 which picks the CUDA kernel or the plain version by the tensors' device
 (and, under autograd, runs the backward kernels).  ``forward(remat=True)``
 recomputes each block in the backward (``torch.utils.checkpoint``, the
-counterpart of ``jax.checkpoint``), as training does;
+counterpart of ``jax.checkpoint``), as training does, each recomputation
+an ``engine.recompute`` span while tracing (``core.spans``);
 :func:`rectified_flow_loss` is the training objective.
 
 Activations run in the configuration's dtype: the latents and text are cast
@@ -24,14 +25,17 @@ with bf16 weights; for an f32 configuration the two are the same.)
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch import kernels, resolve_device
+from repro_torch.core import spans
 
 from .config import ModelConfig
 from .layers import DTYPES, MLP, Norm, apply_mlp, apply_norm, dense_init, init_generator
@@ -179,15 +183,24 @@ class MMDiT(nn.Module):
         temb = timestep_embedding(t, 256).to(self.dtype)
         temb = F.silu(temb @ self.t_mlp1)
         mod = (temb @ self.t_mlp2).reshape(-1, 6, cfg.d_model).float()
+        contexts = (functools.partial(_recompute_contexts, x.device) if spans.enabled()
+                    else noop_context_fn)
         for bp in self.blocks:
             if remat:
                 x = checkpoint(_block, bp, x, txt, mod, cfg, K, segment_ids, text_segment_ids,
-                               policy, use_reentrant=False)
+                               policy, use_reentrant=False, context_fn=contexts)
             else:
                 x = _block(bp, x, txt, mod, cfg, K, segment_ids, text_segment_ids, policy)
         fm = (temb @ self.final_mod).reshape(-1, 2, cfg.d_model).float()
         x = K.adaln_modulate(x, fm[:, 0], fm[:, 1])
         return x @ self.x_out
+
+
+def _recompute_contexts(device):
+    """``checkpoint``'s contexts while tracing: none around the forward, an
+    ``engine.recompute`` span around the block's recomputation in the
+    backward."""
+    return contextlib.nullcontext(), spans.span("engine.recompute", device)
 
 
 def decays(name: str, p) -> bool:

@@ -14,37 +14,19 @@ optimizer update consumes their mean over the pool, divided in f32
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Mapping, Sequence
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.dispatch import SplitShard, merge_split_worker_steps
+from repro_torch.core.spans import clock, seconds, span
 from repro_torch.core.telemetry import WorkerStepRecord
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import OptimizerConfig, adamw_update
 from repro_torch.train.steps import NoiseHook, decay_rule, make_pool_grad_step
 
 WorkerSteps = Sequence[Sequence[tuple[Any, dict]]]  # [rank][(bucket, batch)]
-
-
-def clock(device: torch.device):
-    """A mark on ``device``'s timeline: a recorded CUDA event on the card,
-    the host clock elsewhere (where the work is synchronous)."""
-    if device.type == "cuda":
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-    return time.perf_counter()
-
-
-def seconds(start, end) -> float:
-    """Seconds between two :func:`clock` marks (waits for a CUDA event)."""
-    if isinstance(end, torch.cuda.Event):
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
-    return end - start
 
 
 @dataclasses.dataclass
@@ -104,10 +86,14 @@ class EmulatedEngine(ExecutionEngine):
     step.  Each microbatch is timed between two :func:`clock` marks (CUDA
     events on the card: no synchronisation per microbatch) and gives one
     ``WorkerStepRecord``; the first microbatch of each batch signature is
-    kept out of telemetry.  A sequence-parallel split fan-out is merged
-    back into whole windows first (``merge_split_worker_steps``: this
-    engine has no ring to shard over; the merged entry keeps shard 0's
-    pool position).  ``worker_time_scale`` scales rank ``w``'s *recorded*
+    kept out of telemetry.  While tracing is on (``core.spans``), those
+    marks are the device pair of an ``engine.microbatch`` span
+    (``engine.first_signature`` for a signature's first), and the
+    accumulation, the f32 pool mean and AdamW are device-timed
+    ``engine.accumulate``, ``engine.pool_mean`` and ``engine.adamw`` spans.
+    A sequence-parallel split fan-out is merged back into whole windows
+    first (``merge_split_worker_steps``: this engine has no ring to shard
+    over; the merged entry keeps shard 0's pool position).  ``worker_time_scale`` scales rank ``w``'s *recorded*
     times (a degraded device, for the scheduler's straggler path); ``noise``
     injects the draws (tests)."""
 
@@ -155,28 +141,34 @@ class EmulatedEngine(ExecutionEngine):
                 fresh = sig not in self._seen_signatures
                 self._seen_signatures.add(sig)
                 compiled = compiled or fresh
-                t0 = clock(model.device)
-                loss, grads = self._grad_step(model, batch, step_key, pool_index)
+                with span("engine.first_signature" if fresh else "engine.microbatch") as sp:
+                    t0 = clock(model.device)
+                    loss, grads = self._grad_step(model, batch, step_key, pool_index)
+                    t1 = clock(model.device)
+                    sp.pair(t0, t1)
                 if not fresh:  # first-call set-up would poison telemetry
-                    self._pending.append((t0, clock(model.device), w, bucket, scale))
+                    self._pending.append((t0, t1, w, bucket, scale))
                 if acc is None:
                     acc = grads
                 else:
-                    for name, g in grads.items():
-                        acc[name].add_(g)
+                    with span("engine.accumulate", model.device):
+                        for name, g in grads.items():
+                            acc[name].add_(g)
                 loss_sum = loss if loss_sum is None else loss_sum + loss
                 pool_index += 1
                 del grads
         if acc is None:
             raise ValueError("execute_step received an empty fan-out")
         if pool_index > 1:  # the pool mean, in f32; frees each sum as it goes
-            for name in acc:
-                acc[name] = acc[name].float() / pool_index
+            with span("engine.pool_mean", model.device):
+                for name in acc:
+                    acc[name] = acc[name].float() / pool_index
         # one microbatch: its gradients are the mean as they are (AdamW widens
         # each block to f32 itself, and x / 1 is exact), and no f32 copy of
         # the gradients is held (21.8 GB for Llama-4-Scout at 2 layers)
         params = dict(model.named_parameters())
-        adamw_update(params, acc, state["opt"], state["step"], self.opt, decay=self._decay)
+        with span("engine.adamw", model.device):
+            adamw_update(params, acc, state["opt"], state["step"], self.opt, decay=self._decay)
         state["step"] += 1
         self._step = step
         return state, StepOutcome(loss=loss_sum.float() / pool_index, compiled=compiled)

@@ -13,7 +13,10 @@ records its loss, time, tokens and microbatch telemetry; a step that ran a
 batch signature for the first time (kernel builds, library set-up) is
 recorded as a ``compile@i`` event and kept out of
 ``TrainHistory.throughput``.  Step times come from CUDA events on the
-card and from the host clock on the CPU.
+card and from the host clock on the CPU.  While tracing is on
+(``core.spans``), each step's body is a ``trainer.step`` span, each fetch
+from the loader a ``trainer.data_wait``, and the reads that wait on the
+device (the timing records, the step time, the loss) a ``trainer.sync``.
 
 With ``scheduler=`` attached (``core.scheduler.AdaptiveLoadScheduler``)
 every step's records go to ``scheduler.observe``: the closed loop of
@@ -65,6 +68,7 @@ import numpy as np
 
 from repro_torch.core.dispatch import group_worker_steps
 from repro_torch.core.scheduler import AdaptiveLoadScheduler
+from repro_torch.core.spans import span
 from repro_torch.core.telemetry import WorkerStepRecord
 from repro_torch.data.pipeline import ShardedBucketedLoader, SnapshotUnavailable
 from repro_torch.distributed.chaos import ChaosContext, ChaosSchedule
@@ -80,6 +84,12 @@ from repro_torch.train.engine import (
 )
 
 RUN_STATE_VERSION = 1
+
+
+def _fetch(data_iter):
+    """The loader's next item, under a ``trainer.data_wait`` span."""
+    with span("trainer.data_wait"):
+        return next(data_iter)
 
 
 def split_key(key: int) -> tuple[int, int]:
@@ -264,59 +274,61 @@ class Trainer:
             ft.note_restored(start_step)
         state = engine.place_state(state)
         device = state["model"].device
-        item = next(data_iter) if n_steps > 0 else None
+        item = _fetch(data_iter) if n_steps > 0 else None
         held = 0
         for i in range(n_steps):
-            step_no = start_step + i
-            worker_steps = self._as_worker_steps(item)
-            t0 = clock(device)
-            tok = sum(bucket.tokens for ws in worker_steps for bucket, _ in ws)
-            n_micro = sum(len(ws) for ws in worker_steps)
-            rng, sub = split_key(rng)
-            state, out = engine.execute_step(state, self._to_physical(worker_steps),
-                                             step_key=sub, step=step_no)
-            t1 = clock(device)
-            held = 0
-            if engine.async_dispatch and i + 1 < n_steps:
-                # the device still computes step i: fetch step i+1 and stage
-                # its batches behind that compute
-                item = next(data_iter)
-                engine.prepare(self._to_physical(self._as_worker_steps(item)))
-                held = 1
-            recs = engine.timing_records()
-            dt = seconds(t0, t1)
-            loss = float(out.loss)
+            with span("trainer.step"):
+                step_no = start_step + i
+                worker_steps = self._as_worker_steps(item)
+                t0 = clock(device)
+                tok = sum(bucket.tokens for ws in worker_steps for bucket, _ in ws)
+                n_micro = sum(len(ws) for ws in worker_steps)
+                rng, sub = split_key(rng)
+                state, out = engine.execute_step(state, self._to_physical(worker_steps),
+                                                 step_key=sub, step=step_no)
+                t1 = clock(device)
+                held = 0
+                if engine.async_dispatch and i + 1 < n_steps:
+                    # the device still computes step i: fetch step i+1 and stage
+                    # its batches behind that compute
+                    item = _fetch(data_iter)
+                    engine.prepare(self._to_physical(self._as_worker_steps(item)))
+                    held = 1
+                with span("trainer.sync"):
+                    recs = engine.timing_records()
+                    dt = seconds(t0, t1)
+                    loss = float(out.loss)
 
-            hist.losses.append(loss)
-            hist.step_times.append(dt)
-            hist.tokens.append(tok)
-            hist.microbatches.append(n_micro)
-            hist.records.extend(recs)
-            if out.compiled:
-                hist.compile_steps.append(i)
-                hist.events.append(f"compile@{step_no}")
-            if self.scheduler is not None:
-                self.scheduler.observe(recs)
+                hist.losses.append(loss)
+                hist.step_times.append(dt)
+                hist.tokens.append(tok)
+                hist.microbatches.append(n_micro)
+                hist.records.extend(recs)
+                if out.compiled:
+                    hist.compile_steps.append(i)
+                    hist.events.append(f"compile@{step_no}")
+                if self.scheduler is not None:
+                    self.scheduler.observe(recs)
 
-            if self.chaos is not None:
-                ctx = ChaosContext(monitor=ft.monitor if ft else None, runner=ft,
-                                   engine=engine, preemption=ft.preemption if ft else None)
-                for msg in self.chaos.fire(step_no, ctx):
-                    hist.events.append(f"{msg}@{step_no}")
+                if self.chaos is not None:
+                    ctx = ChaosContext(monitor=ft.monitor if ft else None, runner=ft,
+                                       engine=engine, preemption=ft.preemption if ft else None)
+                    for msg in self.chaos.fire(step_no, ctx):
+                        hist.events.append(f"{msg}@{step_no}")
 
-            if ft is not None and self._fault_tolerance(state, step_no, rng,
-                                                        engine.agreed_time(dt), hist, held):
-                break
+                if ft is not None and self._fault_tolerance(state, step_no, rng,
+                                                            engine.agreed_time(dt), hist, held):
+                    break
 
-            if not engine.async_dispatch and i + 1 < n_steps:
-                # fetched AFTER the fault-tolerance block: a checkpoint then
-                # sits exactly on a plan boundary (nothing popped to rewind)
-                item = next(data_iter)
-            if on_metrics is not None:
-                on_metrics(step_no, {"loss": loss, "time": dt, "tokens": tok})
-            if log_every and i % log_every == 0:
-                print(f"step {step_no:5d}  loss {loss:.4f}  {tok/dt:,.0f} tok/s  "
-                      f"({n_micro} microbatches, {len(worker_steps)} ranks)")
+                if not engine.async_dispatch and i + 1 < n_steps:
+                    # fetched AFTER the fault-tolerance block: a checkpoint then
+                    # sits exactly on a plan boundary (nothing popped to rewind)
+                    item = _fetch(data_iter)
+                if on_metrics is not None:
+                    on_metrics(step_no, {"loss": loss, "time": dt, "tokens": tok})
+                if log_every and i % log_every == 0:
+                    print(f"step {step_no:5d}  loss {loss:.4f}  {tok/dt:,.0f} tok/s  "
+                          f"({n_micro} microbatches, {len(worker_steps)} ranks)")
         # degraded variant: an end-of-run loader that cannot snapshot (a
         # resize still draining) must not crash a finished run; the
         # launcher then persists weights + trainer key.  A preempted run

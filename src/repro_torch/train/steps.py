@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.spans import span
 from repro_torch.models.config import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.mmdit import MMDiT, decays, rectified_flow_loss
@@ -134,7 +135,9 @@ def make_pool_grad_step(cfg: ModelConfig, noise: NoiseHook | None = None, *,
     ``grad_step(model, batch, step_key, pool_index) -> (loss, grads)`` with
     grads a dict by parameter name in the parameters' dtypes.  The draws
     come from a generator seeded by ``fold_in(step_key, pool_index)``
-    unless ``noise`` returns them (mmdit only)."""
+    unless ``noise`` returns them (mmdit only).  While tracing is on
+    (``core.spans``), the loss and the gradient are device-timed
+    ``engine.forward`` and ``engine.backward`` spans."""
     loss_fn = make_loss_fn(cfg, policy)
     if noise is not None:
         _mmdit_only(cfg, "the noise hook")
@@ -143,8 +146,10 @@ def make_pool_grad_step(cfg: ModelConfig, noise: NoiseHook | None = None, *,
         rng = torch.Generator(device=model.device).manual_seed(fold_in(step_key, pool_index))
         injected = noise(step_key, pool_index, batch) if noise is not None else None
         names, params = zip(*model.named_parameters())
-        loss = loss_fn(model, batch, rng, injected)
-        grads = torch.autograd.grad(loss, params)
+        with span("engine.forward", model.device):
+            loss = loss_fn(model, batch, rng, injected)
+        with span("engine.backward", model.device):
+            grads = torch.autograd.grad(loss, params)
         return loss.detach(), dict(zip(names, grads))
 
     return grad_step

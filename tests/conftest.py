@@ -1,6 +1,6 @@
 """Shared test fixtures/shims.
 
-Three concerns:
+Four concerns:
 
 * make ``pytest`` runnable from the repo root without exporting
   ``PYTHONPATH=src`` by hand (the Makefile does it anyway; this is a belt
@@ -10,12 +10,14 @@ Three concerns:
   only takes effect if set before jax initializes its backends — conftest
   imports before any test module, so this is the one reliable hook.  An
   operator-provided ``XLA_FLAGS`` (e.g. CI's) always wins, and nothing is
-  touched if jax is somehow already imported, and
+  touched if jax is somehow already imported,
 * keep the property-based test modules importable when ``hypothesis`` is
   not installed (offline images): a minimal stand-in is registered in
   ``sys.modules`` so ``from hypothesis import given, settings, strategies``
   still resolves, and every ``@given`` test *skips* at runtime instead of
-  erroring the whole collection.
+  erroring the whole collection, and
+* register the ``card`` marker of tests that need a CUDA card (each decides
+  inside itself whether one is there, and skips where none is).
 """
 
 from __future__ import annotations
@@ -96,3 +98,7 @@ except ImportError:
     )
     sys.modules["hypothesis"] = _mod
     sys.modules["hypothesis.strategies"] = _strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card; skips where none is visible")
