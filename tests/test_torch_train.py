@@ -355,6 +355,7 @@ def test_trainer_three_steps_match_jax():
     # the reference: 3 steps of the JAX Trainer on its EmulatedEngine
     jstate = jax_init_state(jax.random.PRNGKey(0), cfg, jopt)
     params0 = jax.tree.map(np.asarray, jstate["params"])
+    opt0 = jax.tree.map(np.asarray, jstate["opt"])
     jstate, jhist = JaxTrainer(cfg, jopt, donate=False).run(
         jstate, stream(jax_bucketing, jnp.asarray), 3, rng=jax.random.PRNGKey(5), log_every=0)
 
@@ -373,10 +374,7 @@ def test_trainer_three_steps_match_jax():
 
     model = MMDiT(cfg, device="cpu")
     model.load_state_dict(from_jax_params(params0, cfg, device="cpu"))
-    state = {"model": model,
-             "opt": from_jax_opt_state(jax.tree.map(np.asarray, jax_init_state(
-                 jax.random.PRNGKey(0), cfg, jopt)["opt"]), cfg, device="cpu"),
-             "step": 0}
+    state = {"model": model, "opt": from_jax_opt_state(opt0, cfg, device="cpu"), "step": 0}
     trainer = Trainer(cfg, opt, engine=EmulatedEngine(cfg, opt, noise=noise))
     state, hist = trainer.run(state, stream(bucketing, torch.from_numpy), 3, rng=5, log_every=0)
 
